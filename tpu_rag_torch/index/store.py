@@ -1,0 +1,121 @@
+"""Index persistence: manifest + raw binary shards (port of
+tpu_rag/index/store.py, same on-disk format).
+
+The TPU equivalent of Chroma's persist dir (reference vector_store/ —
+chroma.sqlite3 + hnswlib data_level0.bin/link_lists.bin segments): a
+directory per collection holding
+
+    manifest.json   — dims, dtype, metric, kind, counts, file names
+    vectors.f32     — row-major float32 master vectors
+    ids.jsonl       — one JSON-encoded id per row (format v2; v1 stores
+                      carry a single-array ids.json, loaded back-compat)
+    meta.jsonl      — one metadata JSON object per row
+    docs.jsonl      — one JSON-encoded document string per row
+
+The index is always rebuildable from DOCS_DIR (same durability contract as
+the reference, SURVEY.md §5 "Checkpoint / resume"), so the store favors
+simplicity + mmap-ability over compression.  Quantized/bf16 device forms are
+derived at load time.  Flat stores only: an IVF manifest raises
+NotImplementedError until the IVF slice is ported.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from pathlib import Path
+
+import numpy as np
+
+from tpu_rag_torch.index.flat import FlatIndex
+
+MANIFEST = "manifest.json"
+
+
+def iter_store_ids(ids_file: Path):
+    """Yield the store's ids in row order.  Format v2 streams ids.jsonl
+    line by line; v1 stores (a single JSON array in ids.json — e.g.
+    previously-built demo indexes) load whole and iterate."""
+    ids_file = Path(ids_file)
+    if ids_file.suffix == ".jsonl":
+        with open(ids_file, encoding="utf-8") as f:
+            for line in f:
+                if line.strip():
+                    yield json.loads(line)
+        return
+    yield from json.loads(ids_file.read_text(encoding="utf-8"))
+
+
+def save_index(index: FlatIndex, path: str | Path) -> None:
+    p = Path(path)
+    p.mkdir(parents=True, exist_ok=True)
+    # Hold the index lock across the vector write AND the row-store walk so
+    # both see the same live set.  Everything streams: vectors from the
+    # arena chunk by chunk, ids/meta/docs from the row store batch by batch
+    # — RAM stays bounded even for disk-backed beyond-RAM masters.
+    with index._lock:
+        live = np.flatnonzero(index._alive)
+        # write to a temp name + rename: the arena may have ADOPTED a
+        # read-only memmap of this very vectors.f32 (zero-copy load) —
+        # opening it "wb" in place would truncate the pages the write loop
+        # is about to read (SIGBUS + a destroyed store).  The rename keeps
+        # the old inode alive for any live memmap.
+        tmp = p / "vectors.f32.tmp"
+        count = index._arena.write_rows(tmp, rows=live)
+        os.replace(tmp, p / "vectors.f32")
+        # ids as jsonl (format v2): the loader streams all three row files
+        # line by line — no 100M-entry list materializes on open
+        with open(p / "ids.jsonl", "w", encoding="utf-8") as f_ids, \
+                open(p / "meta.jsonl", "w", encoding="utf-8") as f_meta, \
+                open(p / "docs.jsonl", "w", encoding="utf-8") as f_docs:
+            for rid, doc, meta in index.iter_live_rows():
+                f_ids.write(json.dumps(rid, ensure_ascii=False) + "\n")
+                f_meta.write(json.dumps(meta, ensure_ascii=False) + "\n")
+                f_docs.write(json.dumps(doc, ensure_ascii=False) + "\n")
+    manifest = {
+        "format_version": 2,
+        "kind": index.kind,
+        "dim": index.dim,
+        "dtype": index.dtype_config,  # "auto" persists unresolved
+        "metric": index.metric,
+        "count": count,
+        "files": {"vectors": "vectors.f32", "ids": "ids.jsonl",
+                  "meta": "meta.jsonl", "docs": "docs.jsonl"},
+    }
+    # Write manifest last: its presence marks a complete snapshot.
+    (p / MANIFEST).write_text(json.dumps(manifest, indent=2), encoding="utf-8")
+
+
+def load_index(path: str | Path, **overrides) -> FlatIndex:
+    """Open a saved flat store; `overrides` are FlatIndex keyword arguments
+    (device, dtype, block_n, ...)."""
+    p = Path(path)
+    manifest = json.loads((p / MANIFEST).read_text(encoding="utf-8"))
+    if manifest["kind"] != "flat":
+        raise NotImplementedError(f"{manifest['kind'].upper()} not yet ported")
+    count = manifest["count"]
+    dim = manifest["dim"]
+    # read-only memmap: the index adopts it zero-copy, so opening a
+    # 100M-row store costs no read of the vector file; the first mutation
+    # migrates rows to a writable (RAM or disk) backing
+    vectors = np.memmap(p / manifest["files"]["vectors"], dtype=np.float32,
+                        mode="r", shape=(count, dim)) if count else \
+        np.zeros((0, dim), np.float32)
+    ids = iter_store_ids(p / manifest["files"]["ids"])
+    idx = FlatIndex(dim, dtype=overrides.pop("dtype", manifest["dtype"]),
+              metric=manifest["metric"], **overrides)
+
+    def _doc_meta_iter():
+        # stream the jsonl pair line by line — the doc/meta rows flow into
+        # the index's row store in batches (RAM bounded even at 100M rows
+        # with docmeta_backing="disk")
+        with open(p / manifest["files"]["meta"], encoding="utf-8") as fm, \
+                open(p / manifest["files"]["docs"], encoding="utf-8") as fd:
+            for mline, dline in zip(fm, fd):
+                if not mline.strip():
+                    continue
+                yield json.loads(dline), json.loads(mline)
+
+    if count:
+        idx._bulk_adopt_rows(vectors, ids, _doc_meta_iter(), count=count)
+    return idx

@@ -1,0 +1,326 @@
+"""Fused similarity matmul + top-k selection (port of tpu_rag/ops/topk.py).
+
+`fused_matmul_topk` keeps the signature and return contract of the JAX
+function: (scores (q, k) f32, ids (q, k) int32), ids of -1 (score -inf) where
+fewer than k rows matched, ties to the lowest row.  On a CUDA tensor it
+launches the hand-written kernels of csrc/topk.cu (#1 exact, #3 bucketed) or
+raises; on a CPU tensor it runs their plain PyTorch versions below, which
+repeat the kernels' arithmetic.  The global merge of per-tile candidates is
+torch, as JAX merges outside Pallas with lax.top_k, and uses a stable sort so
+the lowest row wins a tie (torch.topk documents no tie order).
+
+Dropped from the JAX module: QP_MAX query chunking, default_block_n's VMEM
+budgets and the compiler params (TPU tiling), the packed mode (#2) and the
+read-rate probe (#4), which are not ported yet.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from tpu_rag_torch import _build
+from tpu_rag_torch.ops.quant import quantize_int8_rows
+
+# Tag value marking padded (non-existent) DB rows; real tag ids are >= 0 and
+# a filter value of -1 means "no filter on this tag".
+PAD_TAG = -(2**31)
+
+BUCKET = 128          # bucketed mode: one candidate per 128 consecutive rows
+K_MAX = 128           # largest k the exact kernel selects
+_SMEM_MAX = 232_448   # dynamic shared memory one H100 block may use
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def select_topk(scores: torch.Tensor, ids: torch.Tensor | None, k: int):
+    """Top-k along dim 1 with ties to the lowest position: a stable sort
+    keeps equal scores in their order, and callers lay candidates out in
+    ascending row order.  Pads to k with -inf/-1; -inf slots get id -1."""
+    q, m = scores.shape
+    k_eff = min(k, m)
+    order = torch.sort(scores, dim=1, descending=True, stable=True).indices[:, :k_eff]
+    top_sc = scores.gather(1, order)
+    top_id = order if ids is None else ids.gather(1, order)
+    top_id = top_id.to(torch.int32)
+    if k_eff < k:
+        top_sc = torch.cat([top_sc, top_sc.new_full((q, k - k_eff), -math.inf)], 1)
+        top_id = torch.cat([top_id, top_id.new_full((q, k - k_eff), -1)], 1)
+    top_id = torch.where(torch.isneginf(top_sc), torch.full_like(top_id, -1), top_id)
+    return top_sc, top_id
+
+
+def _tag_mask(ns, canon, want_ns: int, want_canon: int) -> torch.Tensor:
+    ok = ns != PAD_TAG
+    if want_ns >= 0:
+        ok &= ns == want_ns
+    if want_canon >= 0:
+        ok &= canon == want_canon
+    return ok
+
+
+# ------------------------------------------------------------ plain versions
+
+
+def _scan_scores_plain(q, x, scale, ns, canon, qscale, want_ns, want_canon,
+                       *, apply_qscale: bool) -> torch.Tensor:
+    """(nq, n) f32 masked scores, the kernels' arithmetic: bf16/f32 products
+    summed in f32; int8 sums are exact integers in f32 (|sum| < 2^24 for
+    d <= 1024), then (acc * query scale) * row scale."""
+    acc = q.to(torch.float32) @ x.to(torch.float32).T
+    if x.dtype == torch.int8:
+        if apply_qscale:
+            acc = acc * qscale[:, None]
+        acc = acc * scale[None, :]
+    ok = _tag_mask(ns, canon, want_ns, want_canon)
+    return torch.where(ok[None, :], acc, torch.full_like(acc, -math.inf))
+
+
+def _exact_scan_plain(q, x, scale, ns, canon, qscale, want_ns, want_canon, k):
+    """Plain version of kernel #1: exact top-k over all rows."""
+    s = _scan_scores_plain(q, x, scale, ns, canon, qscale, want_ns, want_canon,
+                           apply_qscale=True)
+    return select_topk(s, None, k)
+
+
+def _bucketed_scan_plain(q, x, scale, ns, canon, want_ns, want_canon):
+    """Plain version of kernel #3: (nq, ceil(n/128)) bucket maxima and their
+    rows (first row among ties), without the int8 query scale."""
+    s = _scan_scores_plain(q, x, scale, ns, canon, None, want_ns, want_canon,
+                           apply_qscale=False)
+    nq, n = s.shape
+    nb = -(-n // BUCKET)
+    if nb * BUCKET != n:
+        s = torch.cat([s, s.new_full((nq, nb * BUCKET - n), -math.inf)], 1)
+    bmax, barg = s.view(nq, nb, BUCKET).max(dim=2)
+    base = torch.arange(nb, device=s.device, dtype=torch.int64) * BUCKET
+    return bmax, (base[None, :] + barg).to(torch.int32)
+
+
+# ------------------------------------------------------------ CUDA kernels
+
+_SCAN_ARGS = [_build.P] * 6 + [_build.I] * 10 + [_build.P] * 3
+
+
+def _smem_bytes(dtype_code: int, d: int, qc: int, k: int, exact: bool) -> int:
+    fn = _build.load("topk").tr_scan_smem_bytes
+    fn.argtypes = [_build.I] * 5
+    fn.restype = ctypes.c_size_t
+    return int(fn(dtype_code, d, qc, k, int(exact)))
+
+
+def _scan_cuda(q, x, scale, ns, canon, qscale, want_ns, want_canon, k, exact):
+    """Launch kernel #1 (exact) or #3 (bucketed) of csrc/topk.cu."""
+    n, d = x.shape
+    nq = q.shape[0]
+    for name, t, dt in (("queries", q, x.dtype), ("database", x, x.dtype),
+                        ("ns_tags", ns, torch.int32), ("canon_tags", canon, torch.int32)):
+        if t.device != x.device or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous {dt} tensor on "
+                             f"{x.device}, got {t.dtype} on {t.device}")
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"unsupported database dtype {x.dtype}")
+    if d % 16 != 0:
+        raise ValueError(f"the CUDA scan needs d % 16 == 0, got d={d}")
+    if ns.shape != (n,) or canon.shape != (n,):
+        raise ValueError("ns/canon tags must be (n,)")
+    if exact and not 0 < k <= K_MAX:
+        raise ValueError(f"the exact scan selects 1 <= k <= {K_MAX}, got {k}")
+    is_int8 = x.dtype == torch.int8
+    needs = [("db_scales", scale, (n,))] + ([("query scales", qscale, (nq,))]
+                                            if exact else [])
+    for name, t, shape in needs:
+        if is_int8 and (t is None or t.shape != shape or t.dtype != torch.float32
+                        or t.device != x.device or not t.is_contiguous()):
+            raise ValueError(f"int8 scan needs contiguous f32 {name} of shape {shape}")
+    code = _DTYPE_CODE[x.dtype]
+    kk = k if exact else 0
+    qc = min(64, _round_up(nq, 16))
+    while qc > 16 and _smem_bytes(code, d, qc, kk, exact) > _SMEM_MAX:
+        qc -= 16
+    if _smem_bytes(code, d, qc, kk, exact) > _SMEM_MAX:
+        raise ValueError(f"scan does not fit shared memory at d={d}, k={k}")
+    # ~2 resident blocks per SM across all query chunks
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    target = max(1, (2 * sms) // (-(-nq // qc)))
+    tile_rows = _round_up(-(-n // target), BUCKET)
+    nt = -(-n // tile_rows)
+    cols = nt * k if exact else -(-n // BUCKET)
+    out_sc = torch.empty((nq, cols), dtype=torch.float32, device=x.device)
+    out_id = torch.empty((nq, cols), dtype=torch.int32, device=x.device)
+    fn = _build.function("topk", "tr_scan", _SCAN_ARGS)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q.data_ptr(), x.data_ptr(),
+                 scale.data_ptr() if is_int8 else None, ns.data_ptr(),
+                 canon.data_ptr(), qscale.data_ptr() if is_int8 and exact else None,
+                 n, d, nq, int(want_ns), int(want_canon), tile_rows, qc, kk,
+                 int(exact), code, out_sc.data_ptr(), out_id.data_ptr(), stream)
+    _build.check(err, "tr_scan", "topk")
+    return out_sc, out_id
+
+
+def _exact_scan_cuda(q, x, scale, ns, canon, qscale, want_ns, want_canon, k):
+    """Kernel #1: per-tile exact top-k, merged here (stable, lowest row)."""
+    cand_sc, cand_id = _scan_cuda(q, x, scale, ns, canon, qscale, want_ns,
+                                  want_canon, k, exact=True)
+    _exact_scan_cuda.launches += 1
+    return select_topk(cand_sc, cand_id, k)
+
+
+def _bucketed_scan_cuda(q, x, scale, ns, canon, want_ns, want_canon):
+    """Kernel #3: (nq, ceil(n/128)) bucket maxima and rows."""
+    out = _scan_cuda(q, x, scale, ns, canon, None, want_ns, want_canon, 0,
+                     exact=False)
+    _bucketed_scan_cuda.launches += 1
+    return out
+
+
+_exact_scan_cuda.launches = 0
+_bucketed_scan_cuda.launches = 0
+
+
+def exact_scan(q, x, scale, ns, canon, qscale, want_ns, want_canon, k):
+    """Kernel #1 on a CUDA tensor, its plain version on a CPU tensor."""
+    if x.device.type == "cuda":
+        return _exact_scan_cuda(q, x, scale, ns, canon, qscale, want_ns, want_canon, k)
+    if x.device.type != "cpu":
+        raise ValueError(f"unsupported device {x.device}")
+    return _exact_scan_plain(q, x, scale, ns, canon, qscale, want_ns, want_canon, k)
+
+
+def bucketed_scan(q, x, scale, ns, canon, want_ns, want_canon):
+    """Kernel #3 on a CUDA tensor, its plain version on a CPU tensor."""
+    if x.device.type == "cuda":
+        return _bucketed_scan_cuda(q, x, scale, ns, canon, want_ns, want_canon)
+    if x.device.type != "cpu":
+        raise ValueError(f"unsupported device {x.device}")
+    return _bucketed_scan_plain(q, x, scale, ns, canon, want_ns, want_canon)
+
+
+# ------------------------------------------------------------ public API
+
+
+def _want_pair(wants, want_ns: int, want_canon: int) -> tuple[int, int]:
+    if wants is None:
+        return int(want_ns), int(want_canon)
+    w = torch.as_tensor(wants).reshape(-1).tolist()
+    return int(w[0]), int(w[1])
+
+
+def fused_matmul_topk(
+    queries: torch.Tensor,
+    database: torch.Tensor,
+    k: int,
+    *,
+    db_scales: torch.Tensor | None = None,
+    ns_tags: torch.Tensor | None = None,
+    canon_tags: torch.Tensor | None = None,
+    want_ns: int = -1,
+    want_canon: int = -1,
+    block_n: int = 2048,
+    assume_padded: bool = False,
+    wants=None,
+    mode: str = "exact",
+):
+    """Top-k inner-product search: returns (scores (q,k) f32, ids (q,k) i32).
+
+    mode="exact": exact top-k, ties to the lowest row (kernel #1).
+    mode="bucketed": one candidate per 128 consecutive rows (its max), then
+      the top k of those — approximate, recall ~>0.99 for k << n/128
+      (kernel #3).  The per-query int8 scale is applied after selection.
+
+    queries:  (q, d) float32/bfloat16
+    database: (n, d) float32/bfloat16, or int8 with db_scales (n,) float32;
+      int8 scans quantize the queries too (int8 x int8, both scales applied).
+    ns_tags / canon_tags: optional (n,) int32 tag ids (>= 0, PAD_TAG for
+      padding rows); want_ns / want_canon (or `wants`, a (want_ns,
+      want_canon) pair) keep rows with that tag, -1 = no filter.  A filter
+      on a tag array that is absent is ignored.
+    `block_n` and `assume_padded` are accepted for the JAX signature: the
+    kernels handle any n, so nothing is padded here.
+    """
+    del block_n, assume_padded
+    if mode == "packed":
+        raise NotImplementedError("packed mode (Pallas kernel #2) not yet ported")
+    if mode not in ("exact", "bucketed"):
+        raise ValueError(f"unknown scan mode {mode!r}")
+    if mode == "exact" and k > K_MAX:
+        raise ValueError(f"exact scan supports k <= {K_MAX}, got {k}")
+    want_ns, want_canon = _want_pair(wants, want_ns, want_canon)
+    n, d = database.shape
+    dev = database.device
+    q = queries.shape[0]
+    # a filter on a tag array that does not exist cannot be evaluated:
+    # ignore it (topk_reference semantics) — real rows get tag 0 below
+    if ns_tags is None:
+        want_ns = -1
+    if canon_tags is None:
+        want_canon = -1
+    ns = (torch.zeros((n,), dtype=torch.int32, device=dev) if ns_tags is None
+          else ns_tags.to(torch.int32).contiguous())
+    canon = (torch.zeros((n,), dtype=torch.int32, device=dev) if canon_tags is None
+             else canon_tags.to(torch.int32).contiguous())
+    is_int8 = database.dtype == torch.int8
+    if is_int8:
+        scale = (torch.ones((n,), dtype=torch.float32, device=dev) if db_scales is None
+                 else db_scales.to(torch.float32).contiguous())
+        q_in, qscale = quantize_int8_rows(queries.to(torch.float32))
+        q_in = q_in.contiguous()
+    else:
+        scale = qscale = None
+        q_in = queries.to(database.dtype).contiguous()
+    x = database.contiguous()
+    if n == 0 or q == 0:
+        return (torch.full((q, k), -math.inf, device=dev),
+                torch.full((q, k), -1, dtype=torch.int32, device=dev))
+
+    if mode == "exact":
+        return exact_scan(q_in, x, scale, ns, canon, qscale, want_ns, want_canon, k)
+    cand_sc, cand_id = bucketed_scan(q_in, x, scale, ns, canon, want_ns, want_canon)
+    top_sc, top_id = select_topk(cand_sc, cand_id, k)
+    if is_int8:
+        # per-query scale deferred past selection (ranking-invariant; -inf
+        # winners stay -inf since scales are > 0)
+        top_sc = top_sc * qscale[:, None]
+    return top_sc, top_id
+
+
+def topk_reference(
+    queries: torch.Tensor,
+    database: torch.Tensor,
+    k: int,
+    *,
+    db_scales: torch.Tensor | None = None,
+    ns_tags: torch.Tensor | None = None,
+    canon_tags: torch.Tensor | None = None,
+    want_ns: int = -1,
+    want_canon: int = -1,
+):
+    """Plain exhaustive search, the counterpart of topk_xla_reference: f32
+    queries against the rows (int8 rows through bf16, scores rescaled by the
+    row scales); used for the small append block, as the JAX package uses
+    XLA there, and as ground truth in tests."""
+    x = database
+    if x.dtype == torch.int8:
+        scores = queries.to(torch.float32) @ x.to(torch.bfloat16).to(torch.float32).T
+        if db_scales is None:
+            db_scales = torch.ones((x.shape[0],), dtype=torch.float32, device=x.device)
+        scores = scores * db_scales[None, :].to(torch.float32)
+    else:
+        scores = queries.to(torch.float32) @ x.to(torch.float32).T
+    n = x.shape[0]
+    ok = torch.ones((n,), dtype=torch.bool, device=x.device)
+    if ns_tags is not None:
+        ok &= ns_tags != PAD_TAG
+        if int(want_ns) >= 0:
+            ok &= ns_tags == int(want_ns)
+    if canon_tags is not None and int(want_canon) >= 0:
+        ok &= canon_tags == int(want_canon)
+    scores = torch.where(ok[None, :], scores, torch.full_like(scores, -math.inf))
+    return select_topk(scores, None, k)
