@@ -15,7 +15,14 @@ Phases, each printing one JSON line (any failure exits non-zero):
            /docs/save of ~200-token documents, then /search, some of it
            concurrent; the scan (#1) and attention (#5) counters must rise;
   scale    a 2,000,000-row FlatIndex in auto mode (int8 + bucketed scan, #3)
-           searched through FlatIndex.search, recall@10 against f32 exact.
+           searched through FlatIndex.search, recall@10 against f32 exact;
+  ivf      a 4,000,000 x 384 IVF store (auto -> int8 lists, nlist 2048, cap
+           factor 2.0, nprobe 64; a low-rank correlated corpus) built by
+           k-means on the card, saved, and served over HTTP with
+           INDEX_KIND=ivf: /docs/save, sequential /search (per-list probe
+           #6) and a concurrent burst; then 64 perturbed corpus rows searched
+           one at a time (#6) and as one batch (batch-shared probe #7),
+           recall@10 against f32 exact, kernels against plain versions.
 
 Then the kernels summary line, the card's name and power limit as nvidia-smi
 reports them, and, last, {"ok": true, "device": {...}}.  Without a CUDA
@@ -26,6 +33,7 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import socket
@@ -241,17 +249,173 @@ def phase_kernels() -> list[dict]:
                  "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
                      qh, kh, vh, attn_mask=bool_mask)),
                  "bound_ms": b_ms, "bound_by": b_by})
-    emit({"phase": "kernels", "checked": [r["name"] for r in rows],
-          "max_abs_err": {r["name"]: r["max_abs_err"] for r in rows}})
+    rows += _probe_kernel_rows(g)
+    floats = _probe_float_checks(g)
+    emit({"phase": "kernels", "checked": [r["name"] for r in rows] + list(floats),
+          "max_abs_err": {**{r["name"]: r["max_abs_err"] for r in rows}, **floats}})
     return rows
+
+
+# IVF geometry of the ivf phase, which the kernels phase also uses: 4M rows
+# of d = 384 in 2048 lists of cap 3968 (2.0 x the mean of 1953, rounded up
+# to 128-slot buckets), int8, nprobe 64, k_scan 40 (k = 10, int8 refine 4x)
+IVF_ROWS, IVF_NLIST, IVF_CAP, IVF_NPROBE, IVF_KSCAN = 4_000_000, 2048, 3968, 64, 40
+
+
+def _probe_kernel_rows(g) -> list[dict]:
+    """#6 and #7 against their plain versions at the ivf phase's shapes, on
+    random int8 lists; each list is ~half filled, the rest PAD, as there."""
+    import torch
+
+    from tpu_rag_torch.ops import ivf_probe as ip
+    from tpu_rag_torch.ops.quant import quantize_int8_rows
+    from tpu_rag_torch.ops.topk import PAD_TAG
+
+    dev = torch.device("cuda")
+    d, nlist, cap, nprobe, k_eff, m = 384, IVF_NLIST, IVF_CAP, IVF_NPROBE, IVF_KSCAN, 2
+    vec = torch.randint(-127, 128, (nlist, cap, d), generator=g, device=dev, dtype=torch.int8)
+    scale = torch.rand((nlist, cap), generator=g, device=dev) * 1e-3 + 1e-3
+    fill = torch.randint(cap // 3, (2 * cap) // 3, (nlist, 1), generator=g, device=dev)
+    ns = torch.randint(0, 4, (nlist, cap), generator=g, device=dev, dtype=torch.int32)
+    ns = torch.where(torch.arange(cap, device=dev)[None, :] < fill, ns, PAD_TAG).contiguous()
+    canon = torch.randint(0, 2, (nlist, cap), generator=g, device=dev, dtype=torch.int32)
+    vec[3, 7] = vec[3, 2]                                   # an exact tie in a bucket
+    scale[3, 7] = scale[3, 2]
+    centroids = torch.randn((nlist, d), generator=g, device=dev)
+    centroids /= centroids.norm(dim=1, keepdim=True)
+    rows = []
+    for nq in (1, 8, 64):
+        qf = torch.randn((nq, d), generator=g, device=dev)
+        qf[0] = centroids[3]                                # probes list 3 first
+        lists = ip._top_lists(qf, centroids, nprobe)
+        q8, _ = quantize_int8_rows(qf)
+        if nq == 1:                                         # ---- #6
+            args = (q8, lists, vec, scale, ns, canon, -1, -1, k_eff)
+            k_sc, k_id = ip._probe_list_cuda(*args)
+            p_sc, p_id = ip._probe_list_plain(*args)
+            torch.cuda.synchronize()
+            chk = _id_check(k_sc.view(-1, k_eff), k_id.view(-1, k_eff),
+                            p_sc.view(-1, k_eff), p_id.view(-1, k_eff), 1e-4)
+            _id_check(*(t.view(-1, k_eff) for t in ip._probe_list_cuda(*args[:6], 2, 1, k_eff)),
+                      *(t.view(-1, k_eff) for t in ip._probe_list_plain(*args[:6], 2, 1, k_eff)),
+                      1e-4)
+            flat = lists.reshape(-1)
+
+            def library(flat=flat, q8=q8):
+                x = vec[flat].to(torch.bfloat16)                       # (Q*nprobe, cap, d)
+                qv = q8.to(torch.bfloat16).repeat_interleave(nprobe, 0)[:, :, None]
+                s = torch.bmm(x, qv)[..., 0].float() * scale[flat]
+                s = torch.where(ns[flat] != PAD_TAG, s, -math.inf)
+                return torch.topk(s, k_eff, dim=1)
+
+            nbytes = nq * nprobe * cap * (d + 12) + nq * d + nq * nprobe * k_eff * 8
+            b_ms, b_by = bound(nbytes, 2.0 * nq * nprobe * cap * d, "int8")
+            rows.append({"name": f"ivf_probe_per_list[int8,q={nq},nprobe={nprobe},cap={cap},"
+                                 f"k={k_eff}]", "route": "cuda",
+                         "source": "tpu_rag_torch/csrc/ivf_probe.cu",
+                         "replaces": "tpu_rag/ops/ivf_probe.py:41", "counter": "per_list",
+                         "max_abs_err": chk["max_abs_err"],
+                         "ms": cuda_ms(lambda: ip._probe_list_cuda(*args)),
+                         "plain_ms": cuda_ms(lambda: ip._probe_list_plain(*args), iters=5),
+                         "library_ms": cuda_ms(library, iters=5),
+                         "library": "composite: list gather + torch.bmm + torch.topk",
+                         "bound_ms": b_ms, "bound_by": b_by})
+            continue
+        uniq, n_uniq, _ = ip._dedup(lists, nlist)         # ---- #7
+        args = (q8, uniq, n_uniq, vec, scale, ns, canon, -1, -1, m)
+        k_sc, k_id = ip._probe_batched_cuda(*args)
+        p_sc, p_id = ip._probe_batched_plain(*args)
+        f_sc, f_id = (ip._probe_batched_cuda(*args[:7], 2, 1, m),
+                      ip._probe_batched_plain(*args[:7], 2, 1, m))
+        torch.cuda.synchronize()
+        err = 0.0
+        for (ks, ki), (ps, pi) in (((k_sc, k_id), (p_sc, p_id)), (f_sc, f_id)):
+            fin = torch.isfinite(ps)
+            if not (torch.equal(torch.isfinite(ks), fin) and torch.equal(ki, pi)):
+                raise AssertionError("batched probe: bucket winners differ from the plain version")
+            err = max(err, float((ks[fin] - ps[fin]).abs().max()))
+        if err > 0.0:
+            raise AssertionError(f"batched probe int8 scores differ from the plain version: {err}")
+        nu = int(n_uniq)
+        lst = uniq[:nu].long()
+
+        def library(lst=lst, q8=q8, nq=nq):
+            x = vec[lst].to(torch.bfloat16)                           # (U, cap, d)
+            s = torch.bmm(x, q8.to(torch.bfloat16).T.expand(len(lst), d, nq)).float()
+            s = s * scale[lst][..., None]
+            s = torch.where((ns[lst] != PAD_TAG)[..., None], s, -math.inf)
+            s = s.transpose(1, 2).reshape(len(lst), nq, cap // 128, 128)
+            return torch.topk(s, m, dim=3)
+
+        nbytes = nu * cap * (d + 12) + nq * d + nu * nq * m * (cap // 128) * 8
+        b_ms, b_by = bound(nbytes, 2.0 * nu * cap * d * nq, "int8")
+        rows.append({"name": f"ivf_probe_batched[int8,q={nq},nprobe={nprobe},cap={cap},"
+                             f"m={m},union={nu}]", "route": "cuda",
+                     "source": "tpu_rag_torch/csrc/ivf_probe.cu",
+                     "replaces": "tpu_rag/ops/ivf_probe.py:237", "counter": "batched",
+                     "max_abs_err": err,
+                     "ms": cuda_ms(lambda: ip._probe_batched_cuda(*args)),
+                     "plain_ms": cuda_ms(lambda: ip._probe_batched_plain(*args), iters=5),
+                     "library_ms": cuda_ms(library, iters=5),
+                     "library": "composite: list gather + torch.bmm + torch.topk",
+                     "bound_ms": b_ms, "bound_by": b_by})
+    del vec, scale, ns, canon
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _probe_float_checks(g) -> dict:
+    """#6 and #7 on f32 and bf16 lists (IVFIndex's default dtype is bf16),
+    with more than 64 queries for #7's query chunks: scores within 1e-4 of
+    the plain versions (summation order), ids equal except inside ties."""
+    import torch
+
+    from tpu_rag_torch.ops import ivf_probe as ip
+    from tpu_rag_torch.ops.topk import PAD_TAG
+
+    dev = torch.device("cuda")
+    nlist, cap, d, nprobe, k_eff, m, tol = 256, 1024, 384, 16, 40, 2, 1e-4
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        vec = torch.randn((nlist, cap, d), generator=g, device=dev)
+        vec = (vec / vec.norm(dim=2, keepdim=True)).to(dtype)
+        scale = torch.ones((nlist, cap), device=dev)
+        ns = torch.randint(0, 4, (nlist, cap), generator=g, device=dev, dtype=torch.int32)
+        ns[:, -100:] = PAD_TAG
+        canon = torch.randint(0, 2, (nlist, cap), generator=g, device=dev, dtype=torch.int32)
+        centroids = torch.randn((nlist, d), generator=g, device=dev)
+        q = torch.randn((80, d), generator=g, device=dev)
+        q = (q / q.norm(dim=1, keepdim=True)).to(dtype)
+        lists = ip._top_lists(q, centroids, nprobe)
+        err = 0.0
+        for wants in ((-1, -1), (2, 1)):
+            args = (q[:3], lists[:3], vec, scale, ns, canon, *wants, k_eff)
+            chk = _id_check(*(t.view(-1, k_eff) for t in ip._probe_list_cuda(*args)),
+                            *(t.view(-1, k_eff) for t in ip._probe_list_plain(*args)), tol)
+            err = max(err, chk["max_abs_err"])
+            uniq, n_uniq, _ = ip._dedup(lists, nlist)
+            args = (q, uniq, n_uniq, vec, scale, ns, canon, *wants, m)
+            (k_sc, k_id), (p_sc, p_id) = ip._probe_batched_cuda(*args), ip._probe_batched_plain(*args)
+            fin = torch.isfinite(p_sc)
+            if not torch.equal(torch.isfinite(k_sc), fin):
+                raise AssertionError("batched probe: -inf slots differ from the plain version")
+            e = float((k_sc[fin] - p_sc[fin]).abs().max())
+            if e > tol:
+                raise AssertionError(f"batched probe {dtype}: score error {e}")
+            err = max(err, e)
+        out[f"ivf_probes[{str(dtype)[6:]},q=3/80,nprobe={nprobe},cap={cap}]"] = err
+    torch.cuda.empty_cache()
+    return out
 
 
 def _counters():
     from tpu_rag_torch.ops import attention as att
+    from tpu_rag_torch.ops import ivf_probe as ip
     from tpu_rag_torch.ops import topk as tk
 
     return {"exact": tk._exact_scan_cuda, "bucketed": tk._bucketed_scan_cuda,
-            "mha": att._fused_mha_cuda}
+            "mha": att._fused_mha_cuda, "per_list": ip._probe_list_cuda,
+            "batched": ip._probe_batched_cuda}
 
 
 def _reset_counters() -> None:
@@ -488,10 +652,242 @@ def phase_scale() -> dict:
     return counts
 
 
+def _ivf_corpus(n: int, d: int, nq: int, seed: int):
+    """The scale_10m corpus of bench.py, regenerated with torch: a low-rank
+    correlated Gaussian (covariance eigen-spectrum 1/i) of unit rows, and nq
+    queries that are corpus rows perturbed by tau = 0.25 of the same noise.
+    Returns (rows (n, d) f32 numpy, queries (nq, d) f32 numpy, base rows)."""
+    import numpy as np
+    import torch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bq, _ = torch.linalg.qr(torch.randn((d, d), generator=g, device=dev).cpu())
+    b = (bq * torch.arange(1, d + 1, dtype=torch.float32).rsqrt()[:, None]).to(dev)
+
+    def unit(z):
+        return z * torch.rsqrt((z * z).sum(dim=1, keepdim=True) + 1e-9)
+
+    x = np.empty((n, d), np.float32)
+    for i in range(0, n, 500_000):
+        r = min(500_000, n - i)
+        x[i:i + r] = unit(torch.randn((r, d), generator=g, device=dev) @ b).cpu().numpy()
+    base = torch.randperm(n, generator=g, device=dev)[:nq].cpu().numpy()
+    eps = unit(torch.randn((nq, d), generator=g, device=dev) @ b)
+    q = unit(torch.from_numpy(x[base]).to(dev) + 0.25 * eps)
+    return x, q.cpu().numpy(), base
+
+
+@contextlib.contextmanager
+def _plain_probes():
+    """Route the IVF probes through their plain versions (on the same CUDA
+    tensors) for a comparison run; the kernels' counters do not move."""
+    from tpu_rag_torch.ops import ivf_probe as ip
+
+    saved = ip.probe_list_topk, ip.probe_batched_buckets
+    ip.probe_list_topk, ip.probe_batched_buckets = ip._probe_list_plain, ip._probe_batched_plain
+    try:
+        yield
+    finally:
+        ip.probe_list_topk, ip.probe_batched_buckets = saved
+
+
+def phase_ivf(work: Path) -> dict:
+    import numpy as np
+    import torch
+
+    from tpu_rag_torch.api.app import create_app
+    from tpu_rag_torch.api.server import HTTPServer
+    from tpu_rag_torch.config import Config
+    from tpu_rag_torch.index.ivf import IVFIndex
+    from tpu_rag_torch.index.store import MANIFEST, save_index
+    from tpu_rag_torch.utils.metrics import GLOBAL_METRICS
+
+    n, d, nq, k = IVF_ROWS, 384, 64, 10
+    t0 = time.perf_counter()
+    x, q, base = _ivf_corpus(n, d, nq, SEED + 3)
+    gen_s = time.perf_counter() - t0
+    xt = torch.from_numpy(x).to("cuda")
+    truth = torch.topk(torch.from_numpy(q).to("cuda") @ xt.T, k, dim=1).indices.cpu().numpy()
+    del xt
+    torch.cuda.empty_cache()
+
+    # ---- build: k-means on the card, lists, int8; then the store
+    store = IVFIndex(d, dtype="auto", nlist=IVF_NLIST, nprobe=IVF_NPROBE,
+                     list_cap_factor=2.0, device="cuda")
+    store._bulk_adopt_rows(x, (f"syn-{i}" for i in range(n)), (("", {}) for _ in range(n)),
+                           count=n)
+    t1 = time.perf_counter()
+    snap = store.device_snapshot()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t1
+    geometry = {"dtype": snap["dtype"], "nlist": snap["nlist"],
+                "cap": int(snap["vec_lists"].shape[1]), "overflow_rows": len(snap["ov_rows"])}
+    if geometry["dtype"] != "int8" or geometry["cap"] % 128:
+        raise AssertionError(f"unexpected IVF geometry {geometry}")
+    cfg = Config(persist_dir=str(work / "vs"), kb_db_path=str(work / "db" / "kb.sqlite3"),
+                 db_path=str(work / "db" / "app.sqlite3"), docs_dir=str(work / "docs"),
+                 embedding_model="sentence-transformers/all-MiniLM-L6-v2",
+                 host="127.0.0.1", device="cuda", index_kind="ivf",
+                 ivf_nlist=IVF_NLIST, ivf_nprobe=IVF_NPROBE)
+    store_dir = Path(cfg.persist_dir) / cfg.collection_name
+    t1 = time.perf_counter()
+    save_index(store, store_dir)
+    save_s = time.perf_counter() - t1
+    del store, snap, x
+    torch.cuda.empty_cache()
+
+    # ---- serve the store over HTTP (the engine loads it: kind "ivf")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        cfg.port = s.getsockname()[1]
+    app = create_app(cfg)
+    engine = app.state["engine"]
+    index = engine.index
+    assert type(index) is IVFIndex and index.count() == n
+    index.list_cap_factor = 2.0      # a store records no cap factor; the build's
+    server = HTTPServer(app, cfg.host, cfg.port, executor_workers=cfg.http_executor_workers)
+    thread = threading.Thread(target=server.run, daemon=True)
+    _reset_counters()
+    thread.start()
+    try:
+        deadline = time.time() + 60
+        while True:
+            try:
+                _http(cfg.port, "GET", "/health", timeout=10)
+                break
+            except OSError:
+                if time.time() > deadline:
+                    raise
+                time.sleep(0.2)
+        t1 = time.perf_counter()
+        _http(cfg.port, "POST", "/search", {"query": "first light", "k": 5})
+        first_search_s = time.perf_counter() - t1   # encoder init + snapshot from the store
+        if index.device_snapshot()["vec_lists"].shape[1] != geometry["cap"]:
+            raise AssertionError("the served lists differ from the built ones")
+
+        # two saves: each rewrites the whole store (persist_index)
+        texts = [_doc_text(i) for i in range(2)]
+        saved, save_times = [], []
+        for i, text in enumerate(texts):
+            t1 = time.perf_counter()
+            r = _http(cfg.port, "POST", "/docs/save",
+                      {"title": f"IVF doc {i}", "content": text,
+                       "metadata": {"namespace": "smoke"}})
+            saved.append(r["id"])
+            while index.count() < n + i + 1:
+                if time.perf_counter() - t1 > 600:
+                    raise TimeoutError("background indexing did not finish")
+                time.sleep(0.05)
+            searchable = time.perf_counter() - t1
+            while json.loads((store_dir / MANIFEST).read_text())["count"] < n + i + 1:
+                if time.perf_counter() - t1 > 600:
+                    raise TimeoutError("the store was not rewritten")
+                time.sleep(0.2)
+            save_times.append({"searchable_s": searchable,
+                               "persisted_s": time.perf_counter() - t1})
+        for i, text in enumerate(texts):
+            r = _http(cfg.port, "POST", "/search", {"query": text, "k": 5})
+            if r["hits"][0]["id"] != saved[i]:
+                raise AssertionError(f"saved doc {i} is not its own top hit: {r['hits'][0]}")
+
+        queries = [f"{w} tale of the {w} keeper" for w in
+                   ("harbor", "falcon", "orchard", "winter", "glass", "copper", "meadow",
+                    "canyon")]
+
+        def one(qtext):
+            t1 = time.perf_counter()
+            r = _http(cfg.port, "POST", "/search", {"query": qtext, "k": 5})
+            assert len(r["hits"]) == 5 and all(math.isfinite(h["score"]) for h in r["hits"])
+            return (time.perf_counter() - t1) * 1e3, r["timings_ms"]
+
+        def summary(results):
+            stages = {}
+            for _, tm in results:
+                for name, ms in tm.items():
+                    stages.setdefault(name, []).append(ms)
+            return {"ms": [ms for ms, _ in results],
+                    "ms_p50": statistics.median(ms for ms, _ in results),
+                    "stage_ms_p50": {kk: statistics.median(v) for kk, v in stages.items()}}
+
+        seq = summary([one(qtext) for qtext in queries])        # sequential: Q = 1
+        bursts = []
+        for round_ in range(2):                                 # microbatch windows
+            with ThreadPoolExecutor(8) as pool:
+                bursts.append(summary(list(pool.map(
+                    one, [f"{qtext} burst {round_}" for qtext in queries]))))
+        windows = {kk: v for kk, v in GLOBAL_METRICS._counters.items()
+                   if kk.startswith("vector_microbatch_window_le_")}
+        http_counts = _read_counters()
+
+        # ---- in process: per-route recall@10 against f32 exact, kernel and plain
+        def recall(id_lists):
+            got = [[int(i[4:]) for i in ids if i.startswith("syn-")] for ids in id_lists]
+            return float(np.mean([len(set(a) & set(b)) / k for a, b in zip(got, truth)]))
+
+        def split_ms():
+            return {kk.replace("_s", "_ms"): v * 1e3 for kk, v in index.last_search_stats.items()}
+
+        def run_routes():
+            out = {}
+            lat, hits, splits = [], [], []
+            for i in range(nq):                                # Q = 1: per-list #6
+                t1 = time.perf_counter()
+                res = index.search(q[i:i + 1], k)
+                lat.append((time.perf_counter() - t1) * 1e3)
+                assert index.last_probe_route == "per_list"
+                hits.append(res.ids[0])
+                splits.append(split_ms())
+            out["q1"] = {"recall_at_10": recall(hits),
+                         "search_ms_p50": statistics.median(lat),
+                         "split_ms_p50": {kk: statistics.median(s_[kk] for s_ in splits)
+                                          for kk in splits[0]}}
+            lat = []
+            for _ in range(5):                                 # Q = 64: batched #7
+                t1 = time.perf_counter()
+                res = index.search(q, k)
+                lat.append((time.perf_counter() - t1) * 1e3)
+                assert index.last_probe_route == "batched"
+            out["q64"] = {"recall_at_10": recall(res.ids), "search_ms_p50": statistics.median(lat),
+                          "split_ms_last": split_ms(),
+                          "self_hit": float(np.mean([
+                              int(ids[0][4:]) == b for ids, b in zip(res.ids, base)]))}
+            return out
+
+        kernel = run_routes()
+        counts = _read_counters()
+        with _plain_probes():
+            plain = run_routes()
+        if _read_counters() != counts:
+            raise AssertionError("the plain run launched a probe kernel")
+        snapshot = dict(index.snapshot_stats)
+    finally:
+        server.stop()
+        thread.join(timeout=30)
+        engine.shutdown()
+    if counts["per_list"] < 1 or counts["batched"] < 1 or http_counts["per_list"] < 1:
+        raise AssertionError(f"the IVF path did not launch the probe kernels: {counts}")
+    for route in ("q1", "q64"):
+        if abs(kernel[route]["recall_at_10"] - plain[route]["recall_at_10"]) > 0.01:
+            raise AssertionError(f"{route}: kernel and plain recall differ: {kernel} {plain}")
+    if kernel["q1"]["recall_at_10"] < 0.9 or kernel["q64"]["recall_at_10"] < 0.85:
+        raise AssertionError(f"IVF recall@10 below its floor: {kernel}")
+    out = {"phase": "ivf", "rows": n, "corpus_gen_s": gen_s, "build_s_kmeans_lists": build_s,
+           "store_save_s": save_s, "geometry": geometry,
+           "first_search_s_from_store": first_search_s, "doc_saves": save_times,
+           "http_search_seq": seq, "http_search_burst8": bursts, "windows": windows,
+           "routes_kernel": kernel, "routes_plain": plain,
+           "snapshot": snapshot, "launches_http": http_counts, "launches": counts}
+    emit(out)
+    del app, engine, server, index
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,kernels,serve,scale",
-                    help="comma-separated subset of build,kernels,serve,scale")
+    ap.add_argument("--phases", default="build,kernels,serve,scale,ivf",
+                    help="comma-separated subset of build,kernels,serve,scale,ivf")
     args = ap.parse_args()
     phases = args.phases.split(",")
     try:
@@ -528,6 +924,10 @@ def main() -> int:
                              if k in ("exact", "mha")})
     if "scale" in phases:
         launches["bucketed"] = phase_scale()["bucketed"]
+    if "ivf" in phases:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ivf_", dir=REPO / "build") as work:
+            launches.update({k: v for k, v in phase_ivf(Path(work)).items()
+                             if k in ("per_list", "batched")})
     for r in rows:
         r["launches"] = launches.get(r.pop("counter"))
     emit({"kernels": rows})

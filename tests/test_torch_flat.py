@@ -72,14 +72,20 @@ def test_store_round_trips_between_packages(tmp_path):
     assert manifest["format_version"] == 2 and manifest["kind"] == "flat"
 
 
-def test_v1_store_and_ivf_refusal(tmp_path):
+def test_v1_store_and_ivf_store_load(tmp_path):
     idx = load_index(STORE, device="cpu")   # the bundled store is format v1
     assert idx.count() == 1014
-    (tmp_path / "manifest.json").write_text(json.dumps(
-        {"kind": "ivf", "dim": 4, "dtype": "float32", "metric": "cosine", "count": 0,
-         "files": {}}))
-    with pytest.raises(NotImplementedError, match="IVF not yet ported"):
-        load_index(tmp_path, device="cpu")
+    from tpu_rag.index.ivf import IVFIndex as JaxIVF
+    from tpu_rag_torch.index.ivf import IVFIndex
+
+    x = np.random.default_rng(3).standard_normal((40, 8)).astype(np.float32)
+    ref = JaxIVF(8, dtype="float32", nlist=4, nprobe=2)
+    ref.add([f"v{i}" for i in range(40)], x)
+    jax_save(ref, tmp_path)
+    ivf = load_index(tmp_path, device="cpu")
+    assert type(ivf) is IVFIndex and ivf.count() == 40
+    assert (ivf.nlist, ivf.nprobe) == (4, 2)
+    assert ivf.search(x[7], 1).ids == [["v7"]]
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "int8"])

@@ -90,7 +90,8 @@ class Config:
     embed_batch: int = 64               # encoder batch (padded, fixed shape)
     embed_seq_len: int = 256            # encoder sequence length (fixed shape)
     mesh_shape: str = ""                # e.g. "data:4" or "data:4,model:2"; "" = all devices on data
-    use_pallas: bool = True             # False = pure-XLA fallback path
+    use_pallas: bool = True             # read from USE_PALLAS as the JAX config
+                                        # does; the port has no such switch
     device: str = "cuda"                # torch device the encoder and index
                                         # run on; "cuda" raises without a
                                         # card (nothing falls back to "cpu")

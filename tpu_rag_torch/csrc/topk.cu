@@ -26,6 +26,8 @@
 //     query in shared memory; a 128-row step inserts only the rows that beat
 //     the list's last entry, which after the first few steps is almost none;
 //   - the bucketed step reduces each query's 128 scores with one warp.
+// The scoring step and the sorted insertion live in scan_tile.cuh, shared
+// with the IVF probe kernels (ivf_probe.cu).
 // Not yet: TMA / cp.async double buffering and wgmma (loads and math do not
 // overlap within a block; two blocks per SM hide part of it).
 //
@@ -33,69 +35,30 @@
 // id -1 for -inf slots (the caller merges them with a stable sort);
 // bucketed -> (nq, ceil(n / 128)) bucket maxima and their rows.
 
-#include <cuda_bf16.h>
 #include <limits.h>
 #include <math.h>
-#include <mma.h>
 
 #include <type_traits>
 
-#include "common.cuh"
+#include "scan_tile.cuh"
 
-using namespace nvcuda;
+using namespace tr_tile;
 
 namespace {
 
-constexpr int kSub = 128;       // rows per step = bucket width
-constexpr int kThreads = 256;   // 8 warps; warp w multiplies rows [16w, 16w + 16)
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxK = 128;
-constexpr int kMaxQc = 64;
 constexpr int kPadTag = INT_MIN;
-constexpr unsigned kFull = 0xffffffffu;
-
-template <typename T> struct Acc { using type = float; };
-template <> struct Acc<int8_t> { using type = int; };
-
-// Staged chunk depth: 128 bytes of each row.  f32 rows get one element of
-// padding in shared memory (its scalar dot loop reads a column per lane).
-__host__ __device__ inline int chunk_elems(int elt) { return 128 / elt; }
-__host__ __device__ inline int row_pad(int elt) { return elt == 4 ? 1 : 0; }
 
 struct ScanSmem { size_t q, x, s, m, l, total; };
 
 __host__ __device__ inline ScanSmem scan_smem(int elt, int d, int qc, int k, bool exact) {
-  const int pad = row_pad(elt);
   ScanSmem o;
   o.q = 0;
-  o.x = o.q + tr_align128(size_t(qc) * (d + pad) * elt);
-  o.s = o.x + tr_align128(size_t(kSub) * (chunk_elems(elt) + pad) * elt);
-  o.m = o.s + tr_align128(size_t(qc) * kSub * 4);
+  o.x = o.q + q_bytes(elt, d, qc);
+  o.s = o.x + x_bytes(elt);
+  o.m = o.s + s_bytes(qc);
   o.l = o.m + tr_align128(size_t(kSub) * 8);
   o.total = o.l + (exact ? size_t(qc) * k * 8 : 0);
   return o;
-}
-
-// Copy `rows` rows of `cols` elements from global (row stride gld) into
-// shared memory (row stride sld); rows at or past `valid` are zero.
-template <typename T>
-__device__ inline void stage(const T* __restrict__ g, size_t gld, int valid, T* s,
-                             int sld, int rows, int cols) {
-  if constexpr (std::is_same<T, float>::value) {
-    for (int i = threadIdx.x; i < rows * cols; i += kThreads) {
-      const int r = i / cols, c = i % cols;
-      s[r * sld + c] = r < valid ? __ldg(g + size_t(r) * gld + c) : 0.f;
-    }
-  } else {
-    constexpr int vec = 16 / sizeof(T);
-    const int per_row = cols / vec;
-    for (int i = threadIdx.x; i < rows * per_row; i += kThreads) {
-      const int r = i / per_row, c = (i % per_row) * vec;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (r < valid) v = __ldg(reinterpret_cast<const uint4*>(g + size_t(r) * gld + c));
-      *reinterpret_cast<uint4*>(s + r * sld + c) = v;
-    }
-  }
 }
 
 template <typename T, bool kExact>
@@ -106,13 +69,9 @@ scan_kernel(const T* __restrict__ q, const T* __restrict__ x,
             int n, int d, int nq, int want_ns, int want_canon, int tile_rows,
             int qc, int k, float* __restrict__ out_sc, int* __restrict__ out_id) {
   constexpr bool kInt8 = std::is_same<T, int8_t>::value;
-  constexpr bool kF32 = std::is_same<T, float>::value;
   constexpr int kElt = sizeof(T);
   extern __shared__ __align__(128) unsigned char smem[];
   const ScanSmem lay = scan_smem(kElt, d, qc, k, kExact);
-  const int pad = row_pad(kElt);
-  const int qld = d + pad;
-  const int xld = chunk_elems(kElt) + pad;
   T* Qs = reinterpret_cast<T*>(smem + lay.q);
   T* Xs = reinterpret_cast<T*>(smem + lay.x);
   float* Sf = reinterpret_cast<float*>(smem + lay.s);  // int8: raw s32 sums
@@ -127,7 +86,7 @@ scan_kernel(const T* __restrict__ q, const T* __restrict__ x,
   const int row_begin = blockIdx.x * tile_rows;
   const int row_end = min(n, row_begin + tile_rows);
 
-  stage(q + size_t(q0) * d, size_t(d), nql, Qs, qld, qc, d);
+  stage_queries(q + size_t(q0) * d, nql, d, qc, Qs);
   if constexpr (kExact) {
     for (int i = tid; i < qc * k; i += kThreads) {
       Lsc[i] = -INFINITY;
@@ -152,64 +111,7 @@ scan_kernel(const T* __restrict__ q, const T* __restrict__ x,
     }
 
     // ---- scores of this step: Sf[qi][r], qc x kSub
-    if constexpr (!kF32) {
-      using A = typename Acc<T>::type;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, A> acc[kMaxQc / 16];
-#pragma unroll
-      for (int i = 0; i < kMaxQc / 16; ++i) wmma::fill_fragment(acc[i], A(0));
-      const int mf = qc / 16;
-      for (int c0 = 0; c0 < d; c0 += chunk_elems(kElt)) {
-        const int kc = min(chunk_elems(kElt), d - c0);
-        __syncthreads();
-        stage(x + size_t(row0) * d + c0, size_t(d), n - row0, Xs, xld, kSub, kc);
-        __syncthreads();
-        for (int kk = 0; kk < kc; kk += 16) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> b;
-          wmma::load_matrix_sync(b, Xs + warp * 16 * xld + kk, xld);
-#pragma unroll
-          for (int i = 0; i < kMaxQc / 16; ++i) {
-            if (i < mf) {
-              wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a;
-              wmma::load_matrix_sync(a, Qs + i * 16 * qld + c0 + kk, qld);
-              wmma::mma_sync(acc[i], a, b, acc[i]);
-            }
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < kMaxQc / 16; ++i) {
-        if (i < mf)
-          wmma::store_matrix_sync(reinterpret_cast<A*>(Sf) + i * 16 * kSub + warp * 16,
-                                  acc[i], kSub, wmma::mem_row_major);
-      }
-    } else {
-      constexpr int kPairs = kMaxQc * kSub / kThreads;
-      float accf[kPairs];
-#pragma unroll
-      for (int i = 0; i < kPairs; ++i) accf[i] = 0.f;
-      for (int c0 = 0; c0 < d; c0 += chunk_elems(kElt)) {
-        const int kc = min(chunk_elems(kElt), d - c0);
-        __syncthreads();
-        stage(x + size_t(row0) * d + c0, size_t(d), n - row0, Xs, xld, kSub, kc);
-        __syncthreads();
-#pragma unroll
-        for (int i = 0; i < kPairs; ++i) {
-          const int p = tid + i * kThreads, qi = p / kSub, r = p % kSub;
-          if (qi < qc) {
-            const float* qa = Qs + qi * qld + c0;
-            const float* xa = Xs + r * xld;
-            float s = accf[i];
-            for (int c = 0; c < kc; ++c) s = fmaf(qa[c], xa[c], s);
-            accf[i] = s;
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < kPairs; ++i) {
-        const int p = tid + i * kThreads, qi = p / kSub, r = p % kSub;
-        if (qi < qc) Sf[qi * kSub + r] = accf[i];
-      }
-    }
+    score_step(x + size_t(row0) * d, n - row0, d, qc, Qs, Xs, Sf);
     __syncthreads();
 
     // ---- selection
@@ -233,47 +135,7 @@ scan_kernel(const T* __restrict__ q, const T* __restrict__ x,
 #pragma unroll
         for (int h = 0; h < kSub / 32; ++h) {
           const int r = h * 32 + lane, row = row0 + r;
-          const float s = score(r);
-          float ts = Ls[k - 1];
-          int ti = Li[k - 1];
-          // candidates that beat the list's last entry in (score desc, row asc)
-          unsigned m = __ballot_sync(kFull, s > -INFINITY && (s > ts || (s == ts && row < ti)));
-          while (m) {
-            const int src = __ffs(m) - 1;
-            m &= m - 1;
-            const float cs = __shfl_sync(kFull, s, src);
-            const int cr = __shfl_sync(kFull, row, src);
-            ts = Ls[k - 1];
-            ti = Li[k - 1];
-            if (!(cs > ts || (cs == ts && cr < ti))) continue;  // warp-uniform
-            float es[kMaxK / 32];
-            int ei[kMaxK / 32];
-            int better = 0;
-#pragma unroll
-            for (int t = 0; t < kMaxK / 32; ++t) {
-              const int j = lane + 32 * t;
-              if (j < k) {
-                es[t] = Ls[j];
-                ei[t] = Li[j];
-                better += es[t] > cs || (es[t] == cs && ei[t] < cr);
-              }
-            }
-            const int pos = __reduce_add_sync(kFull, better);
-            __syncwarp();
-#pragma unroll
-            for (int t = 0; t < kMaxK / 32; ++t) {
-              const int j = lane + 32 * t;
-              if (j >= pos && j + 1 < k) {
-                Ls[j + 1] = es[t];
-                Li[j + 1] = ei[t];
-              }
-            }
-            if (lane == 0) {
-              Ls[pos] = cs;
-              Li[pos] = cr;
-            }
-            __syncwarp();
-          }
+          warp_insert(Ls, Li, k, score(r), row);
         }
       } else {
         float best = -INFINITY;

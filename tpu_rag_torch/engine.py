@@ -1,9 +1,9 @@
 """RagEngine: the composition root (port of tpu_rag/engine.py).
 
-Owns the encoder + flat vector index + SQLite stores and implements the
-ingest and retrieval flows the HTTP routes call.  This slice of the port
-carries the /docs/save and /search paths; LLM dispatch, compose, the
-summarizer, the cross-encoder, IVF and sharding come in later slices.
+Owns the encoder + vector index (flat, or IVF with INDEX_KIND=ivf) + SQLite
+stores and implements the ingest and retrieval flows the HTTP routes call.
+The port carries the /docs/save and /search paths; LLM dispatch, compose,
+the summarizer, the cross-encoder and sharding come in later slices.
 
 Errors raised by the kernels or by CUDA are not caught here: they reach the
 client as a 500 instead of an empty answer.
@@ -23,6 +23,7 @@ import numpy as np
 from tpu_rag_torch.config import Config
 from tpu_rag_torch.device import resolve
 from tpu_rag_torch.index.flat import FlatIndex
+from tpu_rag_torch.index.ivf import IVFIndex
 from tpu_rag_torch.index.store import MANIFEST, load_index, save_index
 from tpu_rag_torch.ingest.indexer import DocIndexer
 from tpu_rag_torch.memory.db import ConversationDB
@@ -98,10 +99,13 @@ class RagEngine:
         p = self._index_path()
         if (p / MANIFEST).is_file():
             return load_index(p, block_n=cfg.block_n, device=self.device)
+        kw = dict(dtype=cfg.index_dtype, block_n=cfg.block_n,
+                  search_mode=cfg.index_search_mode, device=self.device)
+        if cfg.index_kind == "ivf":
+            return IVFIndex(self.encoder.dim, nlist=cfg.ivf_nlist, nprobe=cfg.ivf_nprobe, **kw)
         if cfg.index_kind != "flat":
-            raise NotImplementedError(f"INDEX_KIND={cfg.index_kind} not yet ported")
-        return FlatIndex(self.encoder.dim, dtype=cfg.index_dtype, block_n=cfg.block_n,
-                         search_mode=cfg.index_search_mode, device=self.device)
+            raise ValueError(f"unknown INDEX_KIND={cfg.index_kind!r}: expected flat or ivf")
+        return FlatIndex(self.encoder.dim, **kw)
 
     def persist_index(self) -> None:
         with self._index_lock:
@@ -130,14 +134,15 @@ class RagEngine:
                                  ) -> list[list[dict]] | None:
         """Embed + search in one call (FlatIndex.search_fused): the encoder
         forward runs in front of the scan and only k scores + ids per query
-        come back.  Returns None for the two-step path (a non-flat index or
-        an encoder without forward_ids, an empty index, an unseen filter tag,
-        or a window larger than one encoder batch).
+        come back.  Returns None for the two-step path (any index but a
+        plain FlatIndex: an IVFIndex is one by inheritance but holds no flat
+        snapshot; an encoder without forward_ids, an empty index, an unseen
+        filter tag, or a window larger than one encoder batch).
 
         cache_qv=False (the microbatch window path) skips reading the query
         embeddings back; repeats of those queries then miss the cache."""
         enc = self.encoder
-        if (not isinstance(self.index, FlatIndex)
+        if (type(self.index) is not FlatIndex
                 or not hasattr(enc, "forward_ids") or len(texts) > enc.batch):
             return None
         with GLOBAL_METRICS.timed("search_stage_tokenize"):

@@ -76,6 +76,15 @@ def _quantize_residual(res: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return r8, rs
 
 
+def _kill_tags_2d(ns_lists: torch.Tensor, canon_lists: torch.Tensor, flat_slots):
+    """Tombstone (nlist, cap) IVF tag tensors at flattened list*cap+slot
+    positions, out of place: returns fresh (ns, canon) tensors, so in-flight
+    snapshots keep theirs."""
+    idx = torch.as_tensor(np.asarray(flat_slots, np.int64), device=ns_lists.device)
+    return tuple(t.reshape(-1).index_fill(0, idx, PAD_TAG).reshape(t.shape)
+                 for t in (ns_lists, canon_lists))
+
+
 @dataclass
 class SearchResult:
     """One query's worth of hits lives at index i of each field."""
@@ -212,7 +221,7 @@ class FlatIndex:
         threshold — the snapshot records the dtype it was built with)."""
         if self._dtype_cfg != "auto":
             return self._dtype_cfg
-        return ("int8" if len(self._alive) and int(self._alive.sum()) >= self.auto_int8_min_rows
+        return ("int8" if len(self._alive) and self.count() >= self.auto_int8_min_rows
                 else "bfloat16")
 
     @dtype.setter
@@ -377,7 +386,10 @@ class FlatIndex:
         return n
 
     def count(self) -> int:
-        return int(self._alive.sum())
+        # count_nonzero, not sum: a bool sum converts every element and, at
+        # millions of rows, cost milliseconds on each search (count() and
+        # the auto dtype run per search)
+        return int(np.count_nonzero(self._alive))
 
     def compact(self) -> None:
         """Force a full device-snapshot rebuild on the next search: reclaims
@@ -432,7 +444,12 @@ class FlatIndex:
             self._pending_add.clear()
             self._pending_dead.clear()
             self._dead_since_compact = 0
+            self._on_vacuum()            # subclasses drop stale row-number state
             return dead
+
+    def _on_vacuum(self) -> None:
+        """Hook: host row NUMBERS changed — subclasses must drop any derived
+        state keyed by old row numbers (IVF list membership etc.)."""
 
     def get(self, id_: str) -> dict | None:
         # under the lock: a concurrent vacuum renumbers rows between the
@@ -563,7 +580,7 @@ class FlatIndex:
                 # a full rebuild is the natural moment to also reclaim the
                 # HOST copies of tombstoned rows
                 if self.auto_vacuum:
-                    dead = len(self._rowmeta) - int(self._alive.sum())
+                    dead = len(self._rowmeta) - self.count()
                     if dead > self.max_dead_fraction * max(len(self._rowmeta), 1):
                         self.vacuum()
                 self._device = self._compact()
@@ -603,13 +620,18 @@ class FlatIndex:
             if pos < len(snap["rows"]) and snap["rows"][pos] == hr:
                 base_rows.append(pos)
         self._pending_dead.clear()
-        for target, rows in (("", base_rows), ("a_", append_rows)):
-            if not rows:
-                continue
-            idx = torch.as_tensor(rows, dtype=torch.int64, device=self.device)
-            for name in ("ns", "canon"):
-                snap[target + name] = snap[target + name].index_fill(0, idx, PAD_TAG)
-            self.snapshot_stats["incremental_kills"] += len(rows)
+        self._kill_rows(snap, "", base_rows)
+        self._kill_rows(snap, "a_", append_rows)
+        self.snapshot_stats["incremental_kills"] += len(base_rows) + len(append_rows)
+
+    def _kill_rows(self, snap: dict[str, Any], prefix: str, rows: list[int]) -> None:
+        """Set snap[prefix + "ns"/"canon"] to PAD_TAG at `rows`, into fresh
+        tensors (in-flight searches keep the old ones)."""
+        if not rows:
+            return
+        idx = torch.as_tensor(rows, dtype=torch.int64, device=self.device)
+        for name in ("ns", "canon"):
+            snap[prefix + name] = snap[prefix + name].index_fill(0, idx, PAD_TAG)
 
     def _flush_appends(self, snap: dict[str, Any]) -> None:
         """Write pending host rows into the append block — transfer O(new
@@ -729,6 +751,28 @@ class FlatIndex:
             slots = np.clip(idx - n_pad, 0, len(rows_map) - 1)
             hrows = np.where(in_append & np.isfinite(sc), rows_map[slots], hrows)
         return hrows
+
+    def _merge_append_block(self, q: torch.Tensor, sc: np.ndarray, hrows: np.ndarray,
+                            snap: dict[str, Any], k_scan: int, want_ns: int,
+                            want_canon: int) -> tuple[np.ndarray, np.ndarray]:
+        """Scan the append block (plain torch, as the JAX index scans it with
+        XLA) and merge its hits with the base results in host-row space
+        (score desc, stable: base hits first among equals)."""
+        sc_a, idx_a = topk_reference(
+            q, snap["a_vectors"], min(k_scan, snap["a_fill"]), db_scales=snap["a_scales"],
+            ns_tags=snap["a_ns"], canon_tags=snap["a_canon"], want_ns=want_ns,
+            want_canon=want_canon)
+        sc_a, idx_a = sc_a.cpu().numpy(), idx_a.cpu().numpy()
+        # resolve through the snapshot's own slot->row map generation
+        rows_map = snap.get("a_rows_map", self._append_rows)
+        hrows_a = np.where((idx_a >= 0) & np.isfinite(sc_a),
+                           rows_map[np.clip(idx_a, 0, len(rows_map) - 1)], -1)
+        all_sc = np.concatenate([sc, sc_a], axis=1)
+        all_hr = np.concatenate([hrows, hrows_a], axis=1)
+        all_sc = np.where(all_hr >= 0, all_sc, -np.inf)
+        order = np.argsort(-all_sc, kind="stable", axis=1)[:, :k_scan]
+        return (np.take_along_axis(all_sc, order, axis=1),
+                np.take_along_axis(all_hr, order, axis=1))
 
     def _empty_result(self, nq: int) -> SearchResult:
         return SearchResult(ids=[[] for _ in range(nq)],

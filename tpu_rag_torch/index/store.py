@@ -15,8 +15,10 @@ directory per collection holding
 The index is always rebuildable from DOCS_DIR (same durability contract as
 the reference, SURVEY.md §5 "Checkpoint / resume"), so the store favors
 simplicity + mmap-ability over compression.  Quantized/bf16 device forms are
-derived at load time.  Flat stores only: an IVF manifest raises
-NotImplementedError until the IVF slice is ported.
+derived at load time.  IVF stores add an `ivf` manifest block (nlist,
+nprobe) and, once trained, the centroids (`centroids.f32`, row-major f32)
+with the row count they were trained on; a load re-assigns rows to those
+centroids instead of re-running k-means.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from pathlib import Path
 import numpy as np
 
 from tpu_rag_torch.index.flat import FlatIndex
+from tpu_rag_torch.index.ivf import IVFIndex
 
 MANIFEST = "manifest.json"
 
@@ -82,17 +85,22 @@ def save_index(index: FlatIndex, path: str | Path) -> None:
         "files": {"vectors": "vectors.f32", "ids": "ids.jsonl",
                   "meta": "meta.jsonl", "docs": "docs.jsonl"},
     }
+    if isinstance(index, IVFIndex):
+        manifest["ivf"] = {"nlist": index.nlist, "nprobe": index.nprobe}
+        if index._cached_centroids is not None:
+            index._cached_centroids.astype(np.float32).tofile(p / "centroids.f32")
+            manifest["ivf"]["centroids"] = "centroids.f32"
+            manifest["ivf"]["centroids_shape"] = list(index._cached_centroids.shape)
+            manifest["ivf"]["trained_n"] = int(index._centroids_trained_n)
     # Write manifest last: its presence marks a complete snapshot.
     (p / MANIFEST).write_text(json.dumps(manifest, indent=2), encoding="utf-8")
 
 
 def load_index(path: str | Path, **overrides) -> FlatIndex:
-    """Open a saved flat store; `overrides` are FlatIndex keyword arguments
-    (device, dtype, block_n, ...)."""
+    """Open a saved flat or IVF store; `overrides` are keyword arguments of
+    its index class (device, dtype, block_n, nprobe, ...)."""
     p = Path(path)
     manifest = json.loads((p / MANIFEST).read_text(encoding="utf-8"))
-    if manifest["kind"] != "flat":
-        raise NotImplementedError(f"{manifest['kind'].upper()} not yet ported")
     count = manifest["count"]
     dim = manifest["dim"]
     # read-only memmap: the index adopts it zero-copy, so opening a
@@ -102,7 +110,16 @@ def load_index(path: str | Path, **overrides) -> FlatIndex:
                         mode="r", shape=(count, dim)) if count else \
         np.zeros((0, dim), np.float32)
     ids = iter_store_ids(p / manifest["files"]["ids"])
-    idx = FlatIndex(dim, dtype=overrides.pop("dtype", manifest["dtype"]),
+    ivf_cfg = manifest.get("ivf", {})
+    if manifest["kind"] == "ivf":
+        overrides.setdefault("nlist", ivf_cfg.get("nlist", 0))
+        overrides.setdefault("nprobe", ivf_cfg.get("nprobe", 8))
+        cls = IVFIndex
+    elif manifest["kind"] == "flat":
+        cls = FlatIndex
+    else:
+        raise ValueError(f"unknown index kind {manifest['kind']!r}")
+    idx = cls(dim, dtype=overrides.pop("dtype", manifest["dtype"]),
               metric=manifest["metric"], **overrides)
 
     def _doc_meta_iter():
@@ -118,4 +135,9 @@ def load_index(path: str | Path, **overrides) -> FlatIndex:
 
     if count:
         idx._bulk_adopt_rows(vectors, ids, _doc_meta_iter(), count=count)
+    if manifest["kind"] == "ivf" and "centroids" in ivf_cfg:
+        shape = tuple(ivf_cfg["centroids_shape"])
+        idx._cached_centroids = np.fromfile(
+            p / ivf_cfg["centroids"], dtype=np.float32).reshape(shape)
+        idx._centroids_trained_n = int(ivf_cfg.get("trained_n", count))
     return idx
