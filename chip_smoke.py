@@ -62,8 +62,12 @@ def bound(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median wall time of fn() on the device, CUDA events around each call."""
+def cuda_ms(fn, iters: int = 20, warmup: int = 3, batch: int = 1) -> float:
+    """Median wall time of fn() on the device, CUDA events around each call
+    (the wrapper's host time between them included, as a caller that waits
+    for each result sees it) or, with batch > 1, around `batch` calls back
+    to back, divided by batch (the device's own time, the host's launches
+    overlapped)."""
     import torch
 
     for _ in range(warmup):
@@ -72,10 +76,11 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     for _ in range(iters):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(batch):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / batch)
     return statistics.median(times)
 
 
@@ -121,6 +126,33 @@ def _id_check(k_sc, k_id, p_sc, p_id, tol: float) -> dict:
     return {"max_abs_err": err, "id_mismatches_in_ties": len(diff)}
 
 
+def _packed_check(k_sc, k_id, p_sc, p_id) -> dict:
+    """#2 against its plain version: both round scores to 18 bits, and a sum
+    in another order can land one rounding step away, so scores agree within
+    one step (2^-9 of the magnitude) and ids are equal except next to a plain
+    neighbour within one step."""
+    import torch
+
+    fin = torch.isfinite(p_sc)
+    if not torch.equal(torch.isfinite(k_sc), fin):
+        raise AssertionError("packed scan: kernel and plain disagree on which slots are -inf")
+    step = p_sc.abs() * 2.0 ** -9 + 1e-30
+    err = float((k_sc[fin] - p_sc[fin]).abs().max()) if fin.any() else 0.0
+    if fin.any() and bool(((k_sc - p_sc).abs()[fin] > step[fin]).any()):
+        raise AssertionError(f"packed scan: scores more than one 18-bit step apart ({err:.3g})")
+    unexplained = 0
+    diff = (k_id != p_id).nonzero().tolist()
+    for qi, j in diff:
+        near = [j2 for j2 in (j - 1, j + 1) if 0 <= j2 < p_sc.shape[1]]
+        tied = any(abs(float(p_sc[qi, j]) - float(p_sc[qi, j2])) <= float(step[qi, j])
+                   for j2 in near)
+        if not (tied or j == p_sc.shape[1] - 1):
+            unexplained += 1
+    if unexplained:
+        raise AssertionError(f"packed scan: {unexplained} unexplained id mismatches")
+    return {"max_abs_err": err, "id_mismatches_in_ties": len(diff)}
+
+
 def phase_kernels() -> list[dict]:
     import torch
     import torch.nn.functional as F
@@ -143,13 +175,31 @@ def phase_kernels() -> list[dict]:
         x[77] = x[11]                                  # an exact tie
         return x, ns, canon
 
-    # ---- #1 exact scan: 1M x 384, bf16 (q 8, 64; k_scan 20) and int8 (q 64; 4k = 40)
+    floors = {}
+
+    def floor_of(xx, key):
+        """#4 over the matrix a scan reads: the read floor of that scan
+        (back to back: the device's read rate, not the wrapper's)."""
+        if key not in floors:
+            floors[key] = cuda_ms(lambda: tk._read_sum_cuda(xx), iters=5, batch=10)
+        return floors[key]
+
+    # ---- #1 exact scan: 1M x 384, bf16 (q 8, 64; k_scan 20) and int8 (q 64;
+    # 4k = 40; q 8, k_scan 1024: a rerank of 256 candidates on int8); #2
+    # packed scan at the same rows, bf16 (q 8, k_scan 64 = packed_k_scan(10))
+    # and int8 (q 64, k_scan 80 = packed_k_scan(20))
     n = 1_000_000
     x, ns, canon = corpus(n)
     xb = x.to(torch.bfloat16)
     x8, s8 = quantize_int8_rows(x)
     del x
-    for dtype, nq, k in (("bf16", 8, 20), ("bf16", 64, 20), ("int8", 64, 40)):
+    scans = {"exact": (tk._exact_scan_cuda, tk._exact_scan_plain, "tpu_rag/ops/topk.py:96"),
+             "packed": (tk._packed_scan_cuda, tk._packed_scan_plain, "tpu_rag/ops/topk.py:201")}
+    for mode, dtype, nq, k in (("exact", "bf16", 8, 20), ("exact", "bf16", 64, 20),
+                               ("exact", "int8", 64, 40), ("exact", "int8", 8, 1024),
+                               ("packed", "bf16", 8, 64), ("packed", "int8", 64, 80)):
+        kernel, plain, replaces = scans[mode]
+        packed = mode == "packed"
         qf = torch.randn((nq, d), generator=g, device=dev)
         qf[0] = xb[11].float()
         if dtype == "bf16":
@@ -158,33 +208,46 @@ def phase_kernels() -> list[dict]:
             q_in, qs = quantize_int8_rows(qf)
             xx, sc, elt = x8, s8, 1
         args = (q_in, xx, sc, ns, canon, qs, -1, -1, k)
-        k_sc, k_id = tk._exact_scan_cuda(*args)
-        p_sc, p_id = tk._exact_scan_plain(*args)
+        fargs = (q_in, xx, sc, ns, canon, qs, 2, 1, k)      # a filtered run
+        k_sc, k_id = kernel(*args)
+        p_sc, p_id = plain(*args)
         torch.cuda.synchronize()
-        chk = _id_check(k_sc, k_id, p_sc, p_id, 1e-4)
+        if packed:
+            chk = _packed_check(k_sc, k_id, p_sc, p_id)
+            if dtype == "int8" and not (torch.equal(k_id, p_id) and torch.equal(k_sc, p_sc)):
+                raise AssertionError("packed int8 scan: ids or scores differ from the plain version")
+            _packed_check(*kernel(*fargs), *plain(*fargs))
+        else:
+            chk = _id_check(k_sc, k_id, p_sc, p_id, 1e-4)
+            _id_check(*kernel(*fargs), *plain(*fargs), 1e-4)
         if dtype == "bf16" and k_id[0, 0].item() != 11:
-            raise AssertionError("exact scan: the tie must go to the lowest row")
-        # filtered run, checked the same way
-        fargs = (q_in, xx, sc, ns, canon, qs, 2, 1, k)
-        _id_check(*tk._exact_scan_cuda(*fargs), *tk._exact_scan_plain(*fargs), 1e-4)
+            raise AssertionError(f"{mode} scan: the tie must go to the lowest row")
 
-        def library(q_in=q_in, xx=xx, sc=sc, qs=qs, k=k):
+        def library(q_in=q_in, xx=xx, sc=sc, qs=qs, k=k, packed=packed):
             s = torch.matmul(q_in.to(torch.bfloat16), xx.to(torch.bfloat16).T).float()
             if sc is not None:
                 s = s * qs[:, None] * sc[None, :]
             s = torch.where((ns != tk.PAD_TAG)[None, :], s, -math.inf)
-            return torch.topk(s, k, dim=1)
+            return torch.topk(tk.round18(s) if packed else s, k, dim=1)
 
         nbytes = n * d * elt + n * 8 + (n * 4 if sc is not None else 0) + nq * d * elt + nq * k * 8
         b_ms, b_by = bound(nbytes, 2.0 * n * d * nq, dtype)
-        rows.append({"name": f"exact_scan[{dtype},n={n},q={nq},k={k}]", "route": "cuda",
-                     "source": "tpu_rag_torch/csrc/topk.cu",
-                     "replaces": "tpu_rag/ops/topk.py:96", "counter": "exact",
-                     "max_abs_err": chk["max_abs_err"],
-                     "ms": cuda_ms(lambda: tk._exact_scan_cuda(*args)),
-                     "plain_ms": cuda_ms(lambda: tk._exact_scan_plain(*args), iters=5),
-                     "library_ms": cuda_ms(library, iters=5),
-                     "bound_ms": b_ms, "bound_by": b_by})
+        ms = cuda_ms(lambda: kernel(*args))
+        floor = floor_of(xx, dtype)
+        row = {"name": f"{mode}_scan[{dtype},n={n},q={nq},k={k}]", "route": "cuda",
+               "source": "tpu_rag_torch/csrc/topk.cu", "replaces": replaces, "counter": mode,
+               "max_abs_err": chk["max_abs_err"], "ms": ms,
+               "plain_ms": cuda_ms(lambda: plain(*args), iters=5),
+               "library_ms": cuda_ms(library, iters=5),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "floor_ms": floor, "pct_of_floor": 100.0 * floor / ms}
+        if packed:
+            row["exact_ms_same_shape"] = cuda_ms(lambda: tk._exact_scan_cuda(*args))
+            row["library"] = "composite: torch.matmul + round18 + torch.topk"
+        rows.append(row)
+
+    # ---- #4 read-rate probe on the 1M x 384 bf16 matrix (the 2M int8 below)
+    rows.append(_floor_row(xb, "bf16", floors.get("bf16")))
     del xb, x8, s8, ns, canon
     torch.cuda.empty_cache()
 
@@ -211,14 +274,17 @@ def phase_kernels() -> list[dict]:
 
     nbytes = n * d + n * 12 + nq * d + nq * (n // tk.BUCKET) * 8
     b_ms, b_by = bound(nbytes, 2.0 * n * d * nq, "int8")
+    ms = cuda_ms(lambda: tk._bucketed_scan_cuda(*bargs))
+    floor = cuda_ms(lambda: tk._read_sum_cuda(x8), iters=5, batch=10)
     rows.append({"name": f"bucketed_scan[int8,n={n},q={nq}]", "route": "cuda",
                  "source": "tpu_rag_torch/csrc/topk.cu",
                  "replaces": "tpu_rag/ops/topk.py:284", "counter": "bucketed",
-                 "max_abs_err": chk["max_abs_err"],
-                 "ms": cuda_ms(lambda: tk._bucketed_scan_cuda(*bargs)),
+                 "max_abs_err": chk["max_abs_err"], "ms": ms,
                  "plain_ms": cuda_ms(lambda: tk._bucketed_scan_plain(*bargs), iters=5),
                  "library_ms": cuda_ms(bucket_library, iters=5),
-                 "bound_ms": b_ms, "bound_by": b_by})
+                 "bound_ms": b_ms, "bound_by": b_by,
+                 "floor_ms": floor, "pct_of_floor": 100.0 * floor / ms})
+    rows.append(_floor_row(x8, "int8", floor))
     del x8, s8, ns, canon
     torch.cuda.empty_cache()
 
@@ -254,6 +320,34 @@ def phase_kernels() -> list[dict]:
     emit({"phase": "kernels", "checked": [r["name"] for r in rows] + list(floats),
           "max_abs_err": {**{r["name"]: r["max_abs_err"] for r in rows}, **floats}})
     return rows
+
+
+def _floor_row(x, dtype: str, ms: float | None) -> dict:
+    """#4 on a scan's database, against x.sum(dtype=float32) on the card,
+    with the JAX package's tolerance (1% of the sum, plus 1).  `ms` is
+    timed back to back (floor_of); `ms_per_call` as the other rows are."""
+    import torch
+
+    from tpu_rag_torch.ops import topk as tk
+
+    got = float(tk._read_sum_cuda(x))
+    ref = float(tk._read_sum_plain(x))
+    err = abs(got - ref)
+    if not err < abs(ref) * 1e-2 + 1.0:
+        raise AssertionError(f"read-rate probe: sum {got} against {ref}")
+    nbytes = x.numel() * x.element_size()
+    b_ms, b_by = bound(nbytes, float(x.numel()), "f32")
+    ms = ms if ms is not None else cuda_ms(lambda: tk._read_sum_cuda(x), iters=5, batch=10)
+    return {"name": f"dma_floor_scan[{dtype},n={x.shape[0]},d={x.shape[1]}]", "route": "cuda",
+            "source": "tpu_rag_torch/csrc/topk.cu",
+            "replaces": "tpu_rag/ops/topk.py:612", "counter": "floor",
+            "max_abs_err": err, "ms": ms,
+            "ms_per_call": cuda_ms(lambda: tk._read_sum_cuda(x)),
+            "plain_ms": cuda_ms(lambda: tk._read_sum_plain(x), iters=5),
+            "library_ms": cuda_ms(lambda: torch.sum(x, dtype=torch.float32), iters=5),
+            "library": "torch.sum(x, dtype=torch.float32)",
+            "bound_ms": b_ms, "bound_by": b_by,
+            "read_tb_s": nbytes / (ms * 1e-3) / 1e12}
 
 
 # IVF geometry of the ivf phase, which the kernels phase also uses: 4M rows
@@ -413,7 +507,8 @@ def _counters():
     from tpu_rag_torch.ops import ivf_probe as ip
     from tpu_rag_torch.ops import topk as tk
 
-    return {"exact": tk._exact_scan_cuda, "bucketed": tk._bucketed_scan_cuda,
+    return {"exact": tk._exact_scan_cuda, "packed": tk._packed_scan_cuda,
+            "bucketed": tk._bucketed_scan_cuda, "floor": tk._read_sum_cuda,
             "mha": att._fused_mha_cuda, "per_list": ip._probe_list_cuda,
             "batched": ip._probe_batched_cuda}
 
@@ -492,36 +587,19 @@ def _profile_window(engine, texts: list[str]) -> dict:
             "top_device_ms": top, "host_split_ms": split}
 
 
-def phase_serve(work: Path) -> dict:
-    import numpy as np
-    import torch
-
+@contextlib.contextmanager
+def _served(cfg):
+    """The app for cfg (it loads the saved store) behind the real HTTP
+    server on a free port; counters are zeroed just before it starts.
+    Yields (app, engine, /health reply)."""
     from tpu_rag_torch.api.app import create_app
     from tpu_rag_torch.api.server import HTTPServer
-    from tpu_rag_torch.config import Config
-    from tpu_rag_torch.index.flat import FlatIndex
-    from tpu_rag_torch.index.store import save_index
-    from tpu_rag_torch.utils.metrics import GLOBAL_METRICS
-
-    n, d = 1_000_000, 384
-    t0 = time.perf_counter()
-    store = FlatIndex(d, dtype="auto", device="cuda")
-    store._bulk_adopt_rows(_unit_rows(n, d, SEED), (f"syn-{i}" for i in range(n)),
-                           (("", {}) for _ in range(n)), count=n)
-    cfg = Config(persist_dir=str(work / "vs"), kb_db_path=str(work / "db" / "kb.sqlite3"),
-                 db_path=str(work / "db" / "app.sqlite3"), docs_dir=str(work / "docs"),
-                 embedding_model="sentence-transformers/all-MiniLM-L6-v2",
-                 host="127.0.0.1", device="cuda")
-    save_index(store, Path(cfg.persist_dir) / cfg.collection_name)
-    del store
-    build_s = time.perf_counter() - t0
 
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         cfg.port = s.getsockname()[1]
-    app = create_app(cfg)                 # loads the saved store
+    app = create_app(cfg)
     engine = app.state["engine"]
-    assert engine.index.count() == n
     server = HTTPServer(app, cfg.host, cfg.port, executor_workers=cfg.http_executor_workers)
     thread = threading.Thread(target=server.run, daemon=True)
     _reset_counters()
@@ -536,6 +614,43 @@ def phase_serve(work: Path) -> dict:
                 if time.time() > deadline:
                     raise
                 time.sleep(0.2)
+        yield app, engine, health
+    finally:
+        server.stop()
+        thread.join(timeout=30)
+        engine.shutdown()
+
+
+def _vector_ids(engine, texts: list[str], k: int) -> list[list[str]]:
+    """Top-k ids of the fused embed + scan path, in process."""
+    hits = engine._fused_vector_hits_batch(texts, k, None, None, cache_qv=False)
+    return [[h["id"] for h in hs] for hs in hits]
+
+
+def phase_serve(work: Path) -> dict:
+    import torch
+
+    from tpu_rag_torch.config import Config
+    from tpu_rag_torch.index.flat import FlatIndex
+    from tpu_rag_torch.index.store import MANIFEST, save_index
+    from tpu_rag_torch.utils.metrics import GLOBAL_METRICS
+
+    n, d = 1_000_000, 384
+    t0 = time.perf_counter()
+    store = FlatIndex(d, dtype="auto", device="cuda")
+    store._bulk_adopt_rows(_unit_rows(n, d, SEED), (f"syn-{i}" for i in range(n)),
+                           (("", {}) for _ in range(n)), count=n)
+    cfg = Config(persist_dir=str(work / "vs"), kb_db_path=str(work / "db" / "kb.sqlite3"),
+                 db_path=str(work / "db" / "app.sqlite3"), docs_dir=str(work / "docs"),
+                 embedding_model="sentence-transformers/all-MiniLM-L6-v2",
+                 host="127.0.0.1", device="cuda")
+    store_dir = Path(cfg.persist_dir) / cfg.collection_name
+    save_index(store, store_dir)
+    del store
+    build_s = time.perf_counter() - t0
+
+    with _served(cfg) as (app, engine, health):      # loads the saved store
+        assert engine.index.count() == n
         texts = [_doc_text(i) for i in range(4)]
         saved = []
         t_save = time.perf_counter()
@@ -587,25 +702,59 @@ def phase_serve(work: Path) -> dict:
             for name, ms in r["timings_ms"].items():
                 stages.setdefault(name, []).append(ms)
         profile = _profile_window(engine, queries[4:])
-    finally:
-        server.stop()
-        thread.join(timeout=30)
-        engine.shutdown()
+        exact_top10 = _vector_ids(engine, queries[4:], 10)
+        snapshot = dict(engine.index.snapshot_stats)
+        while json.loads((store_dir / MANIFEST).read_text())["count"] < n + len(texts):
+            if time.perf_counter() - t_save > 600:            # the saves persist
+                raise TimeoutError("the store was not rewritten")
+            time.sleep(0.2)
     if counts["exact"] < 1 or counts["mha"] < 1:
         raise AssertionError(f"the main path did not launch the kernels: {counts}")
+    del app, engine
+    torch.cuda.empty_cache()
+    packed = _serve_packed(cfg, queries[4:], exact_top10, n + len(texts))
     out = {"phase": "serve", "rows": n, "store_build_s": build_s,
            "docs_saved": len(saved), "docs_index_s": save_s,
            "searches": len(lat), "search_ms_p50": statistics.median(lat) * 1e3,
            "search_ms_max": max(lat) * 1e3, "windows": windows,
            "warm_search_ms": warm, "warm_search_ms_p50": statistics.median(warm),
            "warm_stage_ms_p50": {k: statistics.median(v) for k, v in stages.items()},
-           "profile_8q_window": profile,
-           "snapshot": dict(engine.index.snapshot_stats),
-           "health_device": health["device"], "launches": counts}
+           "profile_8q_window": profile, "snapshot": snapshot,
+           "health_device": health["device"], "launches": counts, "packed": packed}
     emit(out)
-    del app, engine, server
-    torch.cuda.empty_cache()
-    return counts
+    return {name: counts[name] + packed["launches"][name] for name in counts}
+
+
+def _serve_packed(cfg, queries: list[str], exact_top10, rows: int) -> dict:
+    """The same store served again with INDEX_SEARCH_MODE=packed: /search
+    latency one request at a time, recall@10 of the fused path against the
+    exact run's, and the packed scan (#2), not the exact one (#1), launched."""
+    cfg.index_search_mode = "packed"
+    with _served(cfg) as (_app, engine, _health):
+        index = engine.index
+        if index.count() != rows or index.effective_search_mode(rows) != "packed":
+            raise AssertionError(f"packed serve: {index.count()} rows, mode "
+                                 f"{index.effective_search_mode(rows)}")
+        lat, stages = [], {}
+        for qtext in [queries[0]] + queries:                 # the first one warms up
+            t1 = time.perf_counter()
+            r = _http(cfg.port, "POST", "/search", {"query": qtext, "k": 5})
+            lat.append((time.perf_counter() - t1) * 1e3)
+            assert r["hits"] and all(math.isfinite(h["score"]) for h in r["hits"])
+            for name, ms in r["timings_ms"].items():
+                stages.setdefault(name, []).append(ms)
+        top10 = _vector_ids(engine, queries, 10)
+        counts = _read_counters()
+        profile = _profile_window(engine, queries)
+    if counts["packed"] < 1 or counts["exact"] != 0:
+        raise AssertionError(f"packed serve launched {counts}")
+    recall = statistics.mean(len(set(a) & set(b)) / 10 for a, b in zip(top10, exact_top10))
+    if recall < 0.9:
+        raise AssertionError(f"packed serve: recall@10 {recall} against the exact run")
+    return {"warm_search_ms": lat[1:], "warm_search_ms_p50": statistics.median(lat[1:]),
+            "warm_stage_ms_p50": {k: statistics.median(v[1:]) for k, v in stages.items()},
+            "profile_8q_window": profile, "recall_at_10_vs_exact": recall,
+            "launches": counts}
 
 
 def phase_scale() -> dict:
@@ -625,29 +774,49 @@ def phase_scale() -> dict:
     q = x[base] + 0.05 * rng.standard_normal((nq, d), dtype=np.float32) / math.sqrt(d)
     q /= np.linalg.norm(q, axis=1, keepdims=True)
     assert idx.dtype == "int8" and idx.effective_search_mode(n) == "bucketed"
-    idx.device_snapshot()
+    snap = idx.device_snapshot()
+    assert "r_vectors" in snap                  # the device residual refine
     build_s = time.perf_counter() - t0
-    _reset_counters()
-    t1 = time.perf_counter()
-    res = idx.search(q, 10)
-    torch.cuda.synchronize()
-    search_s = time.perf_counter() - t1
-    counts = _read_counters()
-    if counts["bucketed"] < 1:
-        raise AssertionError(f"the 2M-row search did not launch the bucketed scan: {counts}")
     xt = torch.from_numpy(x).to("cuda")
     truth = torch.topk(torch.from_numpy(q).to("cuda") @ xt.T, 10, dim=1).indices.cpu().numpy()
     del xt
-    got = np.asarray([[int(i[1:]) for i in ids] for ids in res.ids])
-    recall = float(np.mean([len(set(a) & set(b)) / 10 for a, b in zip(got, truth)]))
-    self_hit = float(np.mean(got[:, 0] == base))
-    if recall < 0.95 or self_hit < 1.0:
-        raise AssertionError(f"2M int8 bucketed recall@10 {recall}, self hit {self_hit}")
-    out = {"phase": "scale", "rows": n, "dtype": idx.dtype, "mode": "bucketed",
-           "build_s": build_s, "search_s_64q_first": search_s,
-           "recall_at_10": recall, "launches": counts}
+    from tpu_rag_torch.ops.topk import dma_floor_scan
+
+    _reset_counters()
+    modes = {}
+    for mode, counter in (("bucketed", "bucketed"), ("packed", "packed")):
+        idx.search_mode = mode
+        before = _read_counters()[counter]
+        lat = []
+        for _ in range(3):                      # the first call warms up
+            t1 = time.perf_counter()
+            res = idx.search(q, 10)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t1) * 1e3)
+        if _read_counters()[counter] - before != 3:
+            raise AssertionError(f"the 2M-row {mode} search did not launch its scan")
+        got = np.asarray([[int(i[1:]) for i in ids] for ids in res.ids])
+        recall = float(np.mean([len(set(a) & set(b)) / 10 for a, b in zip(got, truth)]))
+        self_hit = float(np.mean(got[:, 0] == base))
+        if recall < 0.95 or self_hit < 1.0:
+            raise AssertionError(f"2M int8 {mode} recall@10 {recall}, self hit {self_hit}")
+        modes[mode] = {"search_ms_64q_first": lat[0], "search_ms_64q_warm": lat[1:],
+                       "recall_at_10": recall, "split_ms": {
+                           k_.replace("_s", "_ms"): v * 1e3
+                           for k_, v in idx.last_search_stats.items()}}
+    # the read floor of these scans (#4 over the snapshot's int8 rows)
+    t1 = time.perf_counter()
+    dma_floor_scan(snap["vectors"])
+    torch.cuda.synchronize()
+    floor_first_ms = (time.perf_counter() - t1) * 1e3
+    floor_ms = cuda_ms(lambda: dma_floor_scan(snap["vectors"]), iters=3, warmup=1, batch=10)
+    counts = _read_counters()
+    out = {"phase": "scale", "rows": n, "dtype": idx.dtype, "build_s": build_s,
+           "modes": modes, "read_floor_ms": floor_ms, "read_floor_ms_first": floor_first_ms,
+           "read_tb_s": snap["vectors"].numel() / (floor_ms * 1e-3) / 1e12,
+           "launches": counts}
     emit(out)
-    del idx
+    del idx, snap
     torch.cuda.empty_cache()
     return counts
 
@@ -696,8 +865,6 @@ def phase_ivf(work: Path) -> dict:
     import numpy as np
     import torch
 
-    from tpu_rag_torch.api.app import create_app
-    from tpu_rag_torch.api.server import HTTPServer
     from tpu_rag_torch.config import Config
     from tpu_rag_torch.index.ivf import IVFIndex
     from tpu_rag_torch.index.store import MANIFEST, save_index
@@ -738,28 +905,10 @@ def phase_ivf(work: Path) -> dict:
     torch.cuda.empty_cache()
 
     # ---- serve the store over HTTP (the engine loads it: kind "ivf")
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        cfg.port = s.getsockname()[1]
-    app = create_app(cfg)
-    engine = app.state["engine"]
-    index = engine.index
-    assert type(index) is IVFIndex and index.count() == n
-    index.list_cap_factor = 2.0      # a store records no cap factor; the build's
-    server = HTTPServer(app, cfg.host, cfg.port, executor_workers=cfg.http_executor_workers)
-    thread = threading.Thread(target=server.run, daemon=True)
-    _reset_counters()
-    thread.start()
-    try:
-        deadline = time.time() + 60
-        while True:
-            try:
-                _http(cfg.port, "GET", "/health", timeout=10)
-                break
-            except OSError:
-                if time.time() > deadline:
-                    raise
-                time.sleep(0.2)
+    with _served(cfg) as (app, engine, _health):
+        index = engine.index
+        assert type(index) is IVFIndex and index.count() == n
+        index.list_cap_factor = 2.0  # a store records no cap factor; the build's
         t1 = time.perf_counter()
         _http(cfg.port, "POST", "/search", {"query": "first light", "k": 5})
         first_search_s = time.perf_counter() - t1   # encoder init + snapshot from the store
@@ -861,10 +1010,6 @@ def phase_ivf(work: Path) -> dict:
         if _read_counters() != counts:
             raise AssertionError("the plain run launched a probe kernel")
         snapshot = dict(index.snapshot_stats)
-    finally:
-        server.stop()
-        thread.join(timeout=30)
-        engine.shutdown()
     if counts["per_list"] < 1 or counts["batched"] < 1 or http_counts["per_list"] < 1:
         raise AssertionError(f"the IVF path did not launch the probe kernels: {counts}")
     for route in ("q1", "q64"):
@@ -879,15 +1024,130 @@ def phase_ivf(work: Path) -> dict:
            "routes_kernel": kernel, "routes_plain": plain,
            "snapshot": snapshot, "launches_http": http_counts, "launches": counts}
     emit(out)
-    del app, engine, server, index
+    del app, engine, index
     torch.cuda.empty_cache()
+    return counts
+
+
+# scripts/rehearse_host_ivf.py's geometry (nprobe 64, cap factor 2.0, chunks
+# of 250K, a 262,144-row training sample, k 10, batches of 8 queries, its
+# low-rank generator), cut from 50M rows / 16,384 lists to 12.5M / 4,096 for
+# the run's time limit, which keeps ~3,052 rows a list
+HIVF_ROWS, HIVF_NLIST, HIVF_NPROBE, HIVF_CHUNK, HIVF_TRAIN = (
+    12_500_000, 4096, 64, 250_000, 262_144)
+
+
+def phase_host_ivf(work: Path, n: int = HIVF_ROWS, nlist: int = HIVF_NLIST,
+                   device: str = "cuda") -> dict:
+    """HostArenaIVF at a corpus whose lists live in host RAM: built from
+    chunks born on the card, searched in batches of 8 (the gathered union
+    through #1, one batch through #2), saved and loaded with mmap."""
+    import numpy as np
+    import torch
+
+    from tpu_rag_torch.index.host_ivf import HostArenaIVF
+    from tpu_rag_torch.ops.quant import quantize_int8_rows
+    from tpu_rag_torch.ops.topk import fused_matmul_topk
+
+    d, k, qb, nbatch = 384, 10, 8, 4
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    bq, _ = torch.linalg.qr(torch.randn((d, d), generator=g, device=dev).cpu())
+    basis = (bq * torch.arange(1, d + 1, dtype=torch.float32).rsqrt()[:, None]).to(dev)
+
+    def gen(rows):
+        z = torch.randn((rows, d), generator=g, device=dev) @ basis
+        return z * torch.rsqrt((z * z).sum(dim=1, keepdim=True) + 1e-9)
+
+    ivf = HostArenaIVF(d, nlist=nlist, nprobe=HIVF_NPROBE, cap_factor=2.0,
+                       expected_rows=n, max_overflow=max(2_000_000, n // 4), device=dev)
+    t0 = time.perf_counter()
+    ivf.train(gen(min(HIVF_TRAIN, n)))
+    sync()
+    train_s = time.perf_counter() - t0
+    # the int8 corpus stays on the card too: the recall reference is #1 over it
+    x8 = torch.empty((n, d), dtype=torch.int8, device=dev)
+    s8 = torch.empty((n,), dtype=torch.float32, device=dev)
+    t0 = time.perf_counter()
+    for off in range(0, n, HIVF_CHUNK):
+        c = gen(min(HIVF_CHUNK, n - off))
+        if off == 0:
+            first = c[:qb * nbatch].clone()
+        ivf.add(c)
+        x8[off:off + len(c)], s8[off:off + len(c)] = quantize_int8_rows(c)
+    sync()
+    add_s = time.perf_counter() - t0
+    eps = gen(qb * nbatch)
+    q = first + 0.25 * eps
+    q = (q / q.norm(dim=1, keepdim=True)).cpu().numpy()
+    batches = [q[i:i + qb] for i in range(0, len(q), qb)]
+
+    _reset_counters()
+    ivf.search(batches[0], k)                      # first use: staging buffers
+    lat, splits, rows = [], [], {}
+    for _ in range(2):
+        for i, b in enumerate(batches):
+            t1 = time.perf_counter()
+            _, rows[i] = ivf.search(b, k)
+            lat.append((time.perf_counter() - t1) * 1e3)
+            splits.append(ivf.last_search_stats)
+    t1 = time.perf_counter()
+    p_sc, p_rows = ivf.search(batches[0], k, mode="packed")
+    packed_ms = (time.perf_counter() - t1) * 1e3
+    counts = _read_counters()
+    if counts["exact"] < 1 or counts["packed"] < 1:
+        raise AssertionError(f"host-arena search did not launch #1 and #2: {counts}")
+
+    t1 = time.perf_counter()
+    truth = fused_matmul_topk(torch.from_numpy(q).to(dev), x8, k, db_scales=s8)[1].cpu().numpy()
+    truth_ms = (time.perf_counter() - t1) * 1e3
+
+    def recall(got, want):
+        return float(np.mean([len(set(a[a >= 0].tolist()) & set(b.tolist())) / k
+                              for a, b in zip(got, want)]))
+
+    rec = recall(np.concatenate([rows[i] for i in range(nbatch)]), truth)
+    rec_packed = recall(p_rows, truth[:qb])
+    rec_exact0 = recall(rows[0], truth[:qb])
+    if rec < 0.7 or rec_packed < 0.7:
+        raise AssertionError(f"host-arena recall@10 {rec}, packed {rec_packed}")
+
+    t1 = time.perf_counter()
+    ivf.save(str(work / "hivf"))
+    save_s = time.perf_counter() - t1
+    sc0, rows0 = ivf.search(batches[1], k)
+    t1 = time.perf_counter()
+    back = HostArenaIVF.load(str(work / "hivf"), mmap=True, device=dev)
+    sc1, rows1 = back.search(batches[1], k)
+    reload_ms = (time.perf_counter() - t1) * 1e3
+    if not (np.array_equal(rows0, rows1) and np.allclose(sc0, sc1, rtol=0, atol=1e-5)):
+        raise AssertionError("the mmap-loaded store searches differently")
+    keys = ("probe_ms", "gather_ms", "upload_ms", "scan_ms", "merge_ms", "device_ms")
+    out = {"phase": "host_ivf", "rows": n, "nlist": nlist, "cap": ivf.cap,
+           "nprobe": HIVF_NPROBE, "spilled_rows": ivf.spilled_rows,
+           "host_list_bytes": int(ivf._vec.nbytes + 4 * ivf._scale.nbytes + ivf._fill.nbytes),
+           "build_s": {"train": train_s, "add": add_s},
+           "batch_ms": lat, "batch_ms_p50": statistics.median(lat),
+           "split_ms_p50": {kk: statistics.median(s_[kk] for s_ in splits)
+                            for kk in keys if kk in splits[0]},
+           "lists_per_batch": [s_["lists"] for s_ in splits],
+           "recall_at_10_vs_int8_exact": rec, "packed_batch": {
+               "ms": packed_ms, "recall_at_10_vs_int8_exact": rec_packed,
+               "exact_recall_same_batch": rec_exact0},
+           "truth_scan_ms": truth_ms, "save_s": save_s,
+           "mmap_load_and_search_ms": reload_ms, "launches": counts}
+    emit(out)
+    del ivf, back, x8, s8
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
     return counts
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,kernels,serve,scale,ivf",
-                    help="comma-separated subset of build,kernels,serve,scale,ivf")
+    ap.add_argument("--phases", default="build,kernels,serve,scale,ivf,host_ivf",
+                    help="comma-separated subset of build,kernels,serve,scale,ivf,host_ivf")
     args = ap.parse_args()
     phases = args.phases.split(",")
     try:
@@ -918,16 +1178,16 @@ def main() -> int:
         phase_build()
     if "kernels" in phases:
         rows = phase_kernels()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=REPO / "build") as work:
-        if "serve" in phases:
-            launches.update({k: v for k, v in phase_serve(Path(work)).items()
-                             if k in ("exact", "mha")})
-    if "scale" in phases:
-        launches["bucketed"] = phase_scale()["bucketed"]
-    if "ivf" in phases:
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_ivf_", dir=REPO / "build") as work:
-            launches.update({k: v for k, v in phase_ivf(Path(work)).items()
-                             if k in ("per_list", "batched")})
+    # each phase drives its part of the path with the counters zeroed first;
+    # a kernel's launches are the sum over the phases that ran
+    runs = {"serve": phase_serve, "scale": lambda _work: phase_scale(),
+            "ivf": phase_ivf, "host_ivf": phase_host_ivf}
+    for name, run in runs.items():
+        if name in phases:
+            with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{name}_",
+                                             dir=REPO / "build") as work:
+                for kern, count in run(Path(work)).items():
+                    launches[kern] = launches.get(kern, 0) + count
     for r in rows:
         r["launches"] = launches.get(r.pop("counter"))
     emit({"kernels": rows})

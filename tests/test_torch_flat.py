@@ -1,8 +1,10 @@
 """Parity of tpu_rag_torch.index (FlatIndex + store) with tpu_rag.index on
 the CPU: the bundled store searched by both packages, stores crossing
-between them, incremental add/delete/compact, and growth across a padding
-boundary (the JAX index's jit caches omit n_pad — flat.py:978, :1077 — so a
-grown index can search with a stale padding; the port has no such cache).
+between them, incremental add/delete/compact, packed mode (kernel #2's
+plain version against the JAX kernel in interpret mode), a selection depth
+past 128, and growth across a padding boundary (the JAX index's jit caches
+omit n_pad — flat.py:978, :1077 — so a grown index can search with a stale
+padding; the port has no such cache).
 """
 
 import json
@@ -119,6 +121,53 @@ def test_add_delete_compact_parity(dtype):
         i.compact()
     same()
     assert port.count() == ref.count()
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_packed_mode_search_matches_jax(dtype):
+    """search_mode="packed": the packed_k_scan oversample, then the residual
+    refine; ids equal tpu_rag's before and after adds into the append block."""
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((700, 32)).astype(np.float32)
+    ids = [f"r{i}" for i in range(700)]
+    metas = [{"namespace": "a" if i % 3 else "b"} for i in range(700)]
+    q = np.concatenate([x[[4, 500]], rng.standard_normal((3, 32)).astype(np.float32)])
+    ref = JaxFlat(32, dtype=dtype, block_n=256, search_mode="packed")
+    port = FlatIndex(32, dtype=dtype, block_n=256, search_mode="packed", device="cpu")
+    assert port.effective_search_mode(700) == "packed"
+
+    def same(**kw):
+        a, b = ref.search(q, 8, **kw), port.search(q, 8, **kw)
+        assert a.ids == b.ids
+        np.testing.assert_allclose(np.asarray(a.similarities),
+                                   np.asarray(b.similarities), rtol=0, atol=1e-4)
+        return b
+
+    for i in (ref, port):
+        i.add(ids[:600], x[:600], metadatas=metas[:600])
+    assert same().ids[0][0] == "r4"
+    for i in (ref, port):                    # into the append block
+        i.add(ids[600:], x[600:], metadatas=metas[600:])
+    assert same().ids[1][0] == "r500"
+    assert port.snapshot_stats["incremental_appends"] >= 1
+    same(namespace="b")
+
+
+def test_int8_search_k40_matches_jax():
+    """int8 with k = 40 scans k_scan = 160 rows, past the 128 the port's
+    selection was once capped at (it raised where tpu_rag answers)."""
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((900, 32)).astype(np.float32)
+    ids = [f"r{i}" for i in range(900)]
+    q = rng.standard_normal((3, 32)).astype(np.float32)
+    ref = JaxFlat(32, dtype="int8", block_n=256)
+    port = FlatIndex(32, dtype="int8", block_n=256, device="cpu")
+    for i in (ref, port):
+        i.add(ids, x)
+    a, b = ref.search(q, 40), port.search(q, 40)
+    assert len(b.ids[0]) == 40 and a.ids == b.ids
+    np.testing.assert_allclose(np.asarray(a.similarities), np.asarray(b.similarities),
+                               rtol=0, atol=1e-4)
 
 
 def test_growth_across_padding_boundary_matches_fresh_index():

@@ -2,7 +2,9 @@
 document, so the T = 128 bucket runs the fused attention's plain version),
 /search with and without a namespace filter, DELETE /docs/{id}, and the
 same docs and queries through tpu_rag's app with the same (carried-across)
-tiny encoder params, which must return the same documents."""
+tiny encoder params, which must return the same documents; then the same
+drive with INDEX_SEARCH_MODE=packed (kernel #2's plain version here, the
+JAX kernel in interpret mode there)."""
 
 import numpy as np
 import pytest
@@ -100,6 +102,29 @@ def test_slice_end_to_end_matches_tpu_rag(tmp_path, encoders):
         engine.shutdown()
 
     jcfg = _paths(tmp_path / "jax", JaxConfig)
+    jengine = JaxEngine(jcfg, encoder=jax_enc)
+    try:
+        jtitles, _ = _drive(JaxClient(jax_create_app(jcfg, engine=jengine)))
+    finally:
+        jengine.shutdown()
+    assert titles == jtitles
+
+
+def test_slice_packed_mode_matches_tpu_rag(tmp_path, encoders):
+    jax_enc, enc = encoders
+    cfg = _paths(tmp_path / "port", Config)
+    cfg.device, cfg.index_search_mode = "cpu", "packed"
+    engine = RagEngine(cfg, encoder=enc)
+    try:
+        assert engine.index.search_mode == "packed"
+        titles, _ = _drive(TestClient(create_app(cfg, engine=engine)))
+        assert engine.index.effective_search_mode(engine.index.count()) == "packed"
+    finally:
+        engine.shutdown()
+    assert [t[0] for t in titles] == [d["title"] for d in DOCS]
+
+    jcfg = _paths(tmp_path / "jax", JaxConfig)
+    jcfg.index_search_mode = "packed"
     jengine = JaxEngine(jcfg, encoder=jax_enc)
     try:
         jtitles, _ = _drive(JaxClient(jax_create_app(jcfg, engine=jengine)))

@@ -81,9 +81,10 @@ class Config:
                                         # see FlatIndex.dtype)
     index_kind: str = "flat"            # flat | ivf
     index_search_mode: str = "auto"     # auto = exact below 2M rows, bucketed
-                                        # above; "packed" is explicit opt-in
-                                        # only (quasi-exact) — see
-                                        # FlatIndex.effective_search_mode
+                                        # above; "packed" (kernel #2, 18-bit
+                                        # scores, oversampled and refined) is
+                                        # explicit opt-in only (quasi-exact) —
+                                        # see FlatIndex.effective_search_mode
     block_n: int = 8192                 # db rows per Pallas tile (cap; VMEM budget may lower it)
     ivf_nlist: int = 0                  # 0 = auto (~sqrt(N))
     ivf_nprobe: int = 8

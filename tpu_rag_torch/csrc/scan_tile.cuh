@@ -26,7 +26,8 @@ constexpr int kSub = 128;       // rows per step
 constexpr int kThreads = 256;   // 8 warps
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxQc = 64;      // queries one block scores at once
-constexpr int kMaxK = 128;      // longest sorted candidate list
+constexpr int kMaxK = 128;      // longest list warp_insert keeps in registers
+constexpr int kMaxDeepK = 1024; // longest list warp_insert_deep keeps
 constexpr unsigned kFull = 0xffffffffu;
 
 template <typename T> struct Acc { using type = float; };
@@ -185,6 +186,57 @@ __device__ inline void warp_insert(float* Ls, int* Li, int k, float s, int row) 
         Ls[j + 1] = es[t];
         Li[j + 1] = ei[t];
       }
+    }
+    if (lane == 0) {
+      Ls[pos] = cs;
+      Li[pos] = cr;
+    }
+    __syncwarp();
+  }
+}
+
+// warp_insert for lists longer than kMaxK (up to kMaxDeepK), same order and
+// ties.  The list stays in shared memory: the insert position is counted a
+// 32-entry chunk at a time (the list is sorted, so the count stops at the
+// first chunk holding an entry that is not better), and the tail shifts one
+// place chunk by chunk from the end, so each lane holds one entry at a time.
+__device__ inline void warp_insert_deep(float* Ls, int* Li, int k, float s, int row) {
+  const int lane = threadIdx.x & 31;
+  unsigned m = __ballot_sync(
+      kFull, s > -INFINITY && (s > Ls[k - 1] || (s == Ls[k - 1] && row < Li[k - 1])));
+  while (m) {
+    const int src = __ffs(m) - 1;
+    m &= m - 1;
+    const float cs = __shfl_sync(kFull, s, src);
+    const int cr = __shfl_sync(kFull, row, src);
+    const float ts = Ls[k - 1];
+    const int ti = Li[k - 1];
+    if (!(cs > ts || (cs == ts && cr < ti))) continue;  // warp-uniform
+    int pos = 0;
+    for (int c0 = 0; c0 < k; c0 += 32) {
+      const int j = c0 + lane;
+      const unsigned b = __ballot_sync(
+          kFull, j < k && (Ls[j] > cs || (Ls[j] == cs && Li[j] < cr)));
+      pos += __popc(b);
+      if (b != kFull) break;
+    }
+    // entries [pos, k - 2] move up one place, highest chunk first: a chunk's
+    // lane 31 writes into the chunk above, whose entries have already moved
+    for (int c0 = (k - 2) & ~31; c0 >= (pos & ~31); c0 -= 32) {
+      const int j = c0 + lane;
+      const bool mv = j >= pos && j + 1 < k;
+      float es = 0.f;
+      int ei = 0;
+      if (mv) {
+        es = Ls[j];
+        ei = Li[j];
+      }
+      __syncwarp();
+      if (mv) {
+        Ls[j + 1] = es;
+        Li[j + 1] = ei;
+      }
+      __syncwarp();
     }
     if (lane == 0) {
       Ls[pos] = cs;

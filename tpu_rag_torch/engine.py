@@ -98,7 +98,10 @@ class RagEngine:
         cfg = self.config
         p = self._index_path()
         if (p / MANIFEST).is_file():
-            return load_index(p, block_n=cfg.block_n, device=self.device)
+            # the configured search mode holds for a loaded store too (the JAX
+            # engine drops it there, so INDEX_SEARCH_MODE did nothing on it)
+            return load_index(p, block_n=cfg.block_n, search_mode=cfg.index_search_mode,
+                              device=self.device)
         kw = dict(dtype=cfg.index_dtype, block_n=cfg.block_n,
                   search_mode=cfg.index_search_mode, device=self.device)
         if cfg.index_kind == "ivf":

@@ -36,7 +36,7 @@ from tpu_rag_torch.index.filter import TagVocab
 from tpu_rag_torch.index.rowmeta import RowIdMap, RowSeq
 from tpu_rag_torch.ops.quant import quantize_int8_np, quantize_int8_rows
 from tpu_rag_torch.ops.topk import (BUCKET, PAD_TAG, fused_matmul_topk,
-                                    select_topk, topk_reference)
+                                    packed_k_scan, select_topk, topk_reference)
 
 # Slack kept free in the append block: adds that would leave less than this
 # many free slots force a full rebuild instead.
@@ -52,9 +52,10 @@ def refine_k_scan(dtype: str, refine_factor: int, k: int, n: int,
     ~f32, keep top k).  int8 scans the full refine_factor*k — quantization
     error genuinely reorders candidates; bf16 only needs to recover
     rounding-order near-ties, so 2x oversampling suffices.  mode="packed"
-    keeps the JAX package's tie-census oversample (max(4k, 64))."""
+    keeps the JAX package's tie-census oversample (packed_k_scan), also
+    for f32 storage or refine_factor 0."""
     if mode == "packed":
-        return min(max(4 * k, 64), max(n, 1))
+        return packed_k_scan(k, n)
     if refine_factor <= 0 or dtype not in ("int8", "bfloat16"):
         return k
     f = refine_factor if dtype == "int8" else min(refine_factor, 2)
@@ -114,7 +115,7 @@ class FlatIndex:
         dtype: str = "bfloat16",
         metric: str = "cosine",
         block_n: int = 8192,          # snapshot padding granule (see pad_rows)
-        search_mode: str = "auto",    # "auto" | "exact" | "bucketed"
+        search_mode: str = "auto",    # "auto" | "exact" | "bucketed" | "packed"
         master_backing: str | None = None,  # ram | disk | auto (env default)
         master_dir: str | None = None,      # backing-file dir for disk/auto
         docmeta_backing: str | None = None,  # ram | disk (id/doc/meta rows)
@@ -676,8 +677,12 @@ class FlatIndex:
     def effective_search_mode(self, n: int) -> str:
         """Resolve "auto" per corpus size: below auto_bucketed_min_rows the
         exact kernel (recall 1.0 by construction); at and above it the
-        one-pass bucketed kernel.  "packed" is never auto-selected (and not
-        yet ported)."""
+        one-pass bucketed kernel.  "packed" (kernel #2, 18-bit score
+        resolution with ties to the lowest row) is never auto-selected: its
+        tie census grows with corpus density, so it is an explicit opt-in
+        that oversamples by packed_k_scan and refines (on the device from
+        the residual where the snapshot has one, else on the host from the
+        f32 master)."""
         if self.search_mode != "auto":
             return self.search_mode
         if n >= self.auto_bucketed_min_rows:

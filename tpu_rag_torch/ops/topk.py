@@ -3,15 +3,18 @@
 `fused_matmul_topk` keeps the signature and return contract of the JAX
 function: (scores (q, k) f32, ids (q, k) int32), ids of -1 (score -inf) where
 fewer than k rows matched, ties to the lowest row.  On a CUDA tensor it
-launches the hand-written kernels of csrc/topk.cu (#1 exact, #3 bucketed) or
-raises; on a CPU tensor it runs their plain PyTorch versions below, which
-repeat the kernels' arithmetic.  The global merge of per-tile candidates is
-torch, as JAX merges outside Pallas with lax.top_k, and uses a stable sort so
-the lowest row wins a tie (torch.topk documents no tie order).
+launches the hand-written kernels of csrc/topk.cu (#1 exact, #2 packed, #3
+bucketed) or raises; on a CPU tensor it runs their plain PyTorch versions
+below, which repeat the kernels' arithmetic.  The global merge of per-tile
+candidates is torch, as JAX merges outside Pallas with lax.top_k, and uses a
+stable sort so the lowest row wins a tie (torch.topk documents no tie
+order).  `dma_floor_scan` is the read-rate probe (#4).
 
 Dropped from the JAX module: QP_MAX query chunking, default_block_n's VMEM
-budgets and the compiler params (TPU tiling), the packed mode (#2) and the
-read-rate probe (#4), which are not ported yet.
+budgets and the compiler params (TPU tiling), and the packed mode's 14-bit
+lane field and 16,384-row tile cap (a single max-reduce per pass on the TPU;
+the port's sorted lists break ties by row).  The exact and packed scans
+select at most K_MAX = 1024 rows, on every device; JAX's kernel has no cap.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ from tpu_rag_torch.ops.quant import quantize_int8_rows
 PAD_TAG = -(2**31)
 
 BUCKET = 128          # bucketed mode: one candidate per 128 consecutive rows
-K_MAX = 128           # largest k the exact kernel selects
+K_MAX = 1024          # largest k the exact and packed scans select
 _SMEM_MAX = 232_448   # dynamic shared memory one H100 block may use
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -88,6 +91,30 @@ def _exact_scan_plain(q, x, scale, ns, canon, qscale, want_ns, want_canon, k):
     return select_topk(s, None, k)
 
 
+def packed_k_scan(k: int, n: int) -> int:
+    """Refine oversample for packed selection: rows whose scores round to the
+    same 18 bits are ranked by row, not score, so the scan keeps max(4k, 64)
+    candidates to cover the ties at rank k, and the caller re-scores them."""
+    return min(max(4 * k, 64), max(n, 1))
+
+
+def round18(s: torch.Tensor) -> torch.Tensor:
+    """Kernel #2's score resolution: keep the top 18 bits of each f32 pattern
+    (sign, exponent, 9 mantissa bits).  The JAX kernel packs the sortable
+    key's top 18 bits beside a 14-bit lane and rebuilds the score with a
+    low-bit fill; that round trip gives exactly these values, -inf included,
+    and they order as the keys do."""
+    return (s.contiguous().view(torch.int32) & -(1 << 14)).view(torch.float32)
+
+
+def _packed_scan_plain(q, x, scale, ns, canon, qscale, want_ns, want_canon, k):
+    """Plain version of kernel #2: the top k of the rounded scores, ties to
+    the lowest row, returning the rounded scores."""
+    s = _scan_scores_plain(q, x, scale, ns, canon, qscale, want_ns, want_canon,
+                           apply_qscale=True)
+    return select_topk(round18(s), None, k)
+
+
 def _bucketed_scan_plain(q, x, scale, ns, canon, want_ns, want_canon):
     """Plain version of kernel #3: (nq, ceil(n/128)) bucket maxima and their
     rows (first row among ties), without the int8 query scale."""
@@ -105,6 +132,7 @@ def _bucketed_scan_plain(q, x, scale, ns, canon, want_ns, want_canon):
 # ------------------------------------------------------------ CUDA kernels
 
 _SCAN_ARGS = [_build.P] * 6 + [_build.I] * 10 + [_build.P] * 3
+_SCAN_MODE = {"bucketed": 0, "exact": 1, "packed": 2}
 
 
 def _smem_bytes(dtype_code: int, d: int, qc: int, k: int, exact: bool) -> int:
@@ -114,8 +142,13 @@ def _smem_bytes(dtype_code: int, d: int, qc: int, k: int, exact: bool) -> int:
     return int(fn(dtype_code, d, qc, k, int(exact)))
 
 
-def _scan_cuda(q, x, scale, ns, canon, qscale, want_ns, want_canon, k, exact):
-    """Launch kernel #1 (exact) or #3 (bucketed) of csrc/topk.cu."""
+def _check_depth(k: int) -> None:
+    if not 0 < k <= K_MAX:
+        raise ValueError(f"exact and packed scans select 1 <= k <= {K_MAX}, got {k}")
+
+
+def _scan_cuda(q, x, scale, ns, canon, qscale, want_ns, want_canon, k, mode):
+    """Launch kernel #1 (exact), #2 (packed) or #3 (bucketed) of csrc/topk.cu."""
     n, d = x.shape
     nq = q.shape[0]
     for name, t, dt in (("queries", q, x.dtype), ("database", x, x.dtype),
@@ -129,8 +162,9 @@ def _scan_cuda(q, x, scale, ns, canon, qscale, want_ns, want_canon, k, exact):
         raise ValueError(f"the CUDA scan needs d % 16 == 0, got d={d}")
     if ns.shape != (n,) or canon.shape != (n,):
         raise ValueError("ns/canon tags must be (n,)")
-    if exact and not 0 < k <= K_MAX:
-        raise ValueError(f"the exact scan selects 1 <= k <= {K_MAX}, got {k}")
+    exact = mode != "bucketed"       # a sorted list of k per query (#1, #2)
+    if exact:
+        _check_depth(k)
     is_int8 = x.dtype == torch.int8
     needs = [("db_scales", scale, (n,))] + ([("query scales", qscale, (nq,))]
                                             if exact else [])
@@ -141,6 +175,7 @@ def _scan_cuda(q, x, scale, ns, canon, qscale, want_ns, want_canon, k, exact):
     code = _DTYPE_CODE[x.dtype]
     kk = k if exact else 0
     qc = min(64, _round_up(nq, 16))
+    # long lists (up to 1024 x 8 bytes a query) take a smaller query chunk
     while qc > 16 and _smem_bytes(code, d, qc, kk, exact) > _SMEM_MAX:
         qc -= 16
     if _smem_bytes(code, d, qc, kk, exact) > _SMEM_MAX:
@@ -160,7 +195,7 @@ def _scan_cuda(q, x, scale, ns, canon, qscale, want_ns, want_canon, k, exact):
                  scale.data_ptr() if is_int8 else None, ns.data_ptr(),
                  canon.data_ptr(), qscale.data_ptr() if is_int8 and exact else None,
                  n, d, nq, int(want_ns), int(want_canon), tile_rows, qc, kk,
-                 int(exact), code, out_sc.data_ptr(), out_id.data_ptr(), stream)
+                 _SCAN_MODE[mode], code, out_sc.data_ptr(), out_id.data_ptr(), stream)
     _build.check(err, "tr_scan", "topk")
     return out_sc, out_id
 
@@ -168,20 +203,30 @@ def _scan_cuda(q, x, scale, ns, canon, qscale, want_ns, want_canon, k, exact):
 def _exact_scan_cuda(q, x, scale, ns, canon, qscale, want_ns, want_canon, k):
     """Kernel #1: per-tile exact top-k, merged here (stable, lowest row)."""
     cand_sc, cand_id = _scan_cuda(q, x, scale, ns, canon, qscale, want_ns,
-                                  want_canon, k, exact=True)
+                                  want_canon, k, "exact")
     _exact_scan_cuda.launches += 1
+    return select_topk(cand_sc, cand_id, k)
+
+
+def _packed_scan_cuda(q, x, scale, ns, canon, qscale, want_ns, want_canon, k):
+    """Kernel #2: per-tile top-k of the rounded scores, merged here (stable,
+    lowest row)."""
+    cand_sc, cand_id = _scan_cuda(q, x, scale, ns, canon, qscale, want_ns,
+                                  want_canon, k, "packed")
+    _packed_scan_cuda.launches += 1
     return select_topk(cand_sc, cand_id, k)
 
 
 def _bucketed_scan_cuda(q, x, scale, ns, canon, want_ns, want_canon):
     """Kernel #3: (nq, ceil(n/128)) bucket maxima and rows."""
     out = _scan_cuda(q, x, scale, ns, canon, None, want_ns, want_canon, 0,
-                     exact=False)
+                     "bucketed")
     _bucketed_scan_cuda.launches += 1
     return out
 
 
 _exact_scan_cuda.launches = 0
+_packed_scan_cuda.launches = 0
 _bucketed_scan_cuda.launches = 0
 
 
@@ -191,7 +236,18 @@ def exact_scan(q, x, scale, ns, canon, qscale, want_ns, want_canon, k):
         return _exact_scan_cuda(q, x, scale, ns, canon, qscale, want_ns, want_canon, k)
     if x.device.type != "cpu":
         raise ValueError(f"unsupported device {x.device}")
+    _check_depth(k)
     return _exact_scan_plain(q, x, scale, ns, canon, qscale, want_ns, want_canon, k)
+
+
+def packed_scan(q, x, scale, ns, canon, qscale, want_ns, want_canon, k):
+    """Kernel #2 on a CUDA tensor, its plain version on a CPU tensor."""
+    if x.device.type == "cuda":
+        return _packed_scan_cuda(q, x, scale, ns, canon, qscale, want_ns, want_canon, k)
+    if x.device.type != "cpu":
+        raise ValueError(f"unsupported device {x.device}")
+    _check_depth(k)
+    return _packed_scan_plain(q, x, scale, ns, canon, qscale, want_ns, want_canon, k)
 
 
 def bucketed_scan(q, x, scale, ns, canon, want_ns, want_canon):
@@ -201,6 +257,52 @@ def bucketed_scan(q, x, scale, ns, canon, want_ns, want_canon):
     if x.device.type != "cpu":
         raise ValueError(f"unsupported device {x.device}")
     return _bucketed_scan_plain(q, x, scale, ns, canon, want_ns, want_canon)
+
+
+# ------------------------------------------------------------ read-rate probe
+
+
+def _read_sum_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernel #4: the f32 sum of every element."""
+    return x.reshape(-1).to(torch.float32).sum()
+
+
+def _read_sum_cuda(x: torch.Tensor) -> torch.Tensor:
+    """Kernel #4 of csrc/topk.cu: per-block f32 sums of 16-byte vector
+    loads, added here."""
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"unsupported dtype {x.dtype}")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("the read-rate probe needs a contiguous, 16-byte aligned tensor")
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    partial = torch.empty((8 * sms,), dtype=torch.float32, device=x.device)
+    fn = _build.function("topk", "tr_read_sum",
+                         [_build.P, ctypes.c_longlong, _build.I, _build.I, _build.P, _build.P])
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), x.numel(), _DTYPE_CODE[x.dtype], partial.numel(),
+                 partial.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "tr_read_sum", "topk")
+    _read_sum_cuda.launches += 1
+    return partial.sum()
+
+
+_read_sum_cuda.launches = 0
+
+
+def dma_floor_scan(x: torch.Tensor, *, bn: int = 0) -> torch.Tensor:
+    """Read-rate probe (kernel #4): the f32 sum of every element of an
+    (n, d) f32, bf16 or int8 matrix, as a 0-d tensor.  Its only work is one
+    streaming read, so its time is the floor a scan over the same matrix
+    can reach on this card.  `bn` is accepted for the JAX signature (its
+    tile height); any n is taken."""
+    del bn
+    if x.numel() == 0:
+        return torch.zeros((), dtype=torch.float32, device=x.device)
+    if x.device.type == "cuda":
+        return _read_sum_cuda(x)
+    if x.device.type != "cpu":
+        raise ValueError(f"unsupported device {x.device}")
+    return _read_sum_plain(x)
 
 
 # ------------------------------------------------------------ public API
@@ -231,6 +333,10 @@ def fused_matmul_topk(
     """Top-k inner-product search: returns (scores (q,k) f32, ids (q,k) i32).
 
     mode="exact": exact top-k, ties to the lowest row (kernel #1).
+    mode="packed": the top k at 18-bit score resolution (round18), ties to
+      the lowest row, returning the rounded scores (kernel #2).  Rows whose
+      scores agree to ~2^-9 relative tie, so callers oversample
+      (packed_k_scan) and re-score; quasi-exact and opt-in only.
     mode="bucketed": one candidate per 128 consecutive rows (its max), then
       the top k of those — approximate, recall ~>0.99 for k << n/128
       (kernel #3).  The per-query int8 scale is applied after selection.
@@ -243,15 +349,12 @@ def fused_matmul_topk(
       want_canon) pair) keep rows with that tag, -1 = no filter.  A filter
       on a tag array that is absent is ignored.
     `block_n` and `assume_padded` are accepted for the JAX signature: the
-    kernels handle any n, so nothing is padded here.
+    kernels handle any n, so nothing is padded here.  Exact and packed
+    select at most K_MAX = 1024 rows.
     """
     del block_n, assume_padded
-    if mode == "packed":
-        raise NotImplementedError("packed mode (Pallas kernel #2) not yet ported")
-    if mode not in ("exact", "bucketed"):
+    if mode not in ("exact", "packed", "bucketed"):
         raise ValueError(f"unknown scan mode {mode!r}")
-    if mode == "exact" and k > K_MAX:
-        raise ValueError(f"exact scan supports k <= {K_MAX}, got {k}")
     want_ns, want_canon = _want_pair(wants, want_ns, want_canon)
     n, d = database.shape
     dev = database.device
@@ -282,6 +385,8 @@ def fused_matmul_topk(
 
     if mode == "exact":
         return exact_scan(q_in, x, scale, ns, canon, qscale, want_ns, want_canon, k)
+    if mode == "packed":
+        return packed_scan(q_in, x, scale, ns, canon, qscale, want_ns, want_canon, k)
     cand_sc, cand_id = bucketed_scan(q_in, x, scale, ns, canon, want_ns, want_canon)
     top_sc, top_id = select_topk(cand_sc, cand_id, k)
     if is_int8:
