@@ -155,9 +155,7 @@ def _packed_check(k_sc, k_id, p_sc, p_id) -> dict:
 
 def phase_kernels() -> list[dict]:
     import torch
-    import torch.nn.functional as F
 
-    from tpu_rag_torch.ops import attention as att
     from tpu_rag_torch.ops import topk as tk
     from tpu_rag_torch.ops.quant import quantize_int8_rows
 
@@ -172,7 +170,8 @@ def phase_kernels() -> list[dict]:
         ns = torch.randint(0, 4, (n,), generator=g, device=dev, dtype=torch.int32)
         canon = torch.randint(0, 2, (n,), generator=g, device=dev, dtype=torch.int32)
         ns[-1000:] = tk.PAD_TAG                       # padding rows
-        x[77] = x[11]                                  # an exact tie
+        x[77] = x[11]                                  # an exact tie in one block
+        x[n - 5000] = x[5000]                          # and across two blocks' ranges
         return x, ns, canon
 
     floors = {}
@@ -195,13 +194,18 @@ def phase_kernels() -> list[dict]:
     del x
     scans = {"exact": (tk._exact_scan_cuda, tk._exact_scan_plain, "tpu_rag/ops/topk.py:96"),
              "packed": (tk._packed_scan_cuda, tk._packed_scan_plain, "tpu_rag/ops/topk.py:201")}
-    for mode, dtype, nq, k in (("exact", "bf16", 8, 20), ("exact", "bf16", 64, 20),
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    smem_of = _smem_check()
+    for mode, dtype, nq, k in (("exact", "bf16", 8, 20), ("exact", "bf16", 1, 20),
+                               ("exact", "bf16", 64, 20),
                                ("exact", "int8", 64, 40), ("exact", "int8", 8, 1024),
                                ("packed", "bf16", 8, 64), ("packed", "int8", 64, 80)):
         kernel, plain, replaces = scans[mode]
         packed = mode == "packed"
         qf = torch.randn((nq, d), generator=g, device=dev)
         qf[0] = xb[11].float()
+        if nq > 1:
+            qf[1] = xb[5000].float()
         if dtype == "bf16":
             xx, sc, q_in, qs, elt = xb, None, qf.to(torch.bfloat16), None, 2
         else:
@@ -220,8 +224,16 @@ def phase_kernels() -> list[dict]:
         else:
             chk = _id_check(k_sc, k_id, p_sc, p_id, 1e-4)
             _id_check(*kernel(*fargs), *plain(*fargs), 1e-4)
-        if dtype == "bf16" and k_id[0, 0].item() != 11:
+        plan = tk._scan_plan(n, d, nq, k, xx.dtype, sms, mode)
+        smem_of(xx.dtype, plan, k, mode)
+        if k_id[0, 0].item() != 11:
             raise AssertionError(f"{mode} scan: the tie must go to the lowest row")
+        if nq > 1:
+            if 5000 // plan.block_rows == (n - 5000) // plan.block_rows:
+                raise AssertionError(f"rows 5000 and {n - 5000} share a block: {plan}")
+            if k_id[1, 0].item() != 5000:
+                raise AssertionError(f"{mode} scan: a tie across two blocks must go to "
+                                     f"the lowest row, got {k_id[1, :2].tolist()}")
 
         def library(q_in=q_in, xx=xx, sc=sc, qs=qs, k=k, packed=packed):
             s = torch.matmul(q_in.to(torch.bfloat16), xx.to(torch.bfloat16).T).float()
@@ -235,6 +247,7 @@ def phase_kernels() -> list[dict]:
         ms = cuda_ms(lambda: kernel(*args))
         floor = floor_of(xx, dtype)
         row = {"name": f"{mode}_scan[{dtype},n={n},q={nq},k={k}]", "route": "cuda",
+               "plan": plan._asdict(),
                "source": "tpu_rag_torch/csrc/topk.cu", "replaces": replaces, "counter": mode,
                "max_abs_err": chk["max_abs_err"], "ms": ms,
                "plain_ms": cuda_ms(lambda: plain(*args), iters=5),
@@ -258,6 +271,8 @@ def phase_kernels() -> list[dict]:
     del x
     q8, qs = quantize_int8_rows(torch.randn((nq, d), generator=g, device=dev))
     bargs = (q8, x8, s8, ns, canon, -1, -1)
+    bplan = tk._scan_plan(n, d, nq, 0, torch.int8, sms, "bucketed")
+    smem_of(torch.int8, bplan, 0, "bucketed")
     k_sc, k_id = tk._bucketed_scan_cuda(*bargs)
     p_sc, p_id = tk._bucketed_scan_plain(*bargs)
     torch.cuda.synchronize()
@@ -279,6 +294,7 @@ def phase_kernels() -> list[dict]:
     rows.append({"name": f"bucketed_scan[int8,n={n},q={nq}]", "route": "cuda",
                  "source": "tpu_rag_torch/csrc/topk.cu",
                  "replaces": "tpu_rag/ops/topk.py:284", "counter": "bucketed",
+                 "plan": bplan._asdict(),
                  "max_abs_err": chk["max_abs_err"], "ms": ms,
                  "plain_ms": cuda_ms(lambda: tk._bucketed_scan_plain(*bargs), iters=5),
                  "library_ms": cuda_ms(bucket_library, iters=5),
@@ -288,8 +304,26 @@ def phase_kernels() -> list[dict]:
     del x8, s8, ns, canon
     torch.cuda.empty_cache()
 
-    # ---- #5 attention: B 64, T 256, H 12, D 32, bf16, ragged masks
-    b, t, h, hd = 64, 256, 12, 32
+    # ---- #5 attention: B 64, H 12, D 32, bf16, ragged masks, at the
+    # encoder's document buckets T 128, 256 and 512
+    for t in (256, 128, 512):
+        rows.append(_attention_row(g, 64, t, 12, 32))
+    rows += _probe_kernel_rows(g)
+    floats = _probe_float_checks(g)
+    emit({"phase": "kernels", "checked": [r["name"] for r in rows] + list(floats),
+          "max_abs_err": {**{r["name"]: r["max_abs_err"] for r in rows}, **floats}})
+    return rows
+
+
+def _attention_row(g, b: int, t: int, h: int, hd: int) -> dict:
+    """#5 against its plain version (in f32, tolerance 2e-2) with a full
+    row, a one-token row and an all-pad row; times beside SDPA's."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpu_rag_torch.ops import attention as att
+
+    dev = torch.device("cuda")
     q, k_, v = (torch.randn((b, t, h, hd), generator=g, device=dev).to(torch.bfloat16)
                 for _ in range(3))
     lens = torch.randint(1, t + 1, (b,), generator=g, device=dev)
@@ -300,26 +334,44 @@ def phase_kernels() -> list[dict]:
     ref = att.fused_mha_plain(q.float(), k_.float(), v.float(), mask)
     torch.cuda.synchronize()
     err = float((out.float() - ref).abs().max())
-    if not err <= 2e-2:
-        raise AssertionError(f"attention disagrees with its plain version: {err}")
+    pad_err = float((out[2].float() - v[2].float().mean(dim=0, keepdim=True)).abs().max())
+    if not (err <= 2e-2 and pad_err <= 2e-2):
+        raise AssertionError(f"attention T={t} disagrees with its plain version: {err}, "
+                             f"all-pad row {pad_err}")
     bool_mask = (mask > 0)[:, None, None, :]
     qh, kh, vh = (z.permute(0, 2, 1, 3) for z in (q, k_, v))
     nbytes = 4 * b * t * h * hd * 2 + b * t * 4
     b_ms, b_by = bound(nbytes, 4.0 * b * h * t * t * hd, "bf16")
-    rows.append({"name": f"fused_mha[bf16,B={b},T={t},H={h},D={hd}]", "route": "cuda",
-                 "source": "tpu_rag_torch/csrc/attention.cu",
-                 "replaces": "tpu_rag/ops/attention.py:41", "counter": "mha",
-                 "max_abs_err": err,
-                 "ms": cuda_ms(lambda: att._fused_mha_cuda(q, k_, v, mask)),
-                 "plain_ms": cuda_ms(lambda: att.fused_mha_plain(q, k_, v, mask)),
-                 "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                     qh, kh, vh, attn_mask=bool_mask)),
-                 "bound_ms": b_ms, "bound_by": b_by})
-    rows += _probe_kernel_rows(g)
-    floats = _probe_float_checks(g)
-    emit({"phase": "kernels", "checked": [r["name"] for r in rows] + list(floats),
-          "max_abs_err": {**{r["name"]: r["max_abs_err"] for r in rows}, **floats}})
-    return rows
+    return {"name": f"fused_mha[bf16,B={b},T={t},H={h},D={hd}]", "route": "cuda",
+            "source": "tpu_rag_torch/csrc/attention.cu",
+            "replaces": "tpu_rag/ops/attention.py:41", "counter": "mha",
+            "max_abs_err": err, "all_pad_row_err": pad_err,
+            "ms": cuda_ms(lambda: att._fused_mha_cuda(q, k_, v, mask)),
+            "plain_ms": cuda_ms(lambda: att.fused_mha_plain(q, k_, v, mask)),
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=bool_mask)),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def _smem_check():
+    """A check that the wrapper's launch plan (ops/topk.py _scan_plan, pure
+    Python) and the kernel (csrc/topk.cu tr_scan_smem_bytes) agree on a
+    block's shared-memory bytes."""
+    import ctypes
+
+    from tpu_rag_torch import _build
+    from tpu_rag_torch.ops import topk as tk
+
+    fn = _build.load("topk").tr_scan_smem_bytes
+    fn.argtypes = [_build.I] * 6
+    fn.restype = ctypes.c_size_t
+
+    def check(dtype, plan, k: int, mode: str) -> None:
+        got = int(fn(tk._DTYPE_CODE[dtype], 384, plan.qc, k if mode != "bucketed" else 0,
+                     tk._SCAN_MODE[mode], plan.stages))
+        if got != plan.smem:
+            raise AssertionError(f"scan plan {plan} says {plan.smem} bytes, the kernel {got}")
+    return check
 
 
 def _floor_row(x, dtype: str, ms: float | None) -> dict:
@@ -571,6 +623,7 @@ def _profile_window(engine, texts: list[str]) -> dict:
         if us > 0:
             by_kernel[e.key[:80]] = us / reps / 1e3
     device_ms = sum(by_kernel.values())
+    scan_ms = sum(v for key, v in by_kernel.items() if "scan_kernel" in key)
     top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8])
     # host split of one more window, profiler off: tokenize, then the
     # index's own timers (snapshot / forward+scan+readback / decode)
@@ -583,6 +636,7 @@ def _profile_window(engine, texts: list[str]) -> dict:
     split.update({k.replace("_s", "_ms"): v * 1e3
                   for k, v in engine.index.last_search_stats.items()})
     return {"queries": len(texts), "wall_ms": wall * 1e3, "device_ms": device_ms,
+            "scan_ms": scan_ms,
             "device_idle_share": max(0.0, 1.0 - device_ms / (wall * 1e3)),
             "top_device_ms": top, "host_split_ms": split}
 
@@ -793,7 +847,7 @@ def phase_scale() -> dict:
             res = idx.search(q, 10)
             torch.cuda.synchronize()
             lat.append((time.perf_counter() - t1) * 1e3)
-        if _read_counters()[counter] - before != 3:
+        if _read_counters()[counter] - before < 3:    # a seeded scan launches twice
             raise AssertionError(f"the 2M-row {mode} search did not launch its scan")
         got = np.asarray([[int(i[1:]) for i in ids] for ids in res.ids])
         recall = float(np.mean([len(set(a) & set(b)) / 10 for a, b in zip(got, truth)]))

@@ -5,10 +5,11 @@ tpu_rag/ops/attention.py).
 head), softmax(Q.K^T / sqrt(D), keys with mask 0 set to -1e30).V with scores
 and softmax in f32 and the output in the input dtype.  Only the key side is
 masked: pad query rows come out as values the callers' masked mean-pool
-drops.  On a CUDA tensor it launches csrc/attention.cu (kernel #5: key
-chunks with an online softmax, since a T = 512 score tile does not fit a
-block's shared memory) or raises; on a CPU tensor it runs the plain version
-below, which repeats the JAX kernel's arithmetic.
+drops.  On a CUDA tensor it launches csrc/attention.cu (kernel #5: for
+bf16, Q.K^T and P.V on the tensor cores with the head's K and V in shared
+memory and an online softmax over chunks of 64 keys; f32 on CUDA cores) or
+raises; on a CPU tensor it runs the plain version below, which repeats the
+JAX kernel's arithmetic.
 """
 
 from __future__ import annotations
@@ -55,6 +56,8 @@ def _fused_mha_cuda(q, k, v, mask):
                          f"got D={d}, T={t}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("fused_mha needs contiguous (B, T, H, D) q/k/v")
+    if any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("fused_mha needs 16-byte aligned q/k/v (its 16-byte async copies)")
     if mask.shape != (b, t) or mask.device != q.device:
         raise ValueError(f"mask must be (B, T) = {(b, t)} on {q.device}")
     mask32 = mask.to(torch.int32).contiguous()

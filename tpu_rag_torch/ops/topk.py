@@ -20,7 +20,9 @@ select at most K_MAX = 1024 rows, on every device; JAX's kernel has no cap.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -131,15 +133,145 @@ def _bucketed_scan_plain(q, x, scale, ns, canon, want_ns, want_canon):
 
 # ------------------------------------------------------------ CUDA kernels
 
-_SCAN_ARGS = [_build.P] * 6 + [_build.I] * 10 + [_build.P] * 3
+_SCAN_ARGS = [_build.P] * 6 + [_build.I] * 11 + [_build.P] * 4
 _SCAN_MODE = {"bucketed": 0, "exact": 1, "packed": 2}
+_ELT = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}
+_PIPE_WARPS = 8
+_PIPE_STAGES_MAX = 8
+_SEED_MIN_WORK = 512      # nq * k from which exact/packed scans seed their thresholds
+_SEED_ROWS_MIN = 32_768   # rows of the seeding scan (at least 32 k)
 
 
-def _smem_bytes(dtype_code: int, d: int, qc: int, k: int, exact: bool) -> int:
-    fn = _build.load("topk").tr_scan_smem_bytes
-    fn.argtypes = [_build.I] * 5
-    fn.restype = ctypes.c_size_t
-    return int(fn(dtype_code, d, qc, k, int(exact)))
+class ScanPlan(NamedTuple):
+    """Launch geometry of one scan: `qc` queries per block, each block
+    scanning `block_rows` consecutive rows (a multiple of BUCKET) through a
+    ring of `stages` tiles (bf16/int8; 0 for f32), `blocks` blocks per query
+    chunk, `smem` bytes of shared memory a block."""
+    qc: int
+    stages: int
+    block_rows: int
+    blocks: int
+    smem: int
+
+
+def _align128(x: int) -> int:
+    return _round_up(x, 128)
+
+
+def _pipe_smem(elt: int, d: int, qc: int, k: int, mode: str, stages: int,
+               rows: int) -> int:
+    """Shared-memory bytes of csrc/topk.cu's pipe_scan_kernel (pipe_smem):
+    queries, query scales, `stages` tiles of `rows` rows with their ns,
+    canon and scale; exact/packed: the sorted lists, the candidates' scores,
+    their rows' bit masks and a 1024-bit merge map a warp; bucketed: the
+    row tiles' maxima; then one 8-byte mbarrier per possible stage."""
+    ld = _round_up(d * elt, 32) + 16
+    lists = mode != "bucketed"
+    stage = _align128(rows * ld) + 3 * rows * 4
+    return (_align128(qc * ld) + _align128(qc * 4) + stages * stage
+            + (_align128(qc * k * 8) + _align128(rows * (qc + 1) * 4)
+               + _align128(qc * rows // 32 * 4) + _PIPE_WARPS * 32 * 4 if lists
+               else _align128(rows // 16 * qc * 8))
+            + _PIPE_STAGES_MAX * 8)
+
+
+def _pipe_rows(elt: int, d: int, qc: int, k: int, mode: str) -> int:
+    """Rows of one ring stage (pipe_rows): 128, one m16 tile a warp, for a
+    chunk of 8 queries where the stages that fit beside the lists keep
+    64 KB of rows in flight; else 64, the 8 warps splitting the queries in
+    two halves."""
+    if qc != 8:
+        return 64
+    fixed = _pipe_smem(elt, d, qc, k, mode, 0, 128)
+    stage = _pipe_smem(elt, d, qc, k, mode, 1, 128) - fixed
+    stages = min(_PIPE_STAGES_MAX, max(0, _SMEM_MAX - fixed) // stage)
+    return 128 if stages >= 2 and (stages - 1) * 128 * d * elt >= 65536 else 64
+
+
+def _f32_smem(d: int, qc: int, k: int, mode: str) -> int:
+    """Shared-memory bytes of csrc/topk.cu's f32 scan_kernel (scan_smem):
+    queries, a 128 x 32 row chunk, the qc x 128 score tile, the row masks
+    and the sorted lists."""
+    lists = k * 8 * qc if mode != "bucketed" else 0
+    return (_align128(qc * (d + 1) * 4) + _align128(BUCKET * 33 * 4)
+            + _align128(qc * BUCKET * 4) + _align128(BUCKET * 8) + lists)
+
+
+def _scan_plan(n: int, d: int, nq: int, k: int, dtype: torch.dtype, sms: int,
+               mode: str = "exact") -> ScanPlan:
+    """Launch geometry of the scan kernels, a pure function of the shapes.
+
+    bf16/int8: the query chunk is the power of two 8..64 that covers nq,
+    halved while fewer than two ring stages fit beside the lists; the ring
+    takes as many stages (at most 8) of _pipe_rows rows as the rest of the
+    232,448 bytes hold; one block per SM and query chunk, each over one
+    contiguous range of rows.  f32: chunks of 16..64 queries, ~2 blocks per SM."""
+    kk = k if mode != "bucketed" else 0
+    if dtype == torch.float32:
+        qc = min(64, _round_up(nq, 16))
+        while qc > 16 and _f32_smem(d, qc, kk, mode) > _SMEM_MAX:
+            qc -= 16
+        smem, stages = _f32_smem(d, qc, kk, mode), 0
+        if smem > _SMEM_MAX:
+            raise ValueError(f"scan does not fit shared memory at d={d}, k={k}")
+        per_chunk = max(1, (2 * sms) // -(-nq // qc))
+    else:
+        elt = _ELT[dtype]
+        qc = 8
+        while qc < min(nq, 64):
+            qc *= 2
+        while True:
+            rows = _pipe_rows(elt, d, qc, kk, mode)
+            fixed = _pipe_smem(elt, d, qc, kk, mode, 0, rows)
+            stage = _pipe_smem(elt, d, qc, kk, mode, 1, rows) - fixed
+            stages = min(_PIPE_STAGES_MAX, (_SMEM_MAX - fixed) // stage)
+            if stages >= 2:
+                break
+            if qc == 8:
+                raise ValueError(f"scan does not fit shared memory at d={d}, k={k}")
+            qc //= 2
+        smem = fixed + stages * stage
+        per_chunk = max(1, sms // -(-nq // qc))
+    block_rows = _round_up(-(-n // per_chunk), BUCKET)
+    return ScanPlan(qc, stages, block_rows, -(-n // block_rows), smem)
+
+
+def _seed_rows(n: int, nq: int, k: int, dtype: torch.dtype) -> int:
+    """Rows of the seeding scan of an exact/packed bf16 or int8 scan, or 0.
+
+    Every block keeps its own sorted list and, on its own, inserts some
+    k (1 + ln(rows / k)) rows per query before its list's last entry is
+    high; with many queries that insertion costs more than the product.  So
+    where nq * k >= 512 and the database is at least 8x the sample, the
+    wrapper first scans the first max(32768, 32 k) rows: the k-th best
+    score of that sample is a lower bound of each query's k-th best score
+    over all rows (the sample is a subset), and the full scan then lets
+    only rows scoring at least that bound reach its lists.  Exact: a row
+    below the bound cannot be among the top k; rows equal to it still
+    compete, ties to the lowest row."""
+    rows = _round_up(max(_SEED_ROWS_MIN, 32 * k), BUCKET)
+    if dtype == torch.float32 or nq * k < _SEED_MIN_WORK or n < 8 * rows:
+        return 0
+    return rows
+
+
+def _list_scan_cuda(q, x, scale, ns, canon, qscale, want_ns, want_canon, k, mode):
+    """Kernel #1 or #2 of csrc/topk.cu, seeded where _seed_rows says so;
+    returns the per-block candidates and the number of launches."""
+    rows = _seed_rows(x.shape[0], q.shape[0], k, x.dtype)
+    seed = None
+    if rows:
+        cut = (lambda t: None if t is None else t[:rows])
+        sc, _ = _scan_cuda(q, x[:rows], cut(scale), ns[:rows], canon[:rows], qscale,
+                           want_ns, want_canon, k, mode)
+        seed = torch.topk(sc, k, dim=1).values[:, k - 1].contiguous()
+    return _scan_cuda(q, x, scale, ns, canon, qscale, want_ns, want_canon, k, mode,
+                      seed=seed), 2 if rows else 1
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check_depth(k: int) -> None:
@@ -147,8 +279,10 @@ def _check_depth(k: int) -> None:
         raise ValueError(f"exact and packed scans select 1 <= k <= {K_MAX}, got {k}")
 
 
-def _scan_cuda(q, x, scale, ns, canon, qscale, want_ns, want_canon, k, mode):
-    """Launch kernel #1 (exact), #2 (packed) or #3 (bucketed) of csrc/topk.cu."""
+def _scan_cuda(q, x, scale, ns, canon, qscale, want_ns, want_canon, k, mode, seed=None):
+    """Launch kernel #1 (exact), #2 (packed) or #3 (bucketed) of csrc/topk.cu;
+    `seed` (nq,) f32 is a lower bound of each query's k-th score (exact and
+    packed, bf16/int8)."""
     n, d = x.shape
     nq = q.shape[0]
     for name, t, dt in (("queries", q, x.dtype), ("database", x, x.dtype),
@@ -160,6 +294,8 @@ def _scan_cuda(q, x, scale, ns, canon, qscale, want_ns, want_canon, k, mode):
         raise TypeError(f"unsupported database dtype {x.dtype}")
     if d % 16 != 0:
         raise ValueError(f"the CUDA scan needs d % 16 == 0, got d={d}")
+    if x.dtype != torch.float32 and (q.data_ptr() % 16 or x.data_ptr() % 16):
+        raise ValueError("the bf16/int8 scan needs 16-byte aligned queries and database")
     if ns.shape != (n,) or canon.shape != (n,):
         raise ValueError("ns/canon tags must be (n,)")
     exact = mode != "bucketed"       # a sorted list of k per query (#1, #2)
@@ -172,20 +308,9 @@ def _scan_cuda(q, x, scale, ns, canon, qscale, want_ns, want_canon, k, mode):
         if is_int8 and (t is None or t.shape != shape or t.dtype != torch.float32
                         or t.device != x.device or not t.is_contiguous()):
             raise ValueError(f"int8 scan needs contiguous f32 {name} of shape {shape}")
-    code = _DTYPE_CODE[x.dtype]
     kk = k if exact else 0
-    qc = min(64, _round_up(nq, 16))
-    # long lists (up to 1024 x 8 bytes a query) take a smaller query chunk
-    while qc > 16 and _smem_bytes(code, d, qc, kk, exact) > _SMEM_MAX:
-        qc -= 16
-    if _smem_bytes(code, d, qc, kk, exact) > _SMEM_MAX:
-        raise ValueError(f"scan does not fit shared memory at d={d}, k={k}")
-    # ~2 resident blocks per SM across all query chunks
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    target = max(1, (2 * sms) // (-(-nq // qc)))
-    tile_rows = _round_up(-(-n // target), BUCKET)
-    nt = -(-n // tile_rows)
-    cols = nt * k if exact else -(-n // BUCKET)
+    plan = _scan_plan(n, d, nq, kk, x.dtype, _sm_count(x.device), mode)
+    cols = plan.blocks * k if exact else -(-n // BUCKET)
     out_sc = torch.empty((nq, cols), dtype=torch.float32, device=x.device)
     out_id = torch.empty((nq, cols), dtype=torch.int32, device=x.device)
     fn = _build.function("topk", "tr_scan", _SCAN_ARGS)
@@ -194,26 +319,28 @@ def _scan_cuda(q, x, scale, ns, canon, qscale, want_ns, want_canon, k, mode):
         err = fn(q.data_ptr(), x.data_ptr(),
                  scale.data_ptr() if is_int8 else None, ns.data_ptr(),
                  canon.data_ptr(), qscale.data_ptr() if is_int8 and exact else None,
-                 n, d, nq, int(want_ns), int(want_canon), tile_rows, qc, kk,
-                 _SCAN_MODE[mode], code, out_sc.data_ptr(), out_id.data_ptr(), stream)
+                 n, d, nq, int(want_ns), int(want_canon), plan.block_rows, plan.qc, kk,
+                 _SCAN_MODE[mode], _DTYPE_CODE[x.dtype], plan.stages,
+                 None if seed is None else seed.data_ptr(),
+                 out_sc.data_ptr(), out_id.data_ptr(), stream)
     _build.check(err, "tr_scan", "topk")
     return out_sc, out_id
 
 
 def _exact_scan_cuda(q, x, scale, ns, canon, qscale, want_ns, want_canon, k):
-    """Kernel #1: per-tile exact top-k, merged here (stable, lowest row)."""
-    cand_sc, cand_id = _scan_cuda(q, x, scale, ns, canon, qscale, want_ns,
-                                  want_canon, k, "exact")
-    _exact_scan_cuda.launches += 1
+    """Kernel #1: per-block exact top-k, merged here (stable, lowest row)."""
+    (cand_sc, cand_id), launches = _list_scan_cuda(q, x, scale, ns, canon, qscale,
+                                                   want_ns, want_canon, k, "exact")
+    _exact_scan_cuda.launches += launches
     return select_topk(cand_sc, cand_id, k)
 
 
 def _packed_scan_cuda(q, x, scale, ns, canon, qscale, want_ns, want_canon, k):
-    """Kernel #2: per-tile top-k of the rounded scores, merged here (stable,
+    """Kernel #2: per-block top-k of the rounded scores, merged here (stable,
     lowest row)."""
-    cand_sc, cand_id = _scan_cuda(q, x, scale, ns, canon, qscale, want_ns,
-                                  want_canon, k, "packed")
-    _packed_scan_cuda.launches += 1
+    (cand_sc, cand_id), launches = _list_scan_cuda(q, x, scale, ns, canon, qscale,
+                                                   want_ns, want_canon, k, "packed")
+    _packed_scan_cuda.launches += launches
     return select_topk(cand_sc, cand_id, k)
 
 
@@ -274,7 +401,7 @@ def _read_sum_cuda(x: torch.Tensor) -> torch.Tensor:
         raise TypeError(f"unsupported dtype {x.dtype}")
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("the read-rate probe needs a contiguous, 16-byte aligned tensor")
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    sms = _sm_count(x.device)
     partial = torch.empty((8 * sms,), dtype=torch.float32, device=x.device)
     fn = _build.function("topk", "tr_read_sum",
                          [_build.P, ctypes.c_longlong, _build.I, _build.I, _build.P, _build.P])
