@@ -309,7 +309,7 @@ def phase_kernels() -> list[dict]:
     for t in (256, 128, 512):
         rows.append(_attention_row(g, 64, t, 12, 32))
     rows += _probe_kernel_rows(g)
-    floats = _probe_float_checks(g)
+    floats = {**_batched_checks(g), **_probe_float_checks(g)}
     emit({"phase": "kernels", "checked": [r["name"] for r in rows] + list(floats),
           "max_abs_err": {**{r["name"]: r["max_abs_err"] for r in rows}, **floats}})
     return rows
@@ -495,19 +495,114 @@ def _probe_kernel_rows(g) -> list[dict]:
 
         nbytes = nu * cap * (d + 12) + nq * d + nu * nq * m * (cap // 128) * 8
         b_ms, b_by = bound(nbytes, 2.0 * nu * cap * d * nq, "int8")
+        ms = cuda_ms(lambda: ip._probe_batched_cuda(*args))
         rows.append({"name": f"ivf_probe_batched[int8,q={nq},nprobe={nprobe},cap={cap},"
                              f"m={m},union={nu}]", "route": "cuda",
                      "source": "tpu_rag_torch/csrc/ivf_probe.cu",
                      "replaces": "tpu_rag/ops/ivf_probe.py:237", "counter": "batched",
-                     "max_abs_err": err,
-                     "ms": cuda_ms(lambda: ip._probe_batched_cuda(*args)),
+                     "plan": ip._bucket_plan(uniq.shape[0], cap // 128, nq, d, torch.int8,
+                                             torch.cuda.get_device_properties(dev)
+                                             .multi_processor_count)._asdict(),
+                     "max_abs_err": err, "ms": ms,
+                     "device_ms": cuda_ms(lambda: ip._probe_batched_cuda(*args), iters=5,
+                                          batch=10),
                      "plain_ms": cuda_ms(lambda: ip._probe_batched_plain(*args), iters=5),
                      "library_ms": cuda_ms(library, iters=5),
                      "library": "composite: list gather + torch.bmm + torch.topk",
-                     "bound_ms": b_ms, "bound_by": b_by})
+                     "bound_ms": b_ms, "bound_by": b_by, "pct_of_bound": 100.0 * b_ms / ms})
     del vec, scale, ns, canon
     torch.cuda.empty_cache()
     return rows
+
+
+def _batched_checks(g) -> dict:
+    """#7 on int8 and bf16 lists of the ivf phase's geometry (~half of each
+    list PAD) against its plain version over the whole (u_max, nq, m * nb)
+    output: q 8, 64 and 80 (two query chunks), m 1-4, with and without
+    filters, a tie across the warps of one bucket (slots 20 and 100 of list
+    3, the self match of query 1) and n_uniq < u_max.  int8: ids and scores
+    torch.equal; bf16: the same -inf slots, scores within 1e-4 (summation
+    order) and the tie's ids, with the count of other id differences (near
+    ties) reported.  Also holds each launch plan against the kernel's
+    tr_probe_smem_bytes."""
+    import torch
+
+    from tpu_rag_torch.ops import ivf_probe as ip
+    from tpu_rag_torch.ops.quant import quantize_int8_rows
+    from tpu_rag_torch.ops.topk import _DTYPE_CODE, PAD_TAG
+
+    dev = torch.device("cuda")
+    d, nlist, cap, nprobe, tol = 384, IVF_NLIST, IVF_CAP, IVF_NPROBE, 1e-4
+    nb = cap // 128
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    vec = torch.randint(-127, 128, (nlist, cap, d), generator=g, device=dev, dtype=torch.int8)
+    scale = torch.rand((nlist, cap), generator=g, device=dev) * 1e-3 + 1e-3
+    fill = torch.randint(cap // 3, (2 * cap) // 3, (nlist, 1), generator=g, device=dev)
+    ns = torch.randint(0, 4, (nlist, cap), generator=g, device=dev, dtype=torch.int32)
+    ns = torch.where(torch.arange(cap, device=dev)[None, :] < fill, ns, PAD_TAG).contiguous()
+    canon = torch.randint(0, 2, (nlist, cap), generator=g, device=dev, dtype=torch.int32)
+    vec[3, 100] = vec[3, 20]                      # rows 20 and 100: warp row tiles 0 and 3
+    scale[3, 100] = scale[3, 20]
+    ns[3, [20, 100]], canon[3, [20, 100]] = 2, 1  # live under both filters
+    centroids = torch.randn((nlist, d), generator=g, device=dev)
+    centroids /= centroids.norm(dim=1, keepdim=True)
+    out, short_union = {}, False
+    for dtype in (torch.int8, torch.bfloat16):
+        lists_v = vec if dtype == torch.int8 else vec.to(torch.bfloat16).mul_(1e-3)
+        sc_v = scale if dtype == torch.int8 else torch.ones_like(scale)
+        err, id_diff = 0.0, 0
+        for nq in (8, 64, 80):
+            qf = torch.randn((nq, d), generator=g, device=dev)
+            qf[0] = centroids[3]                      # list 3 is in the union
+            qf[1] = lists_v[3, 20].float()
+            lists = ip._top_lists(qf, centroids, nprobe)
+            uniq, n_uniq, _ = ip._dedup(lists, nlist)
+            nu = int(n_uniq)
+            short_union |= nu < uniq.shape[0]
+            u3 = int((uniq[:nu] == 3).nonzero()[0, 0])
+            if dtype == torch.int8:
+                q_in, _ = quantize_int8_rows(qf)
+            else:
+                q_in = (qf / qf.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+                q_in[1] = lists_v[3, 20]
+            plan = ip._bucket_plan(uniq.shape[0], nb, nq, d, dtype, sms)
+            got = ip._smem_bytes(1, _DTYPE_CODE[dtype], d, plan.qc, 0, plan.stages)
+            if got != plan.smem:
+                raise AssertionError(f"bucket plan {plan} says {plan.smem} bytes, the kernel {got}")
+            for m in (1, 2, 3, 4):
+                for wants in ((-1, -1), (2, 1)):
+                    args = (q_in, uniq, n_uniq, lists_v, sc_v, ns, canon, *wants, m)
+                    k_sc, k_id = ip._probe_batched_cuda(*args)
+                    p_sc, p_id = ip._probe_batched_plain(*args)
+                    torch.cuda.synchronize()
+                    what = f"batched probe {str(dtype)[6:]} q {nq} m {m} wants {wants}"
+                    fin = torch.isfinite(p_sc)
+                    if not torch.equal(torch.isfinite(k_sc), fin):
+                        raise AssertionError(f"{what}: -inf slots differ from the plain version")
+                    if dtype == torch.int8:
+                        if not (torch.equal(k_id, p_id) and torch.equal(k_sc, p_sc)):
+                            raise AssertionError(f"{what}: ids or scores differ "
+                                                 f"({int((k_id != p_id).sum())} ids)")
+                    else:
+                        e = float((k_sc[fin] - p_sc[fin]).abs().max())
+                        err = max(err, e)
+                        id_diff = max(id_diff, int((k_id != p_id).sum()))
+                        if e > tol:
+                            raise AssertionError(f"{what}: score error {e}")
+                    tie = k_id[u3, 1, :min(m, 2) * nb:nb].tolist()
+                    if tie != [20, 100][:m]:
+                        raise AssertionError(f"{what}: the tie across warps gave {tie}")
+                    if not (torch.isneginf(k_sc[nu:]).all() and (k_id[nu:] == -1).all()):
+                        raise AssertionError(f"{what}: union slots past n_uniq not -inf/-1")
+        name = f"ivf_probe_batched[{str(dtype)[6:]},q=8/64/80,m=1-4,nprobe={nprobe},cap={cap}]"
+        out[name] = err
+        if dtype == torch.bfloat16:       # near-ties that a sum in another order reorders
+            out[name + "_most_id_mismatches"] = id_diff
+    if not short_union:
+        raise AssertionError("no batched check ran with n_uniq < u_max")
+    del vec, scale, ns, canon, lists_v
+    torch.cuda.empty_cache()
+    return out
 
 
 def _probe_float_checks(g) -> dict:

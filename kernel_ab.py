@@ -12,8 +12,9 @@ the median ms of one wrapper call at a time (CUDA events around the call,
 as chip_smoke.py times its kernels line) and the device's ms (10 calls back
 to back); the last line holds each shape's values in run order.  #6 and
 #7 come once from the checkout's own chip_smoke.py (its kernels line's
-`ms`) and once at one shape each with both times.  The data is the same
-in every run (seeded on the card), as in chip_smoke.py.
+`ms`) and once with both times: #6 at one query, #7 at 8 and 64 queries
+(m 2).  The data is the same in every run (seeded on the card), as in
+chip_smoke.py.
 With --profile each shape also gets its device time per kernel and its
 wall time, per call (torch.profiler over 5 calls): where a wrapper's time
 goes between its kernels, the library calls around them and the host.
@@ -130,8 +131,8 @@ def worker(root: Path, profile: bool) -> dict:
         out[f"fused_mha[bf16,B=64,T={t},H=12,D=32]"] = _both(
             lambda: att._fused_mha_cuda(q, k_, v, mask), profile)
     del q, k_, v
-    # #6 and #7 (not redesigned): their kernels line's `ms` through the
-    # checkout's own chip_smoke.py, then both times at one shape each
+    # #6 and #7: their kernels line's `ms` through the checkout's own
+    # chip_smoke.py, then both times (#7 at 8 and 64 queries)
     import chip_smoke
     from tpu_rag_torch.ops import ivf_probe as ip
 
@@ -142,7 +143,7 @@ def worker(root: Path, profile: bool) -> dict:
     scale = torch.rand((nlist, cap), generator=g, device=dev) * 1e-3 + 1e-3
     tags = torch.randint(0, 4, (nlist, cap), generator=g, device=dev, dtype=torch.int32)
     centroids = torch.randn((nlist, d), generator=g, device=dev)
-    for nq in (1, 64):
+    for nq in (1, 8, 64):
         q8, _ = quantize_int8_rows(torch.randn((nq, d), generator=g, device=dev))
         lists = ip._top_lists(q8.float(), centroids, chip_smoke.IVF_NPROBE)
         if nq == 1:
@@ -152,8 +153,8 @@ def worker(root: Path, profile: bool) -> dict:
         else:
             uniq, n_uniq, _ = ip._dedup(lists, nlist)
             args = (q8, uniq, n_uniq, vec, scale, tags, tags, -1, -1, 2)
-            out["ivf_probe_batched[int8,q=64]"] = _both(lambda: ip._probe_batched_cuda(*args),
-                                                         profile)
+            out[f"ivf_probe_batched[int8,q={nq}]"] = _both(
+                lambda: ip._probe_batched_cuda(*args), profile)
     return out
 
 

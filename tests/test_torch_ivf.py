@@ -105,7 +105,7 @@ def test_per_list_probe_matches_jax(dtype, wants):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "int8"])
-@pytest.mark.parametrize("bucket_m", [1, 2])
+@pytest.mark.parametrize("bucket_m", [1, 2, 3, 4])
 @pytest.mark.parametrize("wants", [(-1, -1), (1, -1)], ids=["nofilter", "ns"])
 def test_batched_probe_matches_jax(dtype, bucket_m, wants):
     nlist, cap, d, nprobe, k = 16, 256, 32, 4, 12
@@ -119,7 +119,8 @@ def test_batched_probe_matches_jax(dtype, bucket_m, wants):
     assert t_rows.shape == (6, k)
 
 
-def test_batched_probe_bf16_on_bf16_queries_matches_jax():
+@pytest.mark.parametrize("bucket_m", [1, 2, 3, 4])
+def test_batched_probe_bf16_on_bf16_queries_matches_jax(bucket_m):
     """bf16 lists: the port's batched probe casts the queries to bf16 (as
     both packages' per-list probes do); the JAX batched probe keeps f32
     queries against bf16 lists (tpu_rag/ops/ivf_probe.py:356-358, ADVICE r5
@@ -130,8 +131,10 @@ def test_batched_probe_bf16_on_bf16_queries_matches_jax():
     q = torch.from_numpy(q).to(torch.bfloat16).to(torch.float32).numpy()
     wants = (1, -1)
     j_sc, j_rows = jax_probe.ivf_probe_batched(
-        *jax_args(q), jnp.asarray(wants, jnp.int32), nprobe=nprobe, k=k, interpret=True)
-    t_sc, t_rows = ivf_probe.ivf_probe_batched(*torch_args(q), wants, nprobe=nprobe, k=k)
+        *jax_args(q), jnp.asarray(wants, jnp.int32), nprobe=nprobe, k=k,
+        bucket_m=bucket_m, interpret=True)
+    t_sc, t_rows = ivf_probe.ivf_probe_batched(*torch_args(q), wants, nprobe=nprobe, k=k,
+                                               bucket_m=bucket_m)
     _same(t_sc, t_rows, j_sc, j_rows, "bfloat16")
 
 

@@ -5,8 +5,9 @@
 //   cp.async      16-byte (or 4-byte) global -> shared copies that do not
 //                 pass through registers, grouped by commit_group and waited
 //                 for with wait_group, with a zero fill for rows past the end;
-//   cp.async.bulk one thread's copy of a whole contiguous run of bytes by the
-//                 TMA unit, completing on an mbarrier that counts its bytes;
+//   cp.async.bulk one thread's copy of a whole contiguous run of bytes, or of
+//                 a box of a tensor map, by the TMA unit, completing on an
+//                 mbarrier that counts its bytes;
 //   ldmatrix      eight 8 x 16-byte rows of shared memory per matrix into the
 //                 fragment layout of mma.sync (.trans transposes b16 pairs);
 //   mma.sync      m16n8k16 bf16 x bf16 -> f32 and m16n8k32 s8 x s8 -> s32.
@@ -99,6 +100,17 @@ __device__ inline void mbar_wait(uint64_t* bar, uint32_t parity) {
 // bulk copies (the asynchronous proxy) into the same bytes.
 __device__ inline void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A 2-D box of a tensor map (TMA) global -> shared at element coordinates
+// (c0 along the contiguous dimension, c1 along rows), completing on `bar`;
+// `map` is the address of a CUtensorMap kernel parameter (__grid_constant__).
+__device__ inline void tensor_g2s_2d(void* s, const void* map, int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(s)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
 }
 
 // A bulk copy (TMA, no tensor map) of `bytes` (a multiple of 16, both

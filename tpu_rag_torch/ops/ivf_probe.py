@@ -42,13 +42,15 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
 from tpu_rag_torch import _build
 from tpu_rag_torch.ops.quant import quantize_int8_rows
-from tpu_rag_torch.ops.topk import (_DTYPE_CODE, _SMEM_MAX, BUCKET, PAD_TAG,
-                                    _round_up, _tag_mask, _want_pair, select_topk)
+from tpu_rag_torch.ops.topk import (_DTYPE_CODE, _ELT, _SMEM_MAX, BUCKET, PAD_TAG,
+                                    _f32_smem, _round_up, _sm_count, _tag_mask,
+                                    _want_pair, select_topk)
 
 # Largest per-list k the per-list probe selects; above it the IVF index
 # routes to its plain reference probe (index/ivf.py).
@@ -132,14 +134,121 @@ def _probe_batched_plain(q_in, uniq, n_uniq, vec_lists, scale_lists, ns_lists,
 # ------------------------------------------------------------ CUDA kernels
 
 _LIST_ARGS = [_build.P] * 6 + [_build.I] * 8 + [_build.P] * 3
-_BATCHED_ARGS = [_build.P] * 7 + [_build.I] * 10 + [_build.P] * 3
+_BATCHED_ARGS = [_build.P] * 7 + [_build.I] * 12 + [_build.P] * 3
+_BUCKET_WARPS = 8
+_BUCKET_STAGES_MAX = 8
+_BUCKET_M_MAX = 4
+_BUCKET_QREG_BYTES = 384  # int8 query rows up to this many bytes stay in registers
 
 
-def _smem_bytes(kind: int, code: int, d: int, qc: int, k: int) -> int:
+def _smem_bytes(kind: int, code: int, d: int, qc: int, k: int, stages: int = 0) -> int:
+    """csrc/ivf_probe.cu's tr_probe_smem_bytes: a block's shared memory."""
     fn = _build.load("ivf_probe").tr_probe_smem_bytes
-    fn.argtypes = [_build.I] * 5
+    fn.argtypes = [_build.I] * 6
     fn.restype = ctypes.c_size_t
-    return int(fn(kind, code, d, qc, k))
+    return int(fn(kind, code, d, qc, k, stages))
+
+
+class BucketPlan(NamedTuple):
+    """Launch geometry of kernel #7.  bf16/int8 (pipe_bucket_kernel): `qc`
+    queries a block, a ring of `stages` stages of `rows` rows (128, one
+    bucket, or 64), `blocks` blocks a query chunk, each walking a contiguous
+    range of the live (union slot, bucket) items (_bucket_ranges) of at most
+    `items` items (at n_uniq = u_max).  f32 (batched_bucket_kernel): each
+    list's buckets split over `blocks` blocks of `items` buckets, rows 128,
+    stages 0.  `smem`: bytes of shared memory a block."""
+    qc: int
+    rows: int
+    stages: int
+    blocks: int
+    items: int
+    smem: int
+
+
+def _bucket_tiles(qc: int, rows: int) -> tuple[int, int, int, int]:
+    """pipe_bucket_kernel's warp tiling of a stage (bucket_mtw, bucket_wr):
+    (m16 row tiles a warp, row tiles of warps, query groups of warps, n8
+    query tiles a warp).  At 64 queries and 128 rows a warp multiplies 32
+    rows x 32 queries: ~197 KB of ldmatrix a bucket, where 16 x 64 reads
+    ~246 KB (every query fragment again every 16 rows), and a thread selects
+    for 8 query columns, not 16."""
+    nt = qc // 8
+    mtw = (2 if nt >= 2 else 1) if rows == 128 else (2 if nt >= 4 else 1)
+    wr = rows // (16 * mtw)
+    wq = min(_BUCKET_WARPS // wr, nt)
+    return mtw, wr, wq, nt // wq
+
+
+def _bucket_smem(elt: int, d: int, qc: int, stages: int, rows: int) -> int:
+    """Shared-memory bytes of pipe_bucket_kernel (bucket_smem): 1024 bytes of
+    slack to align the base to the swizzle unit, the queries (rows padded to
+    an odd number of 16-byte units), `stages` stages of `rows` rows stored as
+    128-byte column blocks (the tensor map's boxes) with their ns, canon and
+    scale, each rounded up to 1024 bytes, two tables of the warps' winners
+    (row tiles x queries x 4, score and slot) and one mbarrier per possible
+    stage.  int8 query rows of at most 384 bytes live in registers, and are
+    staged in the last ring stage rather than beside the ring."""
+    kbytes = _round_up(d * elt, 32)
+    qreg = elt == 1 and kbytes <= _BUCKET_QREG_BYTES
+    wr = _bucket_tiles(qc, rows)[1]
+    stage = _round_up(-(-d * elt // 128) * rows * 128 + 3 * rows * 4, 1024)
+    queries = 0 if qreg else _round_up(qc * (kbytes + 16), 1024)
+    return (1024 + queries + stages * stage + 2 * wr * qc * _BUCKET_M_MAX * 8
+            + _BUCKET_STAGES_MAX * 8)
+
+
+def _bucket_rows(elt: int, d: int, qc: int) -> int:
+    """Rows of a ring stage (bucket_rows): 128, one bucket, where three such
+    stages fit; else 64, a bucket in two stages."""
+    fixed = _bucket_smem(elt, d, qc, 0, 128)
+    stage = _bucket_smem(elt, d, qc, 1, 128) - fixed
+    return 128 if fixed < _SMEM_MAX and (_SMEM_MAX - fixed) // stage >= 3 else 64
+
+
+def _bucket_ranges(n_items: int, blocks: int) -> list[tuple[int, int]]:
+    """The item range [begin, end) of each block of a query chunk, as
+    pipe_bucket_kernel computes it on the device from the live union:
+    n_items * b // blocks to n_items * (b + 1) // blocks."""
+    return [(n_items * b // blocks, n_items * (b + 1) // blocks) for b in range(blocks)]
+
+
+def _bucket_plan(u_max: int, nb: int, nq: int, d: int, dtype: torch.dtype,
+                 sms: int) -> BucketPlan:
+    """Launch geometry of kernel #7, a pure function of the shapes.
+
+    bf16/int8: the query chunk is the power of two 8..64 that covers nq,
+    halved while fewer than two ring stages fit; the ring takes as many
+    stages (at most 8) of _bucket_rows rows as the rest of the 232,448 bytes
+    hold; one block per SM and query chunk.  f32: chunks of 16..64 queries
+    and each list's buckets split until ~2 blocks per SM exist."""
+    chunks = lambda qc: -(-nq // qc)  # noqa: E731
+    if dtype == torch.float32:
+        qc = min(64, _round_up(nq, 16))
+        while qc > 16 and _f32_smem(d, qc, 0, "bucketed") > _SMEM_MAX:
+            qc -= 16
+        smem = _f32_smem(d, qc, 0, "bucketed")
+        if smem > _SMEM_MAX:
+            raise ValueError(f"batched probe does not fit shared memory at d={d}")
+        nsplit = min(nb, max(1, -(-2 * sms // (u_max * chunks(qc)))))
+        items = -(-nb // nsplit)
+        return BucketPlan(qc, BUCKET, 0, -(-nb // items), items, smem)
+    elt = _ELT[dtype]
+    qc = 8
+    while qc < min(nq, 64):
+        qc *= 2
+    while True:
+        rows = _bucket_rows(elt, d, qc)
+        fixed = _bucket_smem(elt, d, qc, 0, rows)
+        stage = _bucket_smem(elt, d, qc, 1, rows) - fixed
+        stages = min(_BUCKET_STAGES_MAX, max(0, _SMEM_MAX - fixed) // stage)
+        if stages >= 2:
+            break
+        if qc == 8:
+            raise ValueError(f"batched probe does not fit shared memory at d={d}")
+        qc //= 2
+    blocks = max(1, sms // chunks(qc))
+    return BucketPlan(qc, rows, stages, blocks, -(-u_max * nb // blocks),
+                      fixed + stages * stage)
 
 
 def _check_lists(q_in, vec_lists, scale_lists, ns_lists, canon_lists) -> int:
@@ -191,36 +300,40 @@ def _probe_list_cuda(q_in, lists, vec_lists, scale_lists, ns_lists, canon_lists,
 
 def _probe_batched_cuda(q_in, uniq, n_uniq, vec_lists, scale_lists, ns_lists,
                         canon_lists, want_ns: int, want_canon: int, m: int):
-    """Launch kernel #7: one block per (union slot, run of buckets, query
-    chunk); slots past the device-resident n_uniq write -inf/-1."""
+    """Launch kernel #7 as _bucket_plan lays it out; union slots past the
+    device-resident n_uniq come out -inf/-1."""
     code = _check_lists(q_in, vec_lists, scale_lists, ns_lists, canon_lists)
     nlist, cap, d = vec_lists.shape
     nq, u_max = q_in.shape[0], uniq.shape[0]
     if cap % BUCKET:
         raise ValueError(f"the batched probe needs cap % {BUCKET} == 0, got cap={cap}")
+    if not 1 <= m <= _BUCKET_M_MAX:
+        raise ValueError(f"the batched probe keeps 1 <= m <= {_BUCKET_M_MAX}, got {m}")
     for name, t in (("uniq", uniq), ("n_uniq", n_uniq)):
         if t.device != vec_lists.device or t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError(f"{name}: expected a contiguous int32 tensor on {vec_lists.device}")
-    qc = min(64, _round_up(nq, 16))
-    while qc > 16 and _smem_bytes(1, code, d, qc, 0) > _SMEM_MAX:
-        qc -= 16
-    if _smem_bytes(1, code, d, qc, 0) > _SMEM_MAX:
-        raise ValueError(f"batched probe does not fit shared memory at d={d}")
-    # split each list's buckets over blocks until ~2 blocks per SM exist
-    # (counted over all union slots: the union's size stays on the device)
-    nb = cap // BUCKET
-    sms = torch.cuda.get_device_properties(vec_lists.device).multi_processor_count
-    nsplit = min(nb, max(1, -(-2 * sms // (u_max * -(-nq // qc)))))
-    bpb = -(-nb // nsplit)
-    out_sc = torch.empty((u_max, nq, m * nb), dtype=torch.float32, device=vec_lists.device)
-    out_id = torch.empty((u_max, nq, m * nb), dtype=torch.int32, device=vec_lists.device)
+    if vec_lists.dtype != torch.float32:
+        bulk = [("queries", q_in), ("vec_lists", vec_lists), ("ns_lists", ns_lists),
+                ("canon_lists", canon_lists)]
+        if vec_lists.dtype == torch.int8:
+            bulk.append(("scale_lists", scale_lists))
+        for name, t in bulk:
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name}: the bf16/int8 batched probe copies by TMA "
+                                 f"and needs 16-byte aligned tensors")
+    plan = _bucket_plan(u_max, cap // BUCKET, nq, d, vec_lists.dtype,
+                        _sm_count(vec_lists.device))
+    out_sc = torch.empty((u_max, nq, m * (cap // BUCKET)), dtype=torch.float32,
+                         device=vec_lists.device)
+    out_id = torch.empty((u_max, nq, m * (cap // BUCKET)), dtype=torch.int32,
+                         device=vec_lists.device)
     fn = _build.function("ivf_probe", "tr_probe_batched", _BATCHED_ARGS)
     with torch.cuda.device(vec_lists.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q_in.data_ptr(), uniq.data_ptr(), n_uniq.data_ptr(), vec_lists.data_ptr(),
                  scale_lists.data_ptr(), ns_lists.data_ptr(), canon_lists.data_ptr(),
-                 nq, u_max, cap, d, int(want_ns), int(want_canon), qc, m, bpb, code,
-                 out_sc.data_ptr(), out_id.data_ptr(), stream)
+                 nlist, nq, u_max, cap, d, int(want_ns), int(want_canon), plan.qc, m, plan.stages,
+                 plan.blocks, code, out_sc.data_ptr(), out_id.data_ptr(), stream)
     _build.check(err, "tr_probe_batched", "ivf_probe")
     _probe_batched_cuda.launches += 1
     return out_sc, out_id
