@@ -19,8 +19,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
   ivf      a 4,000,000 x 384 IVF store (auto -> int8 lists, nlist 2048, cap
            factor 2.0, nprobe 64; a low-rank correlated corpus) built by
            k-means on the card, saved, and served over HTTP with
-           INDEX_KIND=ivf: /docs/save, sequential /search (per-list probe
-           #6) and a concurrent burst; then 64 perturbed corpus rows searched
+           INDEX_KIND=ivf: /docs/save (with one /search while the save
+           rewrites the store), sequential /search (per-list probe #6) and a
+           concurrent burst; then 64 perturbed corpus rows searched
            one at a time (#6) and as one batch (batch-shared probe #7),
            recall@10 against f32 exact, kernels against plain versions.
 
@@ -82,6 +83,19 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3, batch: int = 1) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b) / batch)
     return statistics.median(times)
+
+
+def kernel_ms(fn, name: str, reps: int = 10) -> float:
+    """Device time a call of fn spends in the kernels whose name holds
+    `name` (kernel_ab.py's torch.profiler window over `reps` calls): the
+    kernel's own time, which calls back to back (cuda_ms with batch > 1)
+    give only where the device, not the host's launches, sets the pace."""
+    from kernel_ab import _profile
+
+    ms = sum(v for key, v in _profile(fn, reps)["by_kernel_ms"].items() if name in key)
+    if ms <= 0.0:
+        raise AssertionError(f"the profiler saw no device time of {name}")
+    return ms
 
 
 # ------------------------------------------------------------------ phases
@@ -309,7 +323,7 @@ def phase_kernels() -> list[dict]:
     for t in (256, 128, 512):
         rows.append(_attention_row(g, 64, t, 12, 32))
     rows += _probe_kernel_rows(g)
-    floats = {**_batched_checks(g), **_probe_float_checks(g)}
+    floats = {**_list_checks(g), **_batched_checks(g), **_probe_float_checks(g)}
     emit({"phase": "kernels", "checked": [r["name"] for r in rows] + list(floats),
           "max_abs_err": {**{r["name"]: r["max_abs_err"] for r in rows}, **floats}})
     return rows
@@ -408,9 +422,27 @@ def _floor_row(x, dtype: str, ms: float | None) -> dict:
 IVF_ROWS, IVF_NLIST, IVF_CAP, IVF_NPROBE, IVF_KSCAN = 4_000_000, 2048, 3968, 64, 40
 
 
+def _probed(lists, ns) -> tuple[int, int]:
+    """(distinct lists, live slots over them) of the probed `lists`.  The
+    bounds of #6 and #7 count the tags of every slot of each list once, and
+    a row and its scale only where the slot is live (ns != PAD_TAG): the
+    function never needs a PAD slot's row, though the kernels read it."""
+    import torch
+
+    from tpu_rag_torch.ops.topk import PAD_TAG
+
+    uniq = torch.unique(lists.reshape(-1))
+    return len(uniq), int((ns[uniq.long()] != PAD_TAG).sum())
+
+
 def _probe_kernel_rows(g) -> list[dict]:
     """#6 and #7 against their plain versions at the ivf phase's shapes, on
-    random int8 lists; each list is ~half filled, the rest PAD, as there."""
+    random lists; each list is ~half filled, the rest PAD, as there.  #6 at
+    one and three queries on int8 lists and at one on bf16 lists (IVFIndex's
+    default); #7 at 8 and 64 queries on int8 lists.  #6's `device_ms` is its
+    kernel's own time (torch.profiler; ten calls back to back would time
+    the host's wrapper, which takes longer); `pct_of_bound` is the bound
+    over `device_ms`.  No row filters, so the bounds count no canon tag."""
     import torch
 
     from tpu_rag_torch.ops import ivf_probe as ip
@@ -419,6 +451,7 @@ def _probe_kernel_rows(g) -> list[dict]:
 
     dev = torch.device("cuda")
     d, nlist, cap, nprobe, k_eff, m = 384, IVF_NLIST, IVF_CAP, IVF_NPROBE, IVF_KSCAN, 2
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     vec = torch.randint(-127, 128, (nlist, cap, d), generator=g, device=dev, dtype=torch.int8)
     scale = torch.rand((nlist, cap), generator=g, device=dev) * 1e-3 + 1e-3
     fill = torch.randint(cap // 3, (2 * cap) // 3, (nlist, 1), generator=g, device=dev)
@@ -430,44 +463,64 @@ def _probe_kernel_rows(g) -> list[dict]:
     centroids = torch.randn((nlist, d), generator=g, device=dev)
     centroids /= centroids.norm(dim=1, keepdim=True)
     rows = []
-    for nq in (1, 8, 64):
+    for nq, dtype in ((1, torch.int8), (3, torch.int8), (1, torch.bfloat16)):   # ---- #6
         qf = torch.randn((nq, d), generator=g, device=dev)
         qf[0] = centroids[3]                                # probes list 3 first
         lists = ip._top_lists(qf, centroids, nprobe)
+        if dtype == torch.int8:
+            lv, sv, q_in = vec, scale, quantize_int8_rows(qf)[0]
+        else:
+            lv, sv = vec.to(torch.bfloat16).mul_(1e-3), torch.ones_like(scale)
+            q_in = (qf / qf.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+        args = (q_in, lists, lv, sv, ns, canon, -1, -1, k_eff)
+        k_sc, k_id = ip._probe_list_cuda(*args)
+        p_sc, p_id = ip._probe_list_plain(*args)
+        torch.cuda.synchronize()
+        if dtype == torch.int8:
+            if not (torch.equal(k_sc, p_sc) and torch.equal(k_id, p_id)):
+                raise AssertionError(f"per-list probe int8 q {nq}: ids or scores differ")
+            err = 0.0
+        else:
+            err = _id_check(k_sc.view(-1, k_eff), k_id.view(-1, k_eff),
+                            p_sc.view(-1, k_eff), p_id.view(-1, k_eff), 1e-4)["max_abs_err"]
+        flat = lists.reshape(-1)
+
+        def library(flat=flat, q_in=q_in, nq=nq, lv=lv, int8=dtype == torch.int8):
+            x = lv[flat].to(torch.bfloat16)                        # (Q*nprobe, cap, d)
+            qv = q_in.to(torch.bfloat16).repeat_interleave(nprobe, 0)[:, :, None]
+            s = torch.bmm(x, qv)[..., 0].float()
+            if int8:
+                s = s * scale[flat]
+            s = torch.where(ns[flat] != PAD_TAG, s, -math.inf)
+            return torch.topk(s, k_eff, dim=1)
+
+        elt = lv.element_size()
+        n_lists, live = _probed(lists, ns)
+        live_pairs = int((ns[flat] != PAD_TAG).sum())     # live slots of each (query, list)
+        nbytes = (n_lists * cap * 4 + live * (d * elt + (4 if dtype == torch.int8 else 0))
+                  + nq * d * elt + lists.numel() * 4 + nq * nprobe * k_eff * 8)
+        b_ms, b_by = bound(nbytes, 2.0 * live_pairs * d,
+                           "int8" if dtype == torch.int8 else "bf16")
+        ms = cuda_ms(lambda: ip._probe_list_cuda(*args))
+        dev_ms = kernel_ms(lambda: ip._probe_list_cuda(*args), "probe_split_kernel")
+        dt = str(dtype)[6:]
+        rows.append({"name": f"ivf_probe_per_list[{dt},q={nq},nprobe={nprobe},cap={cap},"
+                             f"k={k_eff}]", "route": "cuda",
+                     "source": "tpu_rag_torch/csrc/ivf_probe.cu",
+                     "replaces": "tpu_rag/ops/ivf_probe.py:41", "counter": "per_list",
+                     "plan": ip._list_plan(nq, nprobe, cap, d, dtype, k_eff, sms)._asdict(),
+                     "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+                     "plain_ms": cuda_ms(lambda: ip._probe_list_plain(*args), iters=5),
+                     "library_ms": cuda_ms(library, iters=5),
+                     "library": "composite: list gather + torch.bmm + torch.topk",
+                     "bound_ms": b_ms, "bound_by": b_by, "pct_of_bound": 100.0 * b_ms / dev_ms})
+        del lv
+    for nq in (8, 64):                                     # ---- #7
+        qf = torch.randn((nq, d), generator=g, device=dev)
+        qf[0] = centroids[3]
+        lists = ip._top_lists(qf, centroids, nprobe)
         q8, _ = quantize_int8_rows(qf)
-        if nq == 1:                                         # ---- #6
-            args = (q8, lists, vec, scale, ns, canon, -1, -1, k_eff)
-            k_sc, k_id = ip._probe_list_cuda(*args)
-            p_sc, p_id = ip._probe_list_plain(*args)
-            torch.cuda.synchronize()
-            chk = _id_check(k_sc.view(-1, k_eff), k_id.view(-1, k_eff),
-                            p_sc.view(-1, k_eff), p_id.view(-1, k_eff), 1e-4)
-            _id_check(*(t.view(-1, k_eff) for t in ip._probe_list_cuda(*args[:6], 2, 1, k_eff)),
-                      *(t.view(-1, k_eff) for t in ip._probe_list_plain(*args[:6], 2, 1, k_eff)),
-                      1e-4)
-            flat = lists.reshape(-1)
-
-            def library(flat=flat, q8=q8):
-                x = vec[flat].to(torch.bfloat16)                       # (Q*nprobe, cap, d)
-                qv = q8.to(torch.bfloat16).repeat_interleave(nprobe, 0)[:, :, None]
-                s = torch.bmm(x, qv)[..., 0].float() * scale[flat]
-                s = torch.where(ns[flat] != PAD_TAG, s, -math.inf)
-                return torch.topk(s, k_eff, dim=1)
-
-            nbytes = nq * nprobe * cap * (d + 12) + nq * d + nq * nprobe * k_eff * 8
-            b_ms, b_by = bound(nbytes, 2.0 * nq * nprobe * cap * d, "int8")
-            rows.append({"name": f"ivf_probe_per_list[int8,q={nq},nprobe={nprobe},cap={cap},"
-                                 f"k={k_eff}]", "route": "cuda",
-                         "source": "tpu_rag_torch/csrc/ivf_probe.cu",
-                         "replaces": "tpu_rag/ops/ivf_probe.py:41", "counter": "per_list",
-                         "max_abs_err": chk["max_abs_err"],
-                         "ms": cuda_ms(lambda: ip._probe_list_cuda(*args)),
-                         "plain_ms": cuda_ms(lambda: ip._probe_list_plain(*args), iters=5),
-                         "library_ms": cuda_ms(library, iters=5),
-                         "library": "composite: list gather + torch.bmm + torch.topk",
-                         "bound_ms": b_ms, "bound_by": b_by})
-            continue
-        uniq, n_uniq, _ = ip._dedup(lists, nlist)         # ---- #7
+        uniq, n_uniq, _ = ip._dedup(lists, nlist)
         args = (q8, uniq, n_uniq, vec, scale, ns, canon, -1, -1, m)
         k_sc, k_id = ip._probe_batched_cuda(*args)
         p_sc, p_id = ip._probe_batched_plain(*args)
@@ -493,16 +546,16 @@ def _probe_kernel_rows(g) -> list[dict]:
             s = s.transpose(1, 2).reshape(len(lst), nq, cap // 128, 128)
             return torch.topk(s, m, dim=3)
 
-        nbytes = nu * cap * (d + 12) + nq * d + nu * nq * m * (cap // 128) * 8
-        b_ms, b_by = bound(nbytes, 2.0 * nu * cap * d * nq, "int8")
+        _, live = _probed(lst, ns)
+        nbytes = nu * cap * 4 + live * (d + 4) + nq * d + nu * 4 + nu * nq * m * (cap // 128) * 8
+        b_ms, b_by = bound(nbytes, 2.0 * live * d * nq, "int8")
         ms = cuda_ms(lambda: ip._probe_batched_cuda(*args))
         rows.append({"name": f"ivf_probe_batched[int8,q={nq},nprobe={nprobe},cap={cap},"
                              f"m={m},union={nu}]", "route": "cuda",
                      "source": "tpu_rag_torch/csrc/ivf_probe.cu",
                      "replaces": "tpu_rag/ops/ivf_probe.py:237", "counter": "batched",
                      "plan": ip._bucket_plan(uniq.shape[0], cap // 128, nq, d, torch.int8,
-                                             torch.cuda.get_device_properties(dev)
-                                             .multi_processor_count)._asdict(),
+                                             sms)._asdict(),
                      "max_abs_err": err, "ms": ms,
                      "device_ms": cuda_ms(lambda: ip._probe_batched_cuda(*args), iters=5,
                                           batch=10),
@@ -513,6 +566,95 @@ def _probe_kernel_rows(g) -> list[dict]:
     del vec, scale, ns, canon
     torch.cuda.empty_cache()
     return rows
+
+
+def _list_checks(g) -> dict:
+    """#6 against its plain version over the whole (nq, nprobe, k) output,
+    at one and three queries, k 1, 40 and 128, with and without filters, on
+    the ivf phase's geometry (a list split over 2 blocks) and on a small one
+    (cap 1000, not a multiple of 128, nprobe 16: clusters of 8 blocks).
+    Each geometry puts an exact tie across the first boundary of the plan's
+    ranges (list 3, probed first by query 0, which is one of the two rows)
+    and makes list 5, probed first by query 1, all PAD.  int8: ids and
+    scores torch.equal; bf16: _id_check at 1e-4.  Also holds each plan
+    against the kernel's tr_probe_smem_bytes."""
+    import torch
+
+    from tpu_rag_torch.ops import ivf_probe as ip
+    from tpu_rag_torch.ops.quant import quantize_int8_rows
+    from tpu_rag_torch.ops.topk import _DTYPE_CODE, PAD_TAG
+
+    dev = torch.device("cuda")
+    d, tol = 384, 1e-4
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+    for nlist, cap, nprobe in ((IVF_NLIST, IVF_CAP, IVF_NPROBE), (256, 1000, 16)):
+        vec = torch.randint(-127, 128, (nlist, cap, d), generator=g, device=dev,
+                            dtype=torch.int8)
+        scale = torch.rand((nlist, cap), generator=g, device=dev) * 1e-3 + 1e-3
+        fill = torch.randint(cap // 3, (2 * cap) // 3, (nlist, 1), generator=g, device=dev)
+        ns = torch.randint(0, 4, (nlist, cap), generator=g, device=dev, dtype=torch.int32)
+        ns = torch.where(torch.arange(cap, device=dev)[None, :] < fill, ns, PAD_TAG)
+        canon = torch.randint(0, 2, (nlist, cap), generator=g, device=dev, dtype=torch.int32)
+        boundary = ip._list_ranges(cap, ip._list_plan(1, nprobe, cap, d, torch.int8, 40,
+                                                      sms).split)[1][0]
+        tie = [boundary - 20, boundary + 5]                   # ranks 0 and 1
+        vec[3, tie[1]], scale[3, tie[1]] = vec[3, tie[0]], scale[3, tie[0]]
+        ns[3, tie], canon[3, tie] = 2, 1                      # live under both filters
+        ns[5] = PAD_TAG                                       # every slot PAD
+        ns = ns.contiguous()
+        centroids = torch.randn((nlist, d), generator=g, device=dev)
+        for dtype in (torch.int8, torch.bfloat16):
+            if dtype == torch.int8:
+                lv, sv = vec, scale
+            else:
+                lv, sv = vec.to(torch.bfloat16).mul_(1e-3), torch.ones_like(scale)
+            qf = torch.randn((3, d), generator=g, device=dev)
+            qf[0] = lv[3, tie[0]].float()                     # the tie leads list 3
+            q_in = (quantize_int8_rows(qf)[0] if dtype == torch.int8
+                    else (qf / qf.norm(dim=1, keepdim=True)).to(torch.bfloat16))
+            lists = ip._top_lists(qf, centroids, nprobe)
+            lists[0, 0], lists[1, 0] = 3, 5
+            err, id_diff = 0.0, 0
+            for nq in (1, 3):
+                for k in (1, 40, 128):
+                    plan = ip._list_plan(nq, nprobe, cap, d, dtype, k, sms)
+                    got = ip._smem_bytes(0, _DTYPE_CODE[dtype], d, 0, k, plan.stages, plan.rows)
+                    if got != plan.smem:
+                        raise AssertionError(f"list plan {plan} says {plan.smem} bytes, "
+                                             f"the kernel {got}")
+                    ranges = ip._list_ranges(cap, plan.split)
+                    if plan.split < 2 or not tie[0] < ranges[1][0] <= tie[1]:
+                        raise AssertionError(f"the tie {tie} does not straddle {ranges[:2]}")
+                    for wants in ((-1, -1), (2, 1)):
+                        args = (q_in[:nq], lists[:nq], lv, sv, ns, canon, *wants, k)
+                        k_sc, k_id = ip._probe_list_cuda(*args)
+                        p_sc, p_id = ip._probe_list_plain(*args)
+                        torch.cuda.synchronize()
+                        what = f"per-list probe {str(dtype)[6:]} cap {cap} q {nq} k {k} {wants}"
+                        if dtype == torch.int8:
+                            if not (torch.equal(k_sc, p_sc) and torch.equal(k_id, p_id)):
+                                raise AssertionError(f"{what}: ids or scores differ "
+                                                     f"({int((k_id != p_id).sum())} ids)")
+                        else:
+                            chk = _id_check(k_sc.view(-1, k), k_id.view(-1, k),
+                                            p_sc.view(-1, k), p_id.view(-1, k), tol)
+                            err = max(err, chk["max_abs_err"])
+                            id_diff = max(id_diff, chk["id_mismatches_in_ties"])
+                        if k_id[0, 0, :2].tolist() != tie[:k]:
+                            raise AssertionError(f"{what}: the tie across blocks gave "
+                                                 f"{k_id[0, 0, :2].tolist()}")
+                        if nq == 3 and not ((k_id[1, 0] == -1).all()
+                                            and torch.isneginf(k_sc[1, 0]).all()):
+                            raise AssertionError(f"{what}: the all-PAD list is not -inf/-1")
+            name = f"ivf_probe_per_list[{str(dtype)[6:]},cap={cap},nprobe={nprobe},q=1/3,k=1/40/128]"
+            out[name] = err
+            if dtype == torch.bfloat16:
+                out[name + "_most_id_mismatches"] = id_diff
+            del lv
+        del vec, scale, ns, canon
+        torch.cuda.empty_cache()
+    return out
 
 
 def _batched_checks(g) -> dict:
@@ -695,31 +837,13 @@ def _doc_text(i: int) -> str:
 def _profile_window(engine, texts: list[str]) -> dict:
     """One fused embed+search window of len(texts) queries, in process (no
     HTTP): wall time, device time by kernel (torch.profiler), idle share."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    from kernel_ab import _profile
 
-    engine._fused_vector_hits_batch(texts, 5, None, None, cache_qv=False)
-    torch.cuda.synchronize()
-    reps = 5
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            engine._fused_vector_hits_batch(texts, 5, None, None, cache_qv=False)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / reps
-    by_kernel = {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue                      # host ops; their kernels are listed
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if us > 0:
-            by_kernel[e.key[:80]] = us / reps / 1e3
-    device_ms = sum(by_kernel.values())
+    prof = _profile(lambda: engine._fused_vector_hits_batch(texts, 5, None, None,
+                                                            cache_qv=False))
+    wall_ms, device_ms, by_kernel = prof["wall_ms"], prof["device_ms"], prof["by_kernel_ms"]
     scan_ms = sum(v for key, v in by_kernel.items() if "scan_kernel" in key)
-    top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8])
+    top = {key[:80]: v for key, v in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]}
     # host split of one more window, profiler off: tokenize, then the
     # index's own timers (snapshot / forward+scan+readback / decode)
     t0 = time.perf_counter()
@@ -730,9 +854,8 @@ def _profile_window(engine, texts: list[str]) -> dict:
     split = {"tokenize_ms": (t1 - t0) * 1e3, "total_ms": (time.perf_counter() - t0) * 1e3}
     split.update({k.replace("_s", "_ms"): v * 1e3
                   for k, v in engine.index.last_search_stats.items()})
-    return {"queries": len(texts), "wall_ms": wall * 1e3, "device_ms": device_ms,
-            "scan_ms": scan_ms,
-            "device_idle_share": max(0.0, 1.0 - device_ms / (wall * 1e3)),
+    return {"queries": len(texts), "wall_ms": wall_ms, "device_ms": device_ms,
+            "scan_ms": scan_ms, "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
             "top_device_ms": top, "host_split_ms": split}
 
 
@@ -770,6 +893,20 @@ def _served(cfg):
         engine.shutdown()
 
 
+def _count_persists(engine) -> list[float]:
+    """The times at which the indexer's store saves end, appended as each
+    does: every /docs/save sets one off, and an earlier save may write the
+    final count while a later one is still rewriting the files."""
+    done = []
+    persist = engine.indexer.persist_fn
+
+    def counted():
+        persist()
+        done.append(time.perf_counter())
+    engine.indexer.persist_fn = counted
+    return done
+
+
 def _vector_ids(engine, texts: list[str], k: int) -> list[list[str]]:
     """Top-k ids of the fused embed + scan path, in process."""
     hits = engine._fused_vector_hits_batch(texts, k, None, None, cache_qv=False)
@@ -781,7 +918,7 @@ def phase_serve(work: Path) -> dict:
 
     from tpu_rag_torch.config import Config
     from tpu_rag_torch.index.flat import FlatIndex
-    from tpu_rag_torch.index.store import MANIFEST, save_index
+    from tpu_rag_torch.index.store import save_index
     from tpu_rag_torch.utils.metrics import GLOBAL_METRICS
 
     n, d = 1_000_000, 384
@@ -800,6 +937,7 @@ def phase_serve(work: Path) -> dict:
 
     with _served(cfg) as (app, engine, health):      # loads the saved store
         assert engine.index.count() == n
+        persists = _count_persists(engine)
         texts = [_doc_text(i) for i in range(4)]
         saved = []
         t_save = time.perf_counter()
@@ -842,6 +980,17 @@ def phase_serve(work: Path) -> dict:
         counts = _read_counters()
         windows = {k: v for k, v in GLOBAL_METRICS._counters.items()
                    if k.startswith("vector_microbatch_window_le_")}
+        # every save persists first: the searches above may have run beside
+        # them (a save holds the index lock only to pin its rows, but its
+        # Python loop shares the interpreter), the warm ones below do not,
+        # and the packed serve below loads no store a save is rewriting
+        while len(persists) < len(texts):
+            if time.perf_counter() - t_save > 600:
+                raise TimeoutError("the store was not rewritten")
+            time.sleep(0.2)
+        if _manifest_count(store_dir) != n + len(texts):
+            raise AssertionError(f"the saves left {_manifest_count(store_dir)} rows")
+        persisted_s = persists[-1] - t_save
         # warm, one at a time: end-to-end latency and the route's stage split
         warm, stages = [], {}
         for qtext in queries[4:]:
@@ -853,17 +1002,13 @@ def phase_serve(work: Path) -> dict:
         profile = _profile_window(engine, queries[4:])
         exact_top10 = _vector_ids(engine, queries[4:], 10)
         snapshot = dict(engine.index.snapshot_stats)
-        while json.loads((store_dir / MANIFEST).read_text())["count"] < n + len(texts):
-            if time.perf_counter() - t_save > 600:            # the saves persist
-                raise TimeoutError("the store was not rewritten")
-            time.sleep(0.2)
     if counts["exact"] < 1 or counts["mha"] < 1:
         raise AssertionError(f"the main path did not launch the kernels: {counts}")
     del app, engine
     torch.cuda.empty_cache()
     packed = _serve_packed(cfg, queries[4:], exact_top10, n + len(texts))
     out = {"phase": "serve", "rows": n, "store_build_s": build_s,
-           "docs_saved": len(saved), "docs_index_s": save_s,
+           "docs_saved": len(saved), "docs_index_s": save_s, "docs_persisted_s": persisted_s,
            "searches": len(lat), "search_ms_p50": statistics.median(lat) * 1e3,
            "search_ms_max": max(lat) * 1e3, "windows": windows,
            "warm_search_ms": warm, "warm_search_ms_p50": statistics.median(warm),
@@ -1010,13 +1155,26 @@ def _plain_probes():
         ip.probe_list_topk, ip.probe_batched_buckets = saved
 
 
+def _manifest_count(store_dir: Path) -> int:
+    """The row count of a store's manifest (written whole, last, by a save;
+    read again if a read caught it half written)."""
+    from tpu_rag_torch.index.store import MANIFEST
+
+    for _ in range(50):
+        try:
+            return json.loads((store_dir / MANIFEST).read_text())["count"]
+        except json.JSONDecodeError:
+            time.sleep(0.01)
+    raise AssertionError(f"unreadable manifest in {store_dir}")
+
+
 def phase_ivf(work: Path) -> dict:
     import numpy as np
     import torch
 
     from tpu_rag_torch.config import Config
     from tpu_rag_torch.index.ivf import IVFIndex
-    from tpu_rag_torch.index.store import MANIFEST, save_index
+    from tpu_rag_torch.index.store import save_index
     from tpu_rag_torch.utils.metrics import GLOBAL_METRICS
 
     n, d, nq, k = IVF_ROWS, 384, 64, 10
@@ -1064,7 +1222,10 @@ def phase_ivf(work: Path) -> dict:
         if index.device_snapshot()["vec_lists"].shape[1] != geometry["cap"]:
             raise AssertionError("the served lists differ from the built ones")
 
-        # two saves: each rewrites the whole store (persist_index)
+        # two saves: each rewrites the whole store (persist_index); one
+        # /search once the doc is searchable, while the save may still be
+        # writing the store (the manifest, written last, still counts the
+        # old rows): it must not wait for the save
         texts = [_doc_text(i) for i in range(2)]
         saved, save_times = [], []
         for i, text in enumerate(texts):
@@ -1078,11 +1239,21 @@ def phase_ivf(work: Path) -> dict:
                     raise TimeoutError("background indexing did not finish")
                 time.sleep(0.05)
             searchable = time.perf_counter() - t1
-            while json.loads((store_dir / MANIFEST).read_text())["count"] < n + i + 1:
+            old_before = _manifest_count(store_dir) < n + i + 1
+            t2 = time.perf_counter()
+            r = _http(cfg.port, "POST", "/search", {"query": text, "k": 5})
+            during_ms = (time.perf_counter() - t2) * 1e3
+            old_after = _manifest_count(store_dir) < n + i + 1
+            if r["hits"][0]["id"] != saved[i]:
+                raise AssertionError(f"saved doc {i} is not its own top hit during the save")
+            while _manifest_count(store_dir) < n + i + 1:
                 if time.perf_counter() - t1 > 600:
                     raise TimeoutError("the store was not rewritten")
                 time.sleep(0.2)
             save_times.append({"searchable_s": searchable,
+                               "search_during_save_ms": during_ms,
+                               "manifest_old_before_search": old_before,
+                               "manifest_old_after_search": old_after,
                                "persisted_s": time.perf_counter() - t1})
         for i, text in enumerate(texts):
             r = _http(cfg.port, "POST", "/search", {"query": text, "k": 5})

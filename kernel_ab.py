@@ -12,9 +12,10 @@ the median ms of one wrapper call at a time (CUDA events around the call,
 as chip_smoke.py times its kernels line) and the device's ms (10 calls back
 to back); the last line holds each shape's values in run order.  #6 and
 #7 come once from the checkout's own chip_smoke.py (its kernels line's
-`ms`) and once with both times: #6 at one query, #7 at 8 and 64 queries
-(m 2).  The data is the same in every run (seeded on the card), as in
-chip_smoke.py.
+`ms`) and once with both times on lists seeded the same for every
+checkout: #6 at one and three queries on int8 lists and at one on bf16
+lists (k 40), #7 at 8 and 64 queries (m 2).  The data is the same in
+every run (seeded on the card), as in chip_smoke.py.
 With --profile each shape also gets its device time per kernel and its
 wall time, per call (torch.profiler over 5 calls): where a wrapper's time
 goes between its kernels, the library calls around them and the host.
@@ -53,6 +54,9 @@ def _ms(fn, iters: int, batch: int) -> float:
 
 
 def _profile(fn, reps: int = 5) -> dict:
+    """torch.profiler over `reps` calls of fn after one warm-up: the wall
+    time and each kernel's device time, per call (ms).  chip_smoke.py's
+    kernel times and its serve window's breakdown come from here too."""
     import time
 
     import torch
@@ -60,7 +64,8 @@ def _profile(fn, reps: int = 5) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
@@ -69,19 +74,21 @@ def _profile(fn, reps: int = 5) -> dict:
     by_kernel = {}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+            continue                      # host ops; their kernels are listed
         us = getattr(e, "self_device_time_total", None)
         us = e.self_cuda_time_total if us is None else us
         if us > 0:
-            by_kernel[e.key[:60]] = us / reps / 1e3
+            by_kernel[e.key] = us / reps / 1e3
     return {"wall_ms": wall * 1e3, "device_ms": sum(by_kernel.values()),
-            "by_kernel_ms": dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6])}
+            "by_kernel_ms": by_kernel}
 
 
 def _both(fn, profile: bool) -> dict:
     out = {"ms": _ms(fn, 20, 1), "device_ms": _ms(fn, 5, 10)}
     if profile:
-        out["profile"] = _profile(fn)
+        prof = _profile(fn)
+        top = sorted(prof["by_kernel_ms"].items(), key=lambda kv: -kv[1])[:6]
+        out["profile"] = {**prof, "by_kernel_ms": {key[:60]: ms for key, ms in top}}
     return out
 
 
@@ -132,29 +139,41 @@ def worker(root: Path, profile: bool) -> dict:
             lambda: att._fused_mha_cuda(q, k_, v, mask), profile)
     del q, k_, v
     # #6 and #7: their kernels line's `ms` through the checkout's own
-    # chip_smoke.py, then both times (#7 at 8 and 64 queries)
+    # chip_smoke.py, then both times
     import chip_smoke
     from tpu_rag_torch.ops import ivf_probe as ip
 
     for row in chip_smoke._probe_kernel_rows(g):
         out[row["name"]] = {"ms": row["ms"]}
+    # the lists below are the same in every checkout: the rows above draw
+    # a checkout's own amount of random numbers
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
     nlist, cap = chip_smoke.IVF_NLIST, chip_smoke.IVF_CAP
     vec = torch.randint(-127, 128, (nlist, cap, d), generator=g, device=dev, dtype=torch.int8)
     scale = torch.rand((nlist, cap), generator=g, device=dev) * 1e-3 + 1e-3
     tags = torch.randint(0, 4, (nlist, cap), generator=g, device=dev, dtype=torch.int32)
     centroids = torch.randn((nlist, d), generator=g, device=dev)
-    for nq in (1, 8, 64):
+    ones = torch.ones_like(scale)
+    for nq, dtype in ((1, "int8"), (3, "int8"), (1, "bf16")):    # #6
+        qf = torch.randn((nq, d), generator=g, device=dev)
+        lists = ip._top_lists(qf, centroids, chip_smoke.IVF_NPROBE)
+        if dtype == "int8":
+            args = (quantize_int8_rows(qf)[0], lists, vec, scale, tags, tags, -1, -1,
+                    chip_smoke.IVF_KSCAN)
+        else:
+            q_in = (qf / qf.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+            args = (q_in, lists, vec.to(torch.bfloat16).mul_(1e-3), ones, tags, tags, -1, -1,
+                    chip_smoke.IVF_KSCAN)
+        out[f"ivf_probe_per_list[{dtype},q={nq}]"] = _both(lambda: ip._probe_list_cuda(*args),
+                                                            profile)
+        del args
+    for nq in (8, 64):                                            # #7
         q8, _ = quantize_int8_rows(torch.randn((nq, d), generator=g, device=dev))
         lists = ip._top_lists(q8.float(), centroids, chip_smoke.IVF_NPROBE)
-        if nq == 1:
-            args = (q8, lists, vec, scale, tags, tags, -1, -1, chip_smoke.IVF_KSCAN)
-            out["ivf_probe_per_list[int8,q=1]"] = _both(lambda: ip._probe_list_cuda(*args),
-                                                         profile)
-        else:
-            uniq, n_uniq, _ = ip._dedup(lists, nlist)
-            args = (q8, uniq, n_uniq, vec, scale, tags, tags, -1, -1, 2)
-            out[f"ivf_probe_batched[int8,q={nq}]"] = _both(
-                lambda: ip._probe_batched_cuda(*args), profile)
+        uniq, n_uniq, _ = ip._dedup(lists, nlist)
+        args = (q8, uniq, n_uniq, vec, scale, tags, tags, -1, -1, 2)
+        out[f"ivf_probe_batched[int8,q={nq}]"] = _both(
+            lambda: ip._probe_batched_cuda(*args), profile)
     return out
 
 
@@ -180,8 +199,11 @@ def main() -> int:
         rows = json.loads(proc.stdout.strip().splitlines()[-1])
         runs.append(rows)
         print(json.dumps({"run": i, "root": str(root), "rows": rows}), flush=True)
-    summary = {name: {key: [r[name].get(key) for r in runs] for key in ("ms", "device_ms")}
-               for name in runs[0]}
+    # a checkout's own chip_smoke.py rows may be named differently (a union
+    # size in the name): a shape missing from a run reads None there
+    names = list(dict.fromkeys(name for r in runs for name in r))
+    summary = {name: {key: [r.get(name, {}).get(key) for r in runs] for key in ("ms", "device_ms")}
+               for name in names}
     print(json.dumps({"runs": [str(r) for r in roots], "by_shape": summary}), flush=True)
     return 0
 

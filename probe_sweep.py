@@ -1,17 +1,24 @@
 #!/usr/bin/env python3
-"""Batch-shared IVF probe (#7) on one GPU: its device time by query count
+"""The IVF probes on one GPU: the batch-shared probe (#7) by query count
 and by the share of masked (PAD) slots, beside the read floor of the same
-lists.
+lists; and the per-list probe (#6) under its launch plan and the plans
+around it.
 
-    python3 probe_sweep.py
+    python3 probe_sweep.py            # both
+    python3 probe_sweep.py --list     # #6 only
 
 On the ivf phase's geometry of chip_smoke.py (2048 int8 lists of cap 3968,
 d 384, nprobe 64, m 2; seeded random lists), for 8, 32 and 64 queries:
 #7 with every slot live, with each list's tail PAD (a fill drawn from
 [cap/3, 2 cap/3), as chip_smoke.py's lists), and with every slot PAD (the
 kernel then only loads its lists and writes -inf winners); and #4's read
-floor over the union's lists gathered into one matrix.  Device time: 10
-calls back to back between CUDA events, median of 5.  Prints one JSON line
+floor over the union's lists gathered into one matrix.  #6 on the same
+lists (every slot live, k 40) at 1 and 3 queries, int8 and bf16: the plan
+_list_plan picks and others (split 1-4; 128- or 64-row stages, as many as
+fit one, two or three resident blocks), beside the read floor of the
+probed lists.  Device time: 10 calls back to back between CUDA events,
+median of 5; for #6 the kernel's own time (torch.profiler, chip_smoke's
+kernel_ms), since its wrapper's host time exceeds it.  Prints one JSON line
 per shape, the card's name and power limit, then all results as one JSON
 object.  Without a CUDA device it exits non-zero.
 """
@@ -50,6 +57,8 @@ def main() -> int:
     all_pad = torch.full_like(tags, tk.PAD_TAG)
     centroids = torch.randn((nlist, d), generator=g, device=dev)
     out = {}
+    if "--list" in sys.argv[1:]:
+        return _list_sweep(cs, ip, tk, quantize_int8_rows, vec, scale, tags, centroids, g)
     for nq in (8, 32, 64):
         q8, _ = quantize_int8_rows(torch.randn((nq, d), generator=g, device=dev))
         lists = ip._top_lists(q8.float(), centroids, cs.IVF_NPROBE)
@@ -66,6 +75,57 @@ def main() -> int:
                                                  batch=10)
         print(json.dumps({f"q{nq}_read_floor_ms": out[f"q{nq}_read_floor_ms"]}), flush=True)
         del flat
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def _list_sweep(cs, ip, tk, quantize_int8_rows, vec, scale, tags, centroids, g) -> int:
+    import torch
+
+    dev, d, cap = vec.device, vec.shape[2], vec.shape[1]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    k = cs.IVF_KSCAN
+    list_plan = ip._list_plan
+    out = {}
+    lists_bf = vec.to(torch.bfloat16).mul_(1e-3)
+    ones = torch.ones_like(scale)
+    for dtype, lv, sv in ((torch.int8, vec, scale), (torch.bfloat16, lists_bf, ones)):
+        elt = lv.element_size()
+        for nq in (1, 3):
+            qf = torch.randn((nq, d), generator=g, device=dev)
+            lists = ip._top_lists(qf, centroids, cs.IVF_NPROBE)
+            q_in = (quantize_int8_rows(qf)[0] if dtype == torch.int8
+                    else (qf / qf.norm(dim=1, keepdim=True)).to(torch.bfloat16))
+            args = (q_in, lists, lv, sv, tags, tags, -1, -1, k)
+            default = list_plan(nq, cs.IVF_NPROBE, cap, d, dtype, k, sms)
+            plans = {default}
+            for split in (1, 2, 4):
+                for per_sm in (1, 2, 3):
+                    budget = min(232_448, 233_472 // per_sm - 1024)
+                    for rows in (64, 128):
+                        fixed = ip._list_smem(elt, d, k, 0, rows)
+                        stage = ip._list_smem(elt, d, k, 1, rows) - fixed
+                        stages = min(8, max(0, budget - fixed) // stage)
+                        if stages >= 2:
+                            plans.add(ip.ListPlan(split, rows, stages, nq * 64 * split, per_sm,
+                                                  fixed + stages * stage))
+            name = f"per_list[{str(dtype)[6:]},q={nq}]"
+            res = []
+            for plan in sorted(plans):
+                ip._list_plan = lambda *_, plan=plan: plan     # the wrapper launches `plan`
+                try:
+                    ms = cs.kernel_ms(lambda: ip._probe_list_cuda(*args), "probe_split_kernel")
+                finally:
+                    ip._list_plan = list_plan
+                res.append({"plan": plan._asdict(), "device_ms": ms, "default": plan == default})
+                print(json.dumps({name: res[-1]}), flush=True)
+            flat = lv[lists.reshape(-1)].reshape(-1, d)
+            floor = cs.cuda_ms(lambda: tk._read_sum_cuda(flat), iters=5, batch=10)
+            del flat
+            out[name] = {"plans": res, "read_floor_ms": floor}
+            print(json.dumps({name + "_read_floor_ms": floor}), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
     print(json.dumps(out), flush=True)

@@ -219,3 +219,161 @@ def test_plain_keeps_fewer_live_slots_than_m():
     assert sorted(ids[4, 0, [1, 1 + nb]].tolist()) == [254, 255]
     assert (ids[4, :, [1 + 2 * nb, 1 + 3 * nb]] == -1).all()
     assert torch.isneginf(sc[4, :, [1 + 2 * nb, 1 + 3 * nb]]).all()
+
+
+# ------------------------------------------------------------ kernel #6's plan
+
+LIST_D_ALL = D_ALL
+LIST_K_ALL = (1, 40, 128)
+
+
+@pytest.mark.parametrize("cap", [3968, 1000, 128])
+def test_list_ranges_cover_each_list_once_in_slot_order(cap):
+    nb = -(-cap // BUCKET)
+    for split in range(1, min(8, nb) + 1):
+        ranges = ip._list_ranges(cap, split)
+        assert len(ranges) == split
+        assert ranges[0][0] == 0 and ranges[-1][1] == cap
+        for (_, end), (begin, _) in zip(ranges, ranges[1:]):
+            assert end == begin                                   # contiguous, in rank order
+        assert all(b % BUCKET == 0 and b < e for b, e in ranges)  # 128-aligned, none empty
+        lens = [-(-(e - b) // BUCKET) for b, e in ranges]
+        assert max(lens) - min(lens) <= 1                         # balanced in buckets
+    for nq in (1, 2, 3):
+        for nprobe in (1, 16, 64):
+            plan = ip._list_plan(nq, nprobe, cap, 384, torch.int8, 40, SMS)
+            assert 1 <= plan.split <= min(8, nb)
+            assert plan.blocks == nq * nprobe * plan.split
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("d", LIST_D_ALL)
+def test_every_list_plan_fits(dtype, d):
+    elt = 1 if dtype == torch.int8 else 2
+    for k in LIST_K_ALL:
+        for nq in (1, 2, 3):
+            for nprobe in (8, 64):
+                plan = ip._list_plan(nq, nprobe, 3968, d, dtype, k, SMS)
+                assert plan.smem <= 232_448
+                assert plan.per_sm * (plan.smem + 1024) <= 233_472    # resident together
+                assert plan.per_sm * 288 <= 2048                      # by threads too
+                assert plan.rows in (64, 128) and 2 <= plan.stages <= 8
+                assert plan.smem == ip._list_smem(elt, d, k, plan.stages, plan.rows)
+                # the same bytes as the layout written out
+                stage = -(-(-(-d * elt // 128) * plan.rows * 128 + 12 * plan.rows) // 1024) * 1024
+                r128 = lambda x: -(-x // 128) * 128  # noqa: E731
+                assert plan.smem == (1024 + plan.stages * stage + r128(-(-d * elt // 32) * 32)
+                                     + r128(64 * k) + r128(8 * k) + 128 + 64 + 128)
+                # one more stage would not fit the block's share of the SM
+                share = min(232_448, 233_472 // plan.per_sm - 1024)
+                assert plan.stages == 8 or plan.smem + (plan.smem - ip._list_smem(
+                    elt, d, k, plan.stages - 1, plan.rows)) > share
+
+
+def test_one_query_fills_the_card():
+    """At one query and nprobe 64 one block a list is 64 blocks for 132
+    SMs: the plan splits each list, and keeps whole int8 buckets in flight."""
+    for dtype in (torch.int8, torch.bfloat16):
+        plan = ip._list_plan(1, 64, 3968, 384, dtype, 40, SMS)
+        assert plan.split >= 2 and plan.blocks <= SMS and plan.per_sm == 1
+        assert plan.rows == 128                   # fewer, larger stages
+    plan = ip._list_plan(1, 64, 3968, 384, torch.int8, 40, SMS)
+    assert (plan.stages - 1) * 128 * 384 >= 98_304
+    assert ip._list_plan(3, 64, 3968, 384, torch.int8, 40, SMS).split == 2
+
+
+def test_list_plan_rejects_what_cannot_fit():
+    with pytest.raises(ValueError):
+        ip._list_plan(1, 64, 3968, 8192, torch.bfloat16, 128, SMS)
+
+
+def _list_inputs(seed: int, cap: int, dtype: torch.dtype, d: int = 32, nlist: int = 6):
+    """Lists with an exact tie across the boundary of every split's first
+    two ranges (slots 100 and 130: buckets 0 and 1), an all-PAD list, an
+    all-PAD bucket and a tail past the fill, and tags for the filters."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((nlist, cap, d)).astype(np.float32)
+    x[1, 130] = x[1, 100]
+    q = rng.standard_normal((3, d)).astype(np.float32)
+    q[0] = x[1, 100]
+    ns = rng.integers(0, 3, (nlist, cap)).astype(np.int32)
+    canon = rng.integers(0, 2, (nlist, cap)).astype(np.int32)
+    ns[2] = PAD_TAG                                        # every slot PAD
+    ns[3, 128:256] = PAD_TAG                               # a range that is all PAD
+    ns[4, cap // 2:] = PAD_TAG                             # a tail past the fill
+    ns[1, [100, 130]], canon[1, [100, 130]] = 1, 0
+    scale = (rng.random((nlist, cap)).astype(np.float32) + 0.5)
+    scale[1, 130] = scale[1, 100]
+    if dtype == torch.int8:
+        xt = torch.from_numpy(np.clip(np.round(x * 40), -127, 127).astype(np.int8))
+        qt = torch.from_numpy(np.clip(np.round(q * 40), -127, 127).astype(np.int8))
+    else:
+        xt, qt = torch.from_numpy(x).to(dtype), torch.from_numpy(q).to(dtype)
+        scale = np.ones_like(scale)
+    lists = torch.tensor([[1, 2, 3, 4], [0, 1, 5, 2], [4, 3, 1, 0]])
+    return qt, lists, xt, torch.from_numpy(scale), torch.from_numpy(ns), torch.from_numpy(canon)
+
+
+def _place(parts: list[list[tuple[float, int]]], k: int) -> list[tuple[float, int]]:
+    """The kernel's exact merge of sorted lists: each real entry goes to its
+    index plus the number of entries of the other lists better than it."""
+    better = lambda a, b: a[0] > b[0] or (a[0] == b[0] and a[1] < b[1])  # noqa: E731
+    out = [(-math.inf, -1)] * k
+    for pi, part in enumerate(parts):
+        for i, e in enumerate(part):
+            pos = i + sum(sum(better(o, e) for o in other)
+                          for oi, other in enumerate(parts) if oi != pi)
+            if pos < k:
+                out[pos] = e
+    return out
+
+
+def _split_emulation(args, want_ns: int, want_canon: int, k: int, split: int, rows: int):
+    """Kernel #6 as probe_split_kernel computes it, in Python: per range of
+    the plan, each warp's top k of its 16-row tiles (in the order (score
+    desc, slot asc)), placed into the block's top k, placed into the list's."""
+    q, lists, x, scale, ns, canon = args
+    cap = x.shape[1]
+    s = torch.einsum("qd,qpcd->qpc", q.float(), x[lists].float())
+    if x.dtype == torch.int8:
+        s = s * scale[lists]
+    ok = ns[lists] != PAD_TAG
+    if want_ns >= 0:
+        ok &= ns[lists] == want_ns
+    if want_canon >= 0:
+        ok &= canon[lists] == want_canon
+    s = torch.where(ok, s, torch.full_like(s, -math.inf))
+    key = lambda e: (-e[0], e[1])  # noqa: E731
+    out_sc = torch.empty(lists.shape + (k,))
+    out_id = torch.empty(lists.shape + (k,), dtype=torch.int32)
+    for qi in range(lists.shape[0]):
+        for p in range(lists.shape[1]):
+            blocks = []
+            for begin, end in ip._list_ranges(cap, split):
+                warps = [[] for _ in range(rows // 16)]
+                for slot in range(begin, end):
+                    v = float(s[qi, p, slot])
+                    if v > -math.inf:
+                        warps[((slot - begin) % rows) // 16].append((v, slot))
+                warp_lists = [sorted(w, key=key)[:k] for w in warps]
+                blocks.append([e for e in _place(warp_lists, k) if e[0] > -math.inf])
+            merged = _place(blocks, k)
+            out_sc[qi, p] = torch.tensor([e[0] for e in merged])
+            out_id[qi, p] = torch.tensor([e[1] for e in merged], dtype=torch.int32)
+    return out_sc, out_id
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("cap,split,rows", [(1000, 8, 128), (1000, 3, 64), (384, 2, 128),
+                                            (384, 1, 64)])
+@pytest.mark.parametrize("wants", [(-1, -1), (1, 0)], ids=["nofilter", "filtered"])
+def test_split_and_merge_equals_the_plain_probe(dtype, cap, split, rows, wants):
+    args = _list_inputs(7, cap, dtype)
+    for k in (1, 40, 128):
+        want_sc, want_id = ip._probe_list_plain(*args, *wants, k)
+        got_sc, got_id = _split_emulation(args, *wants, k, split, rows)
+        assert torch.equal(got_id, want_id)
+        assert torch.equal(got_sc, want_sc)
+        # the tie across the first range boundary: query 0, list 1 (probe 0)
+        assert want_id[0, 0, :2].tolist() == [100, 130][:min(k, 2)]
+        assert (want_id[0, 1] == -1).all() and torch.isneginf(want_sc[0, 1]).all()  # all PAD

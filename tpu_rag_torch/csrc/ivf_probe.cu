@@ -16,9 +16,39 @@
 // What bounds them on the H100: bytes.
 //   #6 reads Q * nprobe lists of cap x d (a list probed by two queries is
 //      read twice); at one query it is a matrix-vector product, ~2 operations
-//      a byte.  One block per (query, probe) walks its list 128 slots at a
-//      time through scan_tile.cuh's scoring step (staged 128 bytes deep,
-//      WMMA); warp 0 keeps the sorted top-k list of topk.cu's exact scan.
+//      a byte.  bf16 and int8 lists (probe_split_kernel):
+//      - each (query, probe) list split into `split` contiguous 128-aligned
+//        slot ranges, one block each, the blocks of a list one thread-block
+//        cluster (ops/ivf_probe.py::_list_plan picks split, ring depth and
+//        stage rows so the grid fills the SMs: at one query and nprobe 64,
+//        one block a list would leave half of 132 SMs idle);
+//      - a ring of 2-8 stages of 128 rows (64 where two 128-row stages do
+//        not fit the block's share of the SM), filled by a producer warp:
+//        the TMA unit loads the rows from the tensor map over all the
+//        lists' rows (a box at a list's tail reads the next list's rows,
+//        masked as slot >= cap) and one bulk copy each brings ns, canon and
+//        scale, all on the stage's `full` mbarrier; each consumer warp
+//        releases a stage on its `empty` mbarrier once its product is done,
+//        and the producer refills it then;
+//      - mma.sync with the rows on M (16 a warp) and the query in every
+//        column of an n8 tile (7 of 8 columns repeat it: bytes set the pace);
+//      - #1's selection: every warp keeps its own sorted top-k list of its
+//        rows; a lane's score, masked and scaled in registers, is a
+//        candidate only if it beats the list's k-th entry, and a warp merges
+//        only when some lane has one (warp_merge, select.cuh); a score
+//        below the least of the warps' published ceil(k / warps)-th scores,
+//        a lower bound of the block's k-th, is no candidate, so the warps
+//        insert about the block's candidates, not eight times as many.  No
+//        block barrier stands in the walk, so a warp's merge overlaps the
+//        other warps' products and the refills;
+//      - an exact merge: each entry of a warp's list goes to its place among
+//        the block's (its index plus the better entries of the other lists,
+//        by binary search), then, after a cluster barrier, among the
+//        cluster's the same way through distributed shared memory, each
+//        block writing its own winners.  Slots are unique and the ranges in
+//        slot order, so this is the top k of the whole list, ties included.
+//      f32 lists keep probe_list_kernel: one block per (query, probe) through
+//      scan_tile.cuh's f32 scoring step, warp 0 inserting every slot.
 //   #7 reads each list of the union once for the whole batch: 2.7 GB at 64
 //      queries over the ivf-4M lists, ~2 operations a byte per query, so even
 //      at 64 queries bytes bound it (int8: ~175 operations a byte, the card
@@ -64,6 +94,7 @@
 //      of buckets, query chunk) through scan_tile.cuh's scoring step, each
 //      warp selecting for its queries with m rounds of a warp arg-max.
 
+#include <cooperative_groups.h>
 #include <cuda.h>
 #include <dlfcn.h>
 #include <limits.h>
@@ -73,14 +104,16 @@
 
 #include "mma_sm90.cuh"
 #include "scan_tile.cuh"
+#include "select.cuh"
 
+namespace cg = cooperative_groups;
 using namespace tr_mma;
 using namespace tr_tile;
 
 namespace {
 
 constexpr int kPadTag = INT_MIN;
-constexpr int kOneQ = 16;   // #6 stages its one query as a 16-row WMMA tile
+constexpr int kOneQ = 16;   // f32 #6 stages its one query as a 16-row tile
 
 struct ProbeSmem { size_t q, x, s, m, l, total; };
 
@@ -97,53 +130,40 @@ __host__ __device__ inline ProbeSmem probe_smem(int kind, int elt, int d, int qc
   return o;
 }
 
-// Tag mask and row scale of the kSub slots [slot0, slot0 + kSub) of a list
-// whose first slot is `base`; slots at or past `cap` are masked.
-template <bool kInt8>
-__device__ inline void slot_mask(const float* __restrict__ scale, const int* __restrict__ ns,
-                                 const int* __restrict__ canon, size_t base, int slot0,
-                                 int cap, int want_ns, int want_canon, int* okS, float* rsS) {
+// Tag mask of the kSub slots [slot0, slot0 + kSub) of a list whose first
+// slot is `base`; slots at or past `cap` are masked.
+__device__ inline void slot_mask(const int* __restrict__ ns, const int* __restrict__ canon,
+                                 size_t base, int slot0, int cap, int want_ns, int want_canon,
+                                 int* okS) {
   for (int r = threadIdx.x; r < kSub; r += kThreads) {
     const int slot = slot0 + r;
     int ok = 0;
-    float rs = 0.f;
     if (slot < cap) {
       const int t = ns[base + slot], c = canon[base + slot];
       ok = t != kPadTag && (want_ns < 0 || t == want_ns) && (want_canon < 0 || c == want_canon);
-      if constexpr (kInt8) rs = scale[base + slot];
     }
     okS[r] = ok;
-    rsS[r] = rs;
   }
 }
 
 // Masked score of staged slot r for query row qi of the score tile.
-template <bool kInt8>
-__device__ inline float masked_score(const void* S, const int* okS, const float* rsS, int qi,
-                                     int r) {
-  if (!okS[r]) return -INFINITY;
-  if constexpr (kInt8) {
-    return float(static_cast<const int*>(S)[qi * kSub + r]) * rsS[r];
-  } else {
-    return static_cast<const float*>(S)[qi * kSub + r];
-  }
+__device__ inline float masked_score(const float* S, const int* okS, int qi, int r) {
+  return okS[r] ? S[qi * kSub + r] : -INFINITY;
 }
 
-template <typename T>
+// #6 on f32 lists: one block per (query, probe) walks its list kSub slots at
+// a time through the scoring step; warp 0 inserts every slot.
 __global__ void __launch_bounds__(kThreads)
-probe_list_kernel(const T* __restrict__ q, const int* __restrict__ lists,
-                  const T* __restrict__ vec, const float* __restrict__ scale,
-                  const int* __restrict__ ns, const int* __restrict__ canon, int nprobe,
-                  int cap, int d, int want_ns, int want_canon, int k,
-                  float* __restrict__ out_sc, int* __restrict__ out_id) {
-  constexpr bool kInt8 = std::is_same<T, int8_t>::value;
+probe_list_kernel(const float* __restrict__ q, const int* __restrict__ lists,
+                  const float* __restrict__ vec, const int* __restrict__ ns,
+                  const int* __restrict__ canon, int nprobe, int cap, int d, int want_ns,
+                  int want_canon, int k, float* __restrict__ out_sc, int* __restrict__ out_id) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const ProbeSmem lay = probe_smem(0, sizeof(T), d, kOneQ, k);
-  T* Qs = reinterpret_cast<T*>(smem + lay.q);
-  T* Xs = reinterpret_cast<T*>(smem + lay.x);
-  void* S = smem + lay.s;
+  const ProbeSmem lay = probe_smem(0, 4, d, kOneQ, k);
+  float* Qs = reinterpret_cast<float*>(smem + lay.q);
+  float* Xs = reinterpret_cast<float*>(smem + lay.x);
+  float* S = reinterpret_cast<float*>(smem + lay.s);
   int* okS = reinterpret_cast<int*>(smem + lay.m);
-  float* rsS = reinterpret_cast<float*>(smem + lay.m) + kSub;
   float* Lsc = reinterpret_cast<float*>(smem + lay.l);
   int* Lid = reinterpret_cast<int*>(Lsc + k);
 
@@ -157,14 +177,14 @@ probe_list_kernel(const T* __restrict__ q, const int* __restrict__ lists,
   }
   for (int slot0 = 0; slot0 < cap; slot0 += kSub) {
     __syncthreads();  // the previous step's readers are done
-    slot_mask<kInt8>(scale, ns, canon, base, slot0, cap, want_ns, want_canon, okS, rsS);
+    slot_mask(ns, canon, base, slot0, cap, want_ns, want_canon, okS);
     score_step(vec + (base + slot0) * d, cap - slot0, d, kOneQ, Qs, Xs, S);
     __syncthreads();
     if (warp == 0) {
 #pragma unroll
       for (int h = 0; h < kSub / 32; ++h) {
         const int r = h * 32 + lane;
-        warp_insert(Lsc, Lid, k, masked_score<kInt8>(S, okS, rsS, 0, r), slot0 + r);
+        warp_insert(Lsc, Lid, k, masked_score(S, okS, 0, r), slot0 + r);
       }
     }
   }
@@ -176,22 +196,21 @@ probe_list_kernel(const T* __restrict__ q, const int* __restrict__ lists,
   }
 }
 
-template <typename T>
+// #7 on f32 lists: one block per (union slot, run of buckets, query chunk)
+// through the scoring step, each warp selecting for its queries with m
+// rounds of a warp arg-max.
 __global__ void __launch_bounds__(kThreads)
-batched_bucket_kernel(const T* __restrict__ q, const int* __restrict__ uniq,
-                      const int* __restrict__ n_uniq, const T* __restrict__ vec,
-                      const float* __restrict__ scale, const int* __restrict__ ns,
-                      const int* __restrict__ canon, int nq, int cap, int d, int want_ns,
-                      int want_canon, int qc, int m, int bpb, float* __restrict__ out_sc,
-                      int* __restrict__ out_id) {
-  constexpr bool kInt8 = std::is_same<T, int8_t>::value;
+batched_bucket_kernel(const float* __restrict__ q, const int* __restrict__ uniq,
+                      const int* __restrict__ n_uniq, const float* __restrict__ vec,
+                      const int* __restrict__ ns, const int* __restrict__ canon, int nq,
+                      int cap, int d, int want_ns, int want_canon, int qc, int m, int bpb,
+                      float* __restrict__ out_sc, int* __restrict__ out_id) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const ProbeSmem lay = probe_smem(1, sizeof(T), d, qc, 0);
-  T* Qs = reinterpret_cast<T*>(smem + lay.q);
-  T* Xs = reinterpret_cast<T*>(smem + lay.x);
-  void* S = smem + lay.s;
+  const ProbeSmem lay = probe_smem(1, 4, d, qc, 0);
+  float* Qs = reinterpret_cast<float*>(smem + lay.q);
+  float* Xs = reinterpret_cast<float*>(smem + lay.x);
+  float* S = reinterpret_cast<float*>(smem + lay.s);
   int* okS = reinterpret_cast<int*>(smem + lay.m);
-  float* rsS = reinterpret_cast<float*>(smem + lay.m) + kSub;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int u = blockIdx.x;
@@ -214,13 +233,13 @@ batched_bucket_kernel(const T* __restrict__ q, const int* __restrict__ uniq,
   for (int b = b_begin; b < b_end; ++b) {
     const int slot0 = b * kSub;
     __syncthreads();  // the previous step's readers are done
-    slot_mask<kInt8>(scale, ns, canon, base, slot0, cap, want_ns, want_canon, okS, rsS);
+    slot_mask(ns, canon, base, slot0, cap, want_ns, want_canon, okS);
     score_step(vec + (base + slot0) * d, kSub, d, qc, Qs, Xs, S);
     __syncthreads();
     for (int qi = warp; qi < nql; qi += kWarps) {
       float v[kSub / 32];
 #pragma unroll
-      for (int h = 0; h < kSub / 32; ++h) v[h] = masked_score<kInt8>(S, okS, rsS, qi, h * 32 + lane);
+      for (int h = 0; h < kSub / 32; ++h) v[h] = masked_score(S, okS, qi, h * 32 + lane);
       const size_t o = (size_t(u) * nq + q0 + qi) * cols + b;
       for (int p = 0; p < m; ++p) {
         float best = -INFINITY;
@@ -316,10 +335,6 @@ __host__ __device__ inline int bucket_rows(int elt, int d, int qc) {
   const size_t fixed = bucket_smem(elt, d, qc, 0, 128).total;
   const size_t stage = bucket_smem(elt, d, qc, 1, 128).total - fixed;
   return fixed < kSmemMax && (kSmemMax - fixed) / stage >= 3 ? 128 : 64;
-}
-
-__device__ inline bool better(float s, int r, float s2, int r2) {
-  return s > s2 || (s == s2 && r < r2);
 }
 
 __device__ inline void swap_if_better(float& s, int& r, float& s2, int& r2) {
@@ -841,6 +856,304 @@ int launch_bucket_qc(int qc, int rows, int m, const BucketArgs& a) {
   return int(cudaErrorInvalidValue);
 }
 
+// ---- #6 on bf16 and int8 lists: the split list probe
+constexpr int kListWarps = 8;                     // consumer warps
+constexpr int kListThreads = 32 * (kListWarps + 1);  // and the producer warp
+constexpr int kMaxSplit = 8;                      // blocks of one list: a cluster
+constexpr int kListMapWords = kMaxK / 32;         // warp_merge's bit map (k <= 128)
+
+// Shared-memory layout of probe_split_kernel (mirrored by ops/ivf_probe.py's
+// _list_smem), from a 1024-byte aligned base (1024 bytes of slack): `stages`
+// ring stages, each `boxes` blocks of `rows` rows x 128 bytes (the tensor
+// map's swizzled boxes) and the rows' ns, canon and scale, rounded up to
+// 1024 bytes; the query (d * elt bytes rounded up to the 32-byte MMA step);
+// the 8 warps' sorted lists (k scores, then k slots, a warp); the block's
+// merged list; the warps' bit maps of warp_merge; the warps' published
+// scores (below); two mbarriers per possible stage (its rows landed; its
+// consumers are done with it).
+struct ListSmem {
+  int kbytes, boxes;
+  size_t meta, stage, q, lists, cta, bmap, pub, bar, total;
+};
+
+__host__ __device__ inline ListSmem list_smem(int elt, int d, int k, int stages, int rows) {
+  ListSmem o;
+  o.kbytes = (d * elt + 31) / 32 * 32;
+  o.boxes = (d * elt + 127) / 128;
+  o.meta = size_t(o.boxes) * rows * 128;                   // within a stage
+  o.stage = align1024(o.meta + 3 * size_t(rows) * 4);
+  o.q = size_t(stages) * o.stage;
+  o.lists = o.q + tr_align128(o.kbytes);
+  o.cta = o.lists + tr_align128(size_t(kListWarps) * k * 8);
+  o.bmap = o.cta + tr_align128(size_t(k) * 8);
+  o.pub = o.bmap + size_t(kListWarps) * kListMapWords * 4;
+  o.bar = o.pub + 64;
+  o.total = 1024 + o.bar + 2 * size_t(kMaxStages) * 8;
+  return o;
+}
+
+// Grid: `split` blocks for each (query, probe) list, a cluster of `split`,
+// block rank r walking the list's slots from 128 * (nb r / split) to 128 *
+// (nb (r + 1) / split) (nb = ceil(cap / 128); the last range ends at cap).
+template <typename T, int kRows>
+__global__ void __launch_bounds__(kListThreads)
+probe_split_kernel(const T* __restrict__ q, const int* __restrict__ lists,
+                   const float* __restrict__ scale, const int* __restrict__ ns,
+                   const int* __restrict__ canon, const __grid_constant__ CUtensorMap rows_map,
+                   int nprobe, int cap, int d, int want_ns, int want_canon, int k, int stages,
+                   int split, float* __restrict__ out_sc, int* __restrict__ out_id) {
+  constexpr bool kInt8 = std::is_same<T, int8_t>::value;
+  constexpr int kTags = kInt8 ? 3 : 2;                // ns, canon (, scale) a stage
+  constexpr int kMmaWarps = kRows / 16;               // a warp's m16 tile of a stage
+  using Acc = typename std::conditional<kInt8, int, float>::type;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);  // swizzle unit
+  const ListSmem lay = list_smem(sizeof(T), d, k, stages, kRows);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = int(cluster.block_rank());
+  const unsigned char* Qs = smem + lay.q;
+  float* wls = reinterpret_cast<float*>(smem + lay.lists);  // [warp][2 k]: scores, slots
+  float* cta_s = reinterpret_cast<float*>(smem + lay.cta);
+  int* cta_r = reinterpret_cast<int*>(cta_s + k);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.bar);  // a stage landed
+  uint64_t* empty = full + kMaxStages;                            // its consumers are done
+  volatile float* pub = reinterpret_cast<volatile float*>(smem + lay.pub);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int qp = blockIdx.x / split;                  // query * nprobe + probe
+  float* Ls = wls + size_t(warp) * 2 * k;             // this warp's list
+  int* Li = reinterpret_cast<int*>(Ls + k);
+  unsigned* bm = reinterpret_cast<unsigned*>(smem + lay.bmap) + warp * kListMapWords;
+  const int nb = (cap + kSub - 1) / kSub;
+  const int s_begin = kSub * (nb * rank / split);
+  const int s_end = min(cap, kSub * (nb * (rank + 1) / split));
+  const int ntiles = (s_end - s_begin + kRows - 1) / kRows;
+  const long long base = (long long)__ldg(lists + qp) * cap;  // the list's first row
+  const int row_bytes = d * int(sizeof(T));
+
+  // the query (zero past d), empty lists, clear bit maps, the barriers
+  for (int c = tid * 16; c < lay.kbytes; c += kListThreads * 16) {
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (c < row_bytes)
+      v = *reinterpret_cast<const uint4*>(reinterpret_cast<const unsigned char*>(q) +
+                                          size_t(qp / nprobe) * row_bytes + c);
+    *reinterpret_cast<uint4*>(smem + lay.q + c) = v;
+  }
+  for (int i = tid; i < kListWarps * k; i += kListThreads) {
+    float* l = wls + size_t(i / k) * 2 * k;
+    l[i % k] = -INFINITY;
+    reinterpret_cast<int*>(l + k)[i % k] = INT_MAX;
+  }
+  for (int i = tid; i < kListWarps * kListMapWords; i += kListThreads)
+    reinterpret_cast<unsigned*>(smem + lay.bmap)[i] = 0u;
+  if (tid < kListWarps) pub[tid] = -INFINITY;
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kMmaWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == kListWarps) {
+    // the producer warp: tile -> stage tile % stages once the stage's
+    // consumers released it; the rows' 128-byte column blocks by one
+    // tensor-map box each from lanes 0, 1, ... (a box past the list's tail
+    // reads the next list's rows, masked below as slot >= cap; past the
+    // last list the TMA fills zeros), the ns, canon and scale of the tile's
+    // slots below cap by one bulk copy each from the next lanes; lane 0
+    // announces all the bytes on the stage's barrier
+    for (int tile = 0; tile < ntiles; ++tile) {
+      const int stg = tile % stages;
+      if (tile >= stages) mbar_wait(empty + stg, (tile / stages - 1) & 1);
+      unsigned char* st = smem + size_t(stg) * lay.stage;
+      const int slot0 = s_begin + tile * kRows;
+      const int nvalid = min(kRows, cap - slot0);     // cap % 4 == 0: whole 16 bytes
+      const long long row0 = base + slot0;
+      if (lane == 0)
+        mbar_arrive_expect_tx(full + stg,
+                              uint32_t(lay.boxes * kRows * 128 + kTags * nvalid * 4));
+      if (lane < lay.boxes) {
+        fence_proxy_async();  // after the consumers' reads of the stage
+        tensor_g2s_2d(st + lane * kRows * 128, &rows_map, lane * 128, int(row0), full + stg);
+      } else if (lane < lay.boxes + kTags) {
+        const int a = lane - lay.boxes;
+        const void* src = a == 0 ? static_cast<const void*>(ns + row0)
+                        : a == 1 ? static_cast<const void*>(canon + row0)
+                                 : static_cast<const void*>(scale + row0);
+        fence_proxy_async();
+        bulk_g2s(st + lay.meta + a * kRows * 4, src, uint32_t(nvalid * 4), full + stg);
+      }
+    }
+  } else if (warp < kMmaWarps) {
+    // consumer warp w multiplies rows [16 w, 16 w + 16) of each stage by the
+    // query, which fills every column of the n8 tile, so each lane's c0 and
+    // c2 are the scores of rows g and g + 8; lanes t = 0 and 1 take one
+    // each.  It releases the stage once its product is done, so its merge
+    // overlaps the refill and the other warps' work.
+    const int lr = warp * 16 + g + ((t & 1) << 3);
+    const unsigned char* arow = smem + size_t(warp * 16 + (lane & 15)) * 128;
+    const int kq = (k + kMmaWarps - 1) / kMmaWarps;
+    for (int it = 0; it < ntiles; ++it) {
+      const int stg = it % stages;
+      mbar_wait(full + stg, (it / stages) & 1);
+      const size_t st = size_t(stg) * lay.stage;
+      const int* meta = reinterpret_cast<const int*>(smem + st + lay.meta);
+      const int slot = s_begin + it * kRows + lr;
+      bool ok = t < 2 && slot < cap;
+      float rs = 1.f;
+      if (ok) {
+        const int tg = meta[lr], c = meta[kRows + lr];
+        ok = tg != kPadTag && (want_ns < 0 || tg == want_ns) &&
+             (want_canon < 0 || c == want_canon);
+        if constexpr (kInt8) rs = __int_as_float(meta[2 * kRows + lr]);
+      }
+      // row r of a stage at r * 128 in each 128-byte block; its 16-byte
+      // chunk j at (j ^ (r & 7)) * 16, and r & 7 is lane & 7 for every row
+      // this lane addresses.  The query's fragment is the same for every
+      // column.  A warp whose rows are all masked skips the product.
+      const bool any = __any_sync(kFull, ok);
+      Acc acc[4] = {Acc(0), Acc(0), Acc(0), Acc(0)};
+#pragma unroll 4
+      for (int kb = 0; any && kb < lay.kbytes; kb += 32) {
+        uint32_t a[4];
+        ldsm_x4(a, arow + st + (kb >> 7) * (kRows * 128) +
+                       (((((kb & 127) >> 4) + (lane >> 4)) ^ (lane & 7)) << 4));
+        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(Qs + kb + 4 * t);
+        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(Qs + kb + 16 + 4 * t);
+        if constexpr (kInt8) mma_s8(acc, a, b0, b1);
+        else mma_bf16(acc, a, b0, b1);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + stg);
+      // int8: float(acc) * row scale, the plain version's f32 product
+      // (|acc| < 2^24, exact in f32).  A candidate must beat the warp
+      // list's k-th entry, and only a warp that has one merges
+      // (warp_merge).  Each warp publishes its list's kq-th score (kq =
+      // ceil(k / warps)); the least published score T is a lower bound of
+      // the block's k-th, since every warp holds kq entries at or above
+      // its own (a published score only rises, so a stale one is lower
+      // still).  A score below T is beaten by k entries of the block and
+      // is no candidate: the warps' lists then hold the block's top k
+      // without each warp inserting its own top k.
+      const Acc v = (t & 1) ? acc[2] : acc[0];
+      float s = !ok ? -INFINITY : kInt8 ? float(v) * rs : float(v);
+      float T = pub[0];
+#pragma unroll
+      for (int w = 1; w < kMmaWarps; ++w) T = fminf(T, pub[w]);
+      if (s < T) s = -INFINITY;
+      if (any) {
+        warp_merge(Ls, Li, k, s, slot, bm);
+        if (lane == 0) pub[warp] = Ls[kq - 1];
+      }
+    }
+  }
+
+  // the block's top k: each entry of a warp's list goes to its place among
+  // all the warps' entries (its index plus the entries of the other lists
+  // that are better, by binary search); slots are unique, so the places of
+  // the real entries are distinct
+  __syncthreads();
+  for (int i = tid; i < k; i += kListThreads) {
+    cta_s[i] = -INFINITY;
+    cta_r[i] = INT_MAX;
+  }
+  __syncthreads();
+  for (int e = tid; e < kMmaWarps * k; e += kListThreads) {
+    const int w = e / k, i = e % k;
+    const float* wl = wls + size_t(w) * 2 * k;
+    const float s = wl[i];
+    if (!(s > -INFINITY)) continue;
+    const int r = reinterpret_cast<const int*>(wl + k)[i];
+    int pos = i;
+    for (int w2 = 0; w2 < kMmaWarps && pos < k; ++w2) {
+      const float* ol = wls + size_t(w2) * 2 * k;
+      if (w2 != w) pos += count_better(ol, reinterpret_cast<const int*>(ol + k), k, s, r);
+    }
+    if (pos < k) {
+      cta_s[pos] = s;
+      cta_r[pos] = r;
+    }
+  }
+
+  // the list's top k over the cluster: the same placement through
+  // distributed shared memory, each block writing its own winners; the
+  // ranges are in slot order, so ties across them resolve as in one list
+  cluster.sync();  // every block's list is complete and visible
+  const size_t o = size_t(qp) * k;
+  for (int i = tid; i < k; i += kListThreads) {
+    const float s = cta_s[i];
+    if (!(s > -INFINITY)) break;
+    const int r = cta_r[i];
+    int pos = i;
+    for (int p = 0; p < split && pos < k; ++p)
+      if (p != rank)
+        pos += count_better(cluster.map_shared_rank(cta_s, p), cluster.map_shared_rank(cta_r, p),
+                            k, s, r);
+    if (pos < k) {
+      out_sc[o + pos] = s;
+      out_id[o + pos] = r;
+    }
+  }
+  if (rank == 0) {  // places past the cluster's real entries: -inf / -1
+    int real = 0;
+    for (int p = 0; p < split; ++p)
+      real += count_better(cluster.map_shared_rank(cta_s, p), cluster.map_shared_rank(cta_r, p),
+                           k, -INFINITY, INT_MAX);
+    for (int i = min(real, k) + tid; i < k; i += kListThreads) {
+      out_sc[o + i] = -INFINITY;
+      out_id[o + i] = -1;
+    }
+  }
+  cluster.sync();  // no block leaves while a peer reads its list
+}
+
+struct ListArgs {
+  const void *q, *lists, *scale, *ns, *canon;
+  CUtensorMap rows_map;
+  int nprobe, cap, d, want_ns, want_canon, k, stages, split, blocks;
+  void *out_sc, *out_id;
+  cudaStream_t stream;
+};
+
+// A cluster launch (cudaLaunchKernelEx): a refused one returns its error.
+template <typename T, int R>
+int launch_split(const ListArgs& a) {
+  const size_t smem = list_smem(sizeof(T), a.d, a.k, a.stages, R).total;
+  auto kern = probe_split_kernel<T, R>;
+  if (int e = int(cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       int(smem))))
+    return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.blocks);
+  cfg.blockDim = dim3(kListThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = a.stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = unsigned(a.split);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const T* q = static_cast<const T*>(a.q);
+  const int* lists = static_cast<const int*>(a.lists);
+  const float* scale = static_cast<const float*>(a.scale);
+  const int* ns = static_cast<const int*>(a.ns);
+  const int* canon = static_cast<const int*>(a.canon);
+  CUtensorMap map = a.rows_map;
+  int nprobe = a.nprobe, cap = a.cap, d = a.d, want_ns = a.want_ns, want_canon = a.want_canon;
+  int k = a.k, stages = a.stages, split = a.split;
+  float* out_sc = static_cast<float*>(a.out_sc);
+  int* out_id = static_cast<int*>(a.out_id);
+  void* args[] = {&q, &lists, &scale, &ns, &canon, &map, &nprobe, &cap, &d, &want_ns,
+                  &want_canon, &k, &stages, &split, &out_sc, &out_id};
+  if (int e = int(cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kern), args))) return e;
+  return int(cudaGetLastError());
+}
+
 int elt_of(int dtype) { return dtype == TR_F32 ? 4 : dtype == TR_BF16 ? 2 : 1; }
 
 template <typename K>
@@ -884,13 +1197,17 @@ bool rows_tensor_map(CUtensorMap* map, const void* base, long long rows, int row
 
 }  // namespace
 
-// Shared-memory bytes of one block: kind 0, #6 (a k-long list); kind 1, #7
-// (qc queries): f32 lists batched_bucket_kernel, bf16/int8 lists
-// pipe_bucket_kernel with `stages` ring stages of bucket_rows rows.
-extern "C" size_t tr_probe_smem_bytes(int kind, int dtype, int d, int qc, int k, int stages) {
-  if (kind == 1 && dtype != TR_F32) {
+// Shared-memory bytes of one block: kind 0, #6 (a k-long list): f32 lists
+// probe_list_kernel, bf16/int8 lists probe_split_kernel with `stages` ring
+// stages of `rows` rows; kind 1, #7 (qc queries): f32 lists
+// batched_bucket_kernel, bf16/int8 lists pipe_bucket_kernel with `stages`
+// ring stages of bucket_rows rows.
+extern "C" size_t tr_probe_smem_bytes(int kind, int dtype, int d, int qc, int k, int stages,
+                                      int rows) {
+  if (dtype != TR_F32) {
     const int elt = elt_of(dtype);
-    return bucket_smem(elt, d, qc, stages, bucket_rows(elt, d, qc)).total;
+    return kind == 0 ? list_smem(elt, d, k, stages, rows).total
+                     : bucket_smem(elt, d, qc, stages, bucket_rows(elt, d, qc)).total;
   }
   return probe_smem(kind, elt_of(dtype), d, qc, k).total;
 }
@@ -898,33 +1215,46 @@ extern "C" size_t tr_probe_smem_bytes(int kind, int dtype, int d, int qc, int k,
 // #6: q (nq, d) and vec (nlist, cap, d) share `dtype`; lists (nq * nprobe)
 // int32; scale (nlist, cap) f32 is read for int8 only; ns/canon (nlist, cap)
 // int32.  Out (nq * nprobe, k): each list's top k, sorted, slot -1 for -inf.
+//   bf16/int8 (probe_split_kernel): each list split over `split` (1-8)
+//     blocks, a cluster, of `stages` (2-8) ring stages of `rows` (64 or 128)
+//     rows; cap % 4 == 0 and split <= ceil(cap / 128); q, vec, ns, canon
+//     (and scale for int8) 16-byte aligned (bulk copies).
+//   f32 (probe_list_kernel): one block per list; split, rows, stages ignored.
 extern "C" int tr_probe_list(const void* q, const void* lists, const void* vec,
-                             const void* scale, const void* ns, const void* canon, int nq,
-                             int nprobe, int cap, int d, int want_ns, int want_canon, int k,
-                             int dtype, void* out_sc, void* out_id, void* stream) {
-  if (nq <= 0 || nprobe <= 0 || cap <= 0 || d <= 0 || d % 16 != 0 || k <= 0 || k > kMaxK ||
-      k > cap)
+                             const void* scale, const void* ns, const void* canon, int nlist,
+                             int nq, int nprobe, int cap, int d, int want_ns, int want_canon,
+                             int k, int dtype, int split, int rows, int stages, void* out_sc,
+                             void* out_id, void* stream) {
+  if (nlist <= 0 || nq <= 0 || nprobe <= 0 || cap <= 0 || d <= 0 || d % 16 != 0 || k <= 0 ||
+      k > kMaxK || k > cap)
     return int(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  const size_t smem = probe_smem(0, elt_of(dtype), d, kOneQ, k).total;
-#define TR_PROBE(T)                                                                         \
-  do {                                                                                      \
-    auto kern = probe_list_kernel<T>;                                                       \
-    if (int e = launch_prep(kern, smem)) return e;                                          \
-    kern<<<nq * nprobe, kThreads, smem, s>>>(                                               \
-        static_cast<const T*>(q), static_cast<const int*>(lists), static_cast<const T*>(vec), \
-        static_cast<const float*>(scale), static_cast<const int*>(ns),                     \
-        static_cast<const int*>(canon), nprobe, cap, d, want_ns, want_canon, k,             \
-        static_cast<float*>(out_sc), static_cast<int*>(out_id));                            \
-    return int(cudaGetLastError());                                                         \
-  } while (0)
-  switch (dtype) {
-    case TR_F32: TR_PROBE(float);
-    case TR_BF16: TR_PROBE(__nv_bfloat16);
-    case TR_I8: TR_PROBE(int8_t);
+  if (dtype == TR_BF16 || dtype == TR_I8) {
+    const int elt = elt_of(dtype), nb = (cap + kSub - 1) / kSub;
+    if (cap % 4 != 0 || split < 1 || split > kMaxSplit || split > nb ||
+        (rows != 64 && rows != 128) || stages < 2 || stages > kMaxStages ||
+        (d * elt + 127) / 128 + 3 > 32 ||      // the producer warp's lanes issue the copies
+        (long long)nq * nprobe * split > INT_MAX || !aligned16(q) || !aligned16(vec) ||
+        !aligned16(ns) || !aligned16(canon) || (dtype == TR_I8 && !aligned16(scale)) ||
+        list_smem(elt, d, k, stages, rows).total > kSmemMax)
+      return int(cudaErrorInvalidValue);
+    ListArgs a{q, lists, scale, ns, canon, {}, nprobe, cap, d, want_ns, want_canon, k,
+               stages, split, nq * nprobe * split, out_sc, out_id, s};
+    if (!rows_tensor_map(&a.rows_map, vec, (long long)nlist * cap, d * elt, rows))
+      return int(cudaErrorInvalidValue);
+    if (dtype == TR_BF16)
+      return rows == 128 ? launch_split<__nv_bfloat16, 128>(a) : launch_split<__nv_bfloat16, 64>(a);
+    return rows == 128 ? launch_split<int8_t, 128>(a) : launch_split<int8_t, 64>(a);
   }
-#undef TR_PROBE
-  return int(cudaErrorInvalidValue);
+  if (dtype != TR_F32) return int(cudaErrorInvalidValue);
+  const size_t smem = probe_smem(0, 4, d, kOneQ, k).total;
+  if (int e = launch_prep(probe_list_kernel, smem)) return e;
+  probe_list_kernel<<<nq * nprobe, kThreads, smem, s>>>(
+      static_cast<const float*>(q), static_cast<const int*>(lists),
+      static_cast<const float*>(vec), static_cast<const int*>(ns),
+      static_cast<const int*>(canon), nprobe, cap, d, want_ns, want_canon, k,
+      static_cast<float*>(out_sc), static_cast<int*>(out_id));
+  return int(cudaGetLastError());
 }
 
 // #7: q (nq, d) and vec (nlist, cap, d) share `dtype`; uniq (u_max) int32
@@ -965,13 +1295,11 @@ extern "C" int tr_probe_batched(const void* q, const void* uniq, const void* n_u
   const size_t smem = probe_smem(1, 4, d, qc, 0).total;
   const int bpb = (nb + blocks - 1) / blocks;
   dim3 grid(u_max, (nb + bpb - 1) / bpb, (nq + qc - 1) / qc);
-  auto kern = batched_bucket_kernel<float>;
-  if (int e = launch_prep(kern, smem)) return e;
-  kern<<<grid, kThreads, smem, s>>>(
+  if (int e = launch_prep(batched_bucket_kernel, smem)) return e;
+  batched_bucket_kernel<<<grid, kThreads, smem, s>>>(
       static_cast<const float*>(q), static_cast<const int*>(uniq),
       static_cast<const int*>(n_uniq), static_cast<const float*>(vec),
-      static_cast<const float*>(scale), static_cast<const int*>(ns),
-      static_cast<const int*>(canon), nq, cap, d, want_ns, want_canon, qc, m, bpb,
-      static_cast<float*>(out_sc), static_cast<int*>(out_id));
+      static_cast<const int*>(ns), static_cast<const int*>(canon), nq, cap, d, want_ns,
+      want_canon, qc, m, bpb, static_cast<float*>(out_sc), static_cast<int*>(out_id));
   return int(cudaGetLastError());
 }

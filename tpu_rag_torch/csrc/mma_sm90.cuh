@@ -81,6 +81,11 @@ __device__ inline void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
                : "memory");
 }
 
+// One arrival (no bytes): a consumer's release of what it read.
+__device__ inline void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
 // Waits until the barrier's phase of parity `parity` has completed.
 __device__ inline void mbar_wait(uint64_t* bar, uint32_t parity) {
   asm volatile(

@@ -49,8 +49,8 @@
 //     memory (and its row to its query's bit mask), and only when some
 //     thread found one do the list owners (warp w keeps queries w, w + 8,
 //     ...) merge a mask word's candidates into the list at once
-//     (warp_merge: one pass over the list, where warp_insert takes one
-//     shift per candidate);
+//     (warp_merge, select.cuh: one pass over the list, where warp_insert
+//     takes one shift per candidate);
 //   - bucketed: each warp reduces its 16 rows per query with shuffles, and
 //     one thread per query folds the row tiles of a stage, in row order,
 //     and closes a 128-row bucket at its last row.
@@ -70,6 +70,7 @@
 
 #include "mma_sm90.cuh"
 #include "scan_tile.cuh"
+#include "select.cuh"
 
 using namespace tr_mma;
 using namespace tr_tile;
@@ -289,74 +290,6 @@ __host__ __device__ inline int pipe_rows(int elt, int d, int qc, int k, int mode
   const size_t fit = fixed < size_t(kSmemMax) ? (size_t(kSmemMax) - fixed) / stage : 0;
   const size_t stages = fit < size_t(kMaxStages) ? fit : size_t(kMaxStages);
   return stages >= 2 && (stages - 1) * 128 * d * elt >= 65536 ? 128 : 64;
-}
-
-__device__ inline bool better(float s, int r, float s2, int r2) {
-  return s > s2 || (s == s2 && r < r2);
-}
-
-// One warp merges its lanes' candidates (s, row; s = -inf for none) into a
-// sorted list of k <= 1024 entries (score desc, row asc; empty entries
-// -inf, INT_MAX) in shared memory, all at once.  A candidate's new place is
-// the number of entries (binary search) and of other candidates better than
-// it, marked in the warp's 1024-bit map `bm` (zero on entry and on exit).
-// Then each place from the top down to the best candidate's takes the entry
-// it receives (the place less the candidates placed below it, counted from
-// the map): an entry only ever moves up, so with the chunks of 32 taken
-// from the top no entry is overwritten before it is read.  Whatever lands
-// at k or beyond drops out: the list that inserting the candidates one at a
-// time (warp_insert) gives.
-__device__ inline void warp_merge(float* Ls, int* Li, int k, float s, int row, unsigned* bm) {
-  const int lane = threadIdx.x & 31;
-  const bool real = s > -INFINITY && better(s, row, Ls[k - 1], Li[k - 1]);
-  const unsigned cand = __ballot_sync(kFull, real);
-  if (!cand) return;
-  int rank = 0;  // candidates better than this one
-  for (unsigned m = cand; m; m &= m - 1) {
-    const int src = __ffs(m) - 1;
-    const float cs = __shfl_sync(kFull, s, src);
-    const int cr = __shfl_sync(kFull, row, src);
-    rank += better(cs, cr, s, row);
-  }
-  int pos = k;
-  if (real) {
-    int lo = 0, hi = k - 1;  // entries [0, lo) are better; entry k - 1 is not
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (better(Ls[mid], Li[mid], s, row)) lo = mid + 1;
-      else hi = mid;
-    }
-    pos = lo + rank;
-    if (pos < k) atomicOr(bm + (pos >> 5), 1u << (pos & 31));
-  }
-  const int pmin = __reduce_min_sync(kFull, pos);
-  int below = __popc(__ballot_sync(kFull, pos < k));  // candidates placed under the chunk
-  __syncwarp();
-  for (int w = (k - 1) >> 5; w >= (pmin >> 5) && pmin < k; --w) {
-    const unsigned bits = bm[w];
-    below -= __popc(bits);
-    const int o = (w << 5) + lane;
-    const bool from_list = o < k && !((bits >> lane) & 1u);
-    const int j = o - below - __popc(bits & ((1u << lane) - 1u));
-    float es = 0.f;
-    int ei = 0;
-    if (from_list) {
-      es = Ls[j];
-      ei = Li[j];
-    }
-    __syncwarp();
-    if (from_list) {
-      Ls[o] = es;
-      Li[o] = ei;
-    }
-    __syncwarp();
-  }
-  if (pos < k) {
-    Ls[pos] = s;
-    Li[pos] = row;
-    bm[pos >> 5] = 0u;
-  }
-  __syncwarp();
 }
 
 template <typename T, int kMode, int NT, int kRows>

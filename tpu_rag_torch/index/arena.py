@@ -151,21 +151,25 @@ class VectorArena:
                    chunk_rows: int = _COPY_CHUNK_ROWS) -> int:
         """Stream selected rows (default: all) to `path` as row-major f32,
         RAM bounded by one chunk.  Returns the row count written."""
+        # the lock only pins the view: appends land past its rows, and a
+        # migration or remap copies into a new buffer while this view keeps
+        # the old one, so the write needs no lock (a save must not hold up
+        # the appends of the adds that go on meanwhile)
         with self._lock:
             src = self.view
-            with open(path, "wb") as f:
-                if rows is None:
-                    # all-rows path: plain slices — no O(n) index array and
-                    # no fancy-indexing copy on the beyond-RAM export path
-                    for i in range(0, self._n, chunk_rows):
-                        np.ascontiguousarray(src[i : i + chunk_rows],
-                                             dtype=np.float32).tofile(f)
-                    return self._n
-                sel = np.asarray(rows)
-                for i in range(0, len(sel), chunk_rows):
-                    np.ascontiguousarray(src[sel[i : i + chunk_rows]],
+        with open(path, "wb") as f:
+            if rows is None:
+                # all-rows path: plain slices — no O(n) index array and
+                # no fancy-indexing copy on the beyond-RAM export path
+                for i in range(0, len(src), chunk_rows):
+                    np.ascontiguousarray(src[i : i + chunk_rows],
                                          dtype=np.float32).tofile(f)
-            return len(sel)
+                return len(src)
+            sel = np.asarray(rows)
+            for i in range(0, len(sel), chunk_rows):
+                np.ascontiguousarray(src[sel[i : i + chunk_rows]],
+                                     dtype=np.float32).tofile(f)
+        return len(sel)
 
     def flush(self) -> None:
         with self._lock:

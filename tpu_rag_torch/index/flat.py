@@ -198,6 +198,9 @@ class FlatIndex:
         self.stream_upload_chunk = 131_072          # rows per streamed chunk
         # guards host-side state and snapshot swaps across concurrent requests
         self._lock = threading.RLock()
+        # serializes store saves of this index (store.save_index), which
+        # hold _lock only while they pin what they write
+        self._save_lock = threading.Lock()
 
     # Tag/liveness views: writable numpy views of the live prefix.  Bulk
     # replacement goes through _replace_tag_rows (one atomic length update);

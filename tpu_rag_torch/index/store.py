@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import json
 import os
+import time
 from pathlib import Path
 
 import numpy as np
@@ -33,6 +34,7 @@ from tpu_rag_torch.index.flat import FlatIndex
 from tpu_rag_torch.index.ivf import IVFIndex
 
 MANIFEST = "manifest.json"
+_YIELD_ROWS = 64       # rows of the row files a save writes between two yields
 
 
 def iter_store_ids(ids_file: Path):
@@ -50,50 +52,71 @@ def iter_store_ids(ids_file: Path):
 
 
 def save_index(index: FlatIndex, path: str | Path) -> None:
+    """Write `index` to `path` as the snapshot of one instant.
+
+    The index lock is held only while the save pins what it reads: the live
+    row set, the arena generation and the row-store generation (a vacuum
+    swaps in fresh ones; rows are never moved within one).  The vector file
+    and the row files are then written from that pin with the lock released,
+    so searches and adds go on meanwhile.  Rows added or killed during the
+    write belong to the next save.  Everything streams: vectors from the
+    arena chunk by chunk, ids/meta/docs from the row store batch by batch."""
     p = Path(path)
     p.mkdir(parents=True, exist_ok=True)
-    # Hold the index lock across the vector write AND the row-store walk so
-    # both see the same live set.  Everything streams: vectors from the
-    # arena chunk by chunk, ids/meta/docs from the row store batch by batch
-    # — RAM stays bounded even for disk-backed beyond-RAM masters.
-    with index._lock:
-        live = np.flatnonzero(index._alive)
+    with index._save_lock:               # saves of one index share the temp name
+        with index._lock:
+            live = np.flatnonzero(index._alive)
+            arena, rowmeta = index._arena, index._rowmeta
+            n_rows = len(rowmeta)
+            manifest = {
+                "format_version": 2,
+                "kind": index.kind,
+                "dim": index.dim,
+                "dtype": index.dtype_config,  # "auto" persists unresolved
+                "metric": index.metric,
+                "count": None,                # the rows written, below
+                "files": {"vectors": "vectors.f32", "ids": "ids.jsonl",
+                          "meta": "meta.jsonl", "docs": "docs.jsonl"},
+            }
+            centroids = None
+            if isinstance(index, IVFIndex):
+                manifest["ivf"] = {"nlist": index.nlist, "nprobe": index.nprobe}
+                centroids = index._cached_centroids    # replaced, never mutated
+                trained_n = int(index._centroids_trained_n)
         # write to a temp name + rename: the arena may have ADOPTED a
         # read-only memmap of this very vectors.f32 (zero-copy load) —
         # opening it "wb" in place would truncate the pages the write loop
         # is about to read (SIGBUS + a destroyed store).  The rename keeps
         # the old inode alive for any live memmap.
         tmp = p / "vectors.f32.tmp"
-        count = index._arena.write_rows(tmp, rows=live)
+        manifest["count"] = arena.write_rows(tmp, rows=live)
         os.replace(tmp, p / "vectors.f32")
+        alive = np.zeros(n_rows, bool)
+        alive[live] = True
         # ids as jsonl (format v2): the loader streams all three row files
         # line by line — no 100M-entry list materializes on open
         with open(p / "ids.jsonl", "w", encoding="utf-8") as f_ids, \
                 open(p / "meta.jsonl", "w", encoding="utf-8") as f_meta, \
                 open(p / "docs.jsonl", "w", encoding="utf-8") as f_docs:
-            for rid, doc, meta in index.iter_live_rows():
-                f_ids.write(json.dumps(rid, ensure_ascii=False) + "\n")
-                f_meta.write(json.dumps(meta, ensure_ascii=False) + "\n")
-                f_docs.write(json.dumps(doc, ensure_ascii=False) + "\n")
-    manifest = {
-        "format_version": 2,
-        "kind": index.kind,
-        "dim": index.dim,
-        "dtype": index.dtype_config,  # "auto" persists unresolved
-        "metric": index.metric,
-        "count": count,
-        "files": {"vectors": "vectors.f32", "ids": "ids.jsonl",
-                  "meta": "meta.jsonl", "docs": "docs.jsonl"},
-    }
-    if isinstance(index, IVFIndex):
-        manifest["ivf"] = {"nlist": index.nlist, "nprobe": index.nprobe}
-        if index._cached_centroids is not None:
-            index._cached_centroids.astype(np.float32).tofile(p / "centroids.f32")
+            for row, rid, doc, meta in rowmeta.iter_rows():
+                if row >= n_rows:
+                    break
+                if alive[row]:
+                    f_ids.write(json.dumps(rid, ensure_ascii=False) + "\n")
+                    f_meta.write(json.dumps(meta, ensure_ascii=False) + "\n")
+                    f_docs.write(json.dumps(doc, ensure_ascii=False) + "\n")
+                if row % _YIELD_ROWS == _YIELD_ROWS - 1:
+                    # this loop is pure Python: unless it yields, a search
+                    # thread gets the interpreter back only once a switch
+                    # interval (5 ms), and a search needs it many times
+                    time.sleep(0)
+        if centroids is not None:
+            centroids.astype(np.float32).tofile(p / "centroids.f32")
             manifest["ivf"]["centroids"] = "centroids.f32"
-            manifest["ivf"]["centroids_shape"] = list(index._cached_centroids.shape)
-            manifest["ivf"]["trained_n"] = int(index._centroids_trained_n)
-    # Write manifest last: its presence marks a complete snapshot.
-    (p / MANIFEST).write_text(json.dumps(manifest, indent=2), encoding="utf-8")
+            manifest["ivf"]["centroids_shape"] = list(centroids.shape)
+            manifest["ivf"]["trained_n"] = trained_n
+        # Write manifest last: its presence marks a complete snapshot.
+        (p / MANIFEST).write_text(json.dumps(manifest, indent=2), encoding="utf-8")
 
 
 def load_index(path: str | Path, **overrides) -> FlatIndex:

@@ -5,11 +5,13 @@ Two entry points with the JAX functions' signatures and return contracts:
 - `ivf_probe_pallas`, the per-list probe: each query takes its nprobe
   nearest centroids (f32 matmul, ties to the lowest centroid), and kernel #6
   (csrc/ivf_probe.cu) selects the exact top k_eff = min(k, cap) slots of
-  each probed list, ties to the lowest slot.  The merge over the nprobe *
-  k_eff candidates is torch, as the JAX package merges outside Pallas: a
-  stable sort over candidates laid out probe-major, rank-minor, which equals
-  the reference's lax.top_k over the flat scores.  Returns (Q, min(k,
-  nprobe * k_eff)) scores and rows.
+  each probed list, ties to the lowest slot.  On bf16/int8 lists each list
+  is split over a cluster of blocks as _list_plan lays it out; the blocks'
+  sorted partial lists merge exactly in distributed shared memory.  The
+  merge over the nprobe * k_eff candidates is torch, as the JAX package
+  merges outside Pallas: a stable sort over candidates laid out
+  probe-major, rank-minor, which equals the reference's lax.top_k over the
+  flat scores.  Returns (Q, min(k, nprobe * k_eff)) scores and rows.
 - `ivf_probe_batched`, the batch-shared probe: the lists the whole batch
   probes are deduplicated, and kernel #7 scores each list of that union once
   against every query, keeping each query's top m (`bucket_m`) slots of
@@ -41,6 +43,7 @@ JAX module:
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple
 
@@ -133,7 +136,7 @@ def _probe_batched_plain(q_in, uniq, n_uniq, vec_lists, scale_lists, ns_lists,
 
 # ------------------------------------------------------------ CUDA kernels
 
-_LIST_ARGS = [_build.P] * 6 + [_build.I] * 8 + [_build.P] * 3
+_LIST_ARGS = [_build.P] * 6 + [_build.I] * 12 + [_build.P] * 3
 _BATCHED_ARGS = [_build.P] * 7 + [_build.I] * 12 + [_build.P] * 3
 _BUCKET_WARPS = 8
 _BUCKET_STAGES_MAX = 8
@@ -141,12 +144,14 @@ _BUCKET_M_MAX = 4
 _BUCKET_QREG_BYTES = 384  # int8 query rows up to this many bytes stay in registers
 
 
-def _smem_bytes(kind: int, code: int, d: int, qc: int, k: int, stages: int = 0) -> int:
-    """csrc/ivf_probe.cu's tr_probe_smem_bytes: a block's shared memory."""
+def _smem_bytes(kind: int, code: int, d: int, qc: int, k: int, stages: int = 0,
+                rows: int = 0) -> int:
+    """csrc/ivf_probe.cu's tr_probe_smem_bytes: a block's shared memory
+    (`rows`: the stage rows of #6 on bf16/int8 lists)."""
     fn = _build.load("ivf_probe").tr_probe_smem_bytes
-    fn.argtypes = [_build.I] * 6
+    fn.argtypes = [_build.I] * 7
     fn.restype = ctypes.c_size_t
-    return int(fn(kind, code, d, qc, k, stages))
+    return int(fn(kind, code, d, qc, k, stages, rows))
 
 
 class BucketPlan(NamedTuple):
@@ -251,6 +256,91 @@ def _bucket_plan(u_max: int, nb: int, nq: int, d: int, dtype: torch.dtype,
                       fixed + stages * stage)
 
 
+# ---- kernel #6's launch plan (probe_split_kernel, bf16/int8 lists)
+
+_LIST_WARPS = 8
+_LIST_SPLIT_MAX = 8        # blocks of one list: a thread-block cluster
+_LIST_STAGES_MAX = 8
+_LIST_PER_SM_MAX = 7       # blocks an SM holds: 2,048 threads over 288 (8 consumer warps + 1)
+_LIST_MAP_WORDS = K_EFF_MAX // 32
+_SM_SMEM = 233_472         # shared memory of one H100 SM; a resident block reserves 1 KB
+
+
+class ListPlan(NamedTuple):
+    """Launch geometry of kernel #6 on bf16/int8 lists: each (query, probe)
+    list split over `split` blocks (one cluster) walking _list_ranges, a
+    ring of `stages` stages of `rows` rows (128 or 64), `blocks` blocks in
+    all, `per_sm` of them resident on an SM at once, `smem` bytes of shared
+    memory a block."""
+    split: int
+    rows: int
+    stages: int
+    blocks: int
+    per_sm: int
+    smem: int
+
+
+def _list_smem(elt: int, d: int, k: int, stages: int, rows: int) -> int:
+    """Shared-memory bytes of probe_split_kernel (list_smem): 1024 bytes of
+    slack to align the base to the swizzle unit, `stages` stages of `rows`
+    rows stored as 128-byte column blocks with their ns, canon and scale,
+    each rounded up to 1024 bytes, the query, the 8 warps' sorted lists and
+    the block's merged list (k scores and k slots each), warp_merge's bit
+    maps, the warps' published scores and two mbarriers per possible stage
+    (full, empty)."""
+    stage = _round_up(-(-d * elt // 128) * rows * 128 + 3 * rows * 4, 1024)
+    return (1024 + stages * stage + _round_up(_round_up(d * elt, 32), 128)
+            + _round_up(_LIST_WARPS * k * 8, 128) + _round_up(k * 8, 128)
+            + _LIST_WARPS * _LIST_MAP_WORDS * 4 + 64 + 2 * _LIST_STAGES_MAX * 8)
+
+
+def _list_ranges(cap: int, split: int) -> list[tuple[int, int]]:
+    """The slot range [begin, end) of each block of a list, as
+    probe_split_kernel computes it: whole 128-slot buckets, nb * r // split
+    of nb = ceil(cap / 128), the last range ending at cap."""
+    nb = -(-cap // BUCKET)
+    return [(min(cap, BUCKET * (nb * r // split)), min(cap, BUCKET * (nb * (r + 1) // split)))
+            for r in range(split)]
+
+
+@functools.lru_cache(maxsize=256)
+def _list_plan(nq: int, nprobe: int, cap: int, d: int, dtype: torch.dtype, k: int,
+               sms: int) -> ListPlan:
+    """Launch geometry of kernel #6 on bf16/int8 lists, a pure function of
+    the shapes.
+
+    The split (1-8 blocks a list, at most one a bucket) minimises the
+    buckets the busiest SM walks, ceil(lists * split / sms) blocks of
+    ceil(nb / split) buckets each, ties to the smaller split: at one query
+    and nprobe 64 that is 2 (128 blocks on 132 SMs, where 64 would leave
+    half the card idle), at three queries 2 (384 blocks, 94% of the even
+    share).  Then as many of the SM's blocks as fit with two stages stay
+    resident at once (at most 7), and each takes as many stages of
+    128 rows as its share of the SM's shared memory holds where two fit,
+    else of 64 rows: a stage costs the consumer warps a wait, a product
+    and a merge, so fewer, larger stages win (bf16 at one query: two
+    128-row stages 0.077 ms, four 64-row 0.083 ms of device time, NVIDIA
+    H100 80GB HBM3 at 700 W, probe_sweep.py --list)."""
+    elt = _ELT[dtype]
+    nb = -(-cap // BUCKET)
+    n_lists = nq * nprobe
+
+    def busiest(split):
+        return -(-n_lists * split // sms) * -(-nb // split)
+
+    split = min(range(1, min(_LIST_SPLIT_MAX, nb) + 1), key=lambda s_: (busiest(s_), s_))
+    blocks = n_lists * split
+    for per_sm in range(min(-(-blocks // sms), _LIST_PER_SM_MAX), 0, -1):
+        budget = min(_SMEM_MAX, _SM_SMEM // per_sm - 1024)
+        rows = 128 if _list_smem(elt, d, k, 2, 128) <= budget else 64
+        fixed = _list_smem(elt, d, k, 0, rows)
+        stage = _list_smem(elt, d, k, 1, rows) - fixed
+        stages = min(_LIST_STAGES_MAX, max(0, budget - fixed) // stage)
+        if stages >= 2:
+            return ListPlan(split, rows, stages, blocks, per_sm, fixed + stages * stage)
+    raise ValueError(f"per-list probe does not fit shared memory at d={d}, k={k}")
+
+
 def _check_lists(q_in, vec_lists, scale_lists, ns_lists, canon_lists) -> int:
     """Validate the common inputs of both kernels; returns the dtype code."""
     nlist, cap, d = vec_lists.shape
@@ -274,15 +364,33 @@ def _check_lists(q_in, vec_lists, scale_lists, ns_lists, canon_lists) -> int:
 
 def _probe_list_cuda(q_in, lists, vec_lists, scale_lists, ns_lists, canon_lists,
                      want_ns: int, want_canon: int, k_eff: int):
-    """Launch kernel #6: one block per (query, probe)."""
+    """Launch kernel #6: on bf16/int8 lists as _list_plan lays it out, on
+    f32 lists one block per (query, probe)."""
     code = _check_lists(q_in, vec_lists, scale_lists, ns_lists, canon_lists)
     nlist, cap, d = vec_lists.shape
     nq, nprobe = lists.shape
     if not 0 < k_eff <= min(K_EFF_MAX, cap):
         raise ValueError(f"the per-list probe selects 1 <= k <= min({K_EFF_MAX}, cap), "
                          f"got {k_eff}")
-    if _smem_bytes(0, code, d, 16, k_eff) > _SMEM_MAX:
-        raise ValueError(f"per-list probe does not fit shared memory at d={d}")
+    split = rows = stages = 0
+    if vec_lists.dtype == torch.float32:
+        if _smem_bytes(0, code, d, 16, k_eff) > _SMEM_MAX:
+            raise ValueError(f"per-list probe does not fit shared memory at d={d}")
+    else:
+        if cap % 4:
+            raise ValueError(f"the bf16/int8 per-list probe copies tags in 16-byte units "
+                             f"and needs cap % 4 == 0, got cap={cap}")
+        bulk = [("queries", q_in), ("vec_lists", vec_lists), ("ns_lists", ns_lists),
+                ("canon_lists", canon_lists)]
+        if vec_lists.dtype == torch.int8:
+            bulk.append(("scale_lists", scale_lists))
+        for name, t in bulk:
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name}: the bf16/int8 per-list probe copies by TMA "
+                                 f"and needs 16-byte aligned tensors")
+        plan = _list_plan(nq, nprobe, cap, d, vec_lists.dtype, k_eff,
+                          _sm_count(vec_lists.device))
+        split, rows, stages = plan.split, plan.rows, plan.stages
     lists32 = lists.to(device=vec_lists.device, dtype=torch.int32).contiguous()
     out_sc = torch.empty((nq * nprobe, k_eff), dtype=torch.float32, device=vec_lists.device)
     out_id = torch.empty((nq * nprobe, k_eff), dtype=torch.int32, device=vec_lists.device)
@@ -291,8 +399,8 @@ def _probe_list_cuda(q_in, lists, vec_lists, scale_lists, ns_lists, canon_lists,
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q_in.data_ptr(), lists32.data_ptr(), vec_lists.data_ptr(),
                  scale_lists.data_ptr(), ns_lists.data_ptr(), canon_lists.data_ptr(),
-                 nq, nprobe, cap, d, int(want_ns), int(want_canon), k_eff, code,
-                 out_sc.data_ptr(), out_id.data_ptr(), stream)
+                 nlist, nq, nprobe, cap, d, int(want_ns), int(want_canon), k_eff, code,
+                 split, rows, stages, out_sc.data_ptr(), out_id.data_ptr(), stream)
     _build.check(err, "tr_probe_list", "ivf_probe")
     _probe_list_cuda.launches += 1
     return out_sc.view(nq, nprobe, k_eff), out_id.view(nq, nprobe, k_eff)
