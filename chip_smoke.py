@@ -11,9 +11,15 @@ Phases, each printing one JSON line (any failure exits non-zero):
            the main path's shapes, and time kernel, plain version and one
            library call (CUDA events, median);
   serve    a 1,000,000 x 384 flat store (bf16, exact scan) behind the real
-           HTTP server with all-MiniLM-L6-v2 at full width (seeded weights):
-           /docs/save of ~200-token documents, then /search, some of it
-           concurrent; the scan (#1) and attention (#5) counters must rise;
+           HTTP server with all-MiniLM-L6-v2 at full width, its seeded
+           weights written by this script as a HF model.safetensors and
+           loaded through EMBEDDING_WEIGHTS: /docs/save of ~200-token
+           documents, then /search, some of it concurrent; the scan (#1) and
+           attention (#5) counters must rise.  Then /search with rerank: the
+           ms-marco-MiniLM-L-6-v2 geometry (a seeded HF pytorch_model.bin,
+           RERANK_WEIGHTS) over 20 candidates at T 256, logits held against
+           the same checkpoint at f32 on the CPU, one forward profiled; and
+           /compose, /compose_stream and /threads on the extractive backend;
   scale    a 2,000,000-row FlatIndex in auto mode (int8 + bucketed scan, #3)
            searched through FlatIndex.search, recall@10 against f32 exact;
   ivf      a 4,000,000 x 384 IVF store (auto -> int8 lists, nlist 2048, cap
@@ -39,6 +45,7 @@ import json
 import math
 import socket
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -52,6 +59,9 @@ REPO = Path(__file__).resolve().parent
 PEAK_BYTES_S = 3.35e12                        # H100 SXM HBM3
 PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 SEED = 0
+# card (bf16) against CPU (f32) cross-encoder logits: this share of the
+# largest CPU logit's magnitude (or of 1), set before any chip run
+RERANK_LOGIT_TOL = 0.05
 
 
 def emit(obj) -> None:
@@ -319,9 +329,11 @@ def phase_kernels() -> list[dict]:
     torch.cuda.empty_cache()
 
     # ---- #5 attention: B 64, H 12, D 32, bf16, ragged masks, at the
-    # encoder's document buckets T 128, 256 and 512
+    # encoder's document buckets T 128, 256 and 512, and the cross-encoder's
+    # shape (20 rerank candidates -> batch 32, T 256)
     for t in (256, 128, 512):
         rows.append(_attention_row(g, 64, t, 12, 32))
+    rows.append(_attention_row(g, 32, 256, 12, 32))
     rows += _probe_kernel_rows(g)
     floats = {**_list_checks(g), **_batched_checks(g), **_probe_float_checks(g)}
     emit({"phase": "kernels", "checked": [r["name"] for r in rows] + list(floats),
@@ -361,6 +373,7 @@ def _attention_row(g, b: int, t: int, h: int, hd: int) -> dict:
             "replaces": "tpu_rag/ops/attention.py:41", "counter": "mha",
             "max_abs_err": err, "all_pad_row_err": pad_err,
             "ms": cuda_ms(lambda: att._fused_mha_cuda(q, k_, v, mask)),
+            "device_ms": kernel_ms(lambda: att._fused_mha_cuda(q, k_, v, mask), "mha_tc_kernel"),
             "plain_ms": cuda_ms(lambda: att.fused_mha_plain(q, k_, v, mask)),
             "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
                 qh, kh, vh, attn_mask=bool_mask)),
@@ -913,23 +926,263 @@ def _vector_ids(engine, texts: list[str], k: int) -> list[list[str]]:
     return [[h["id"] for h in hs] for hs in hits]
 
 
+def _hf_bert_shapes(spec, prefix: str = "") -> dict[str, tuple]:
+    """The state-dict names and shapes of a HF BertModel of `spec` (with its
+    pooler); prefix "bert." gives them inside BertForSequenceClassification."""
+    h, f = spec.hidden, spec.ffn
+    out = {"embeddings.word_embeddings.weight": (spec.vocab_size, h),
+           "embeddings.position_embeddings.weight": (spec.max_len, h),
+           "embeddings.token_type_embeddings.weight": (spec.type_vocab, h),
+           "embeddings.LayerNorm.weight": (h,), "embeddings.LayerNorm.bias": (h,)}
+    for i in range(spec.layers):
+        p = f"encoder.layer.{i}."
+        for name, (o, n) in (("attention.self.query", (h, h)), ("attention.self.key", (h, h)),
+                             ("attention.self.value", (h, h)),
+                             ("attention.output.dense", (h, h)),
+                             ("intermediate.dense", (f, h)), ("output.dense", (h, f))):
+            out[p + name + ".weight"], out[p + name + ".bias"] = (o, n), (o,)
+        for name in ("attention.output.LayerNorm", "output.LayerNorm"):
+            out[p + name + ".weight"], out[p + name + ".bias"] = (h,), (h,)
+    out["pooler.dense.weight"], out["pooler.dense.bias"] = (h, h), (h,)
+    return {prefix + k: v for k, v in out.items()}
+
+
+def _seeded_checkpoint(shapes: dict[str, tuple], seed: int) -> dict:
+    """f32 CPU tensors for `shapes` from a seeded generator: LayerNorm scales
+    near 1, small biases, embeddings and Linear weights with std
+    1/sqrt(width)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    out = {}
+    for name, shape in shapes.items():
+        z = torch.randn(shape, generator=g)
+        if "LayerNorm" in name:
+            out[name] = 1.0 + 0.05 * z if name.endswith("weight") else 0.05 * z
+        elif name.endswith("bias"):
+            out[name] = 0.02 * z
+        else:
+            out[name] = z / math.sqrt(shape[-1])
+    return out
+
+
+def _write_safetensors(path: Path, tensors: dict) -> None:
+    """The safetensors layout, with plain numpy: a little-endian u64 header
+    length, the JSON header (padded with spaces to 8 bytes), the raw bytes."""
+    header, blobs, off = {"__metadata__": {"format": "pt"}}, [], 0
+    for name, t in tensors.items():
+        raw = t.contiguous().numpy().astype("<f4").tobytes()
+        header[name] = {"dtype": "F32", "shape": list(t.shape),
+                        "data_offsets": [off, off + len(raw)]}
+        blobs.append(raw)
+        off += len(raw)
+    hb = json.dumps(header).encode()
+    hb += b" " * (-len(hb) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(hb)))
+        f.write(hb)
+        for raw in blobs:
+            f.write(raw)
+
+
+def _write_checkpoints(work: Path, spec) -> tuple[Path, dict, Path, dict]:
+    """A seeded HF-layout bi-encoder (BertModel) as model.safetensors and a
+    seeded cross-encoder (BertForSequenceClassification, one label: the
+    ms-marco-MiniLM-L-6-v2 geometry) as pytorch_model.bin."""
+    import torch
+
+    bi_dir, ce_dir = work / "bi-encoder", work / "cross-encoder"
+    bi_dir.mkdir()
+    ce_dir.mkdir()
+    bi = _seeded_checkpoint(_hf_bert_shapes(spec), SEED + 1)
+    _write_safetensors(bi_dir / "model.safetensors", bi)
+    ce_shapes = _hf_bert_shapes(spec, "bert.")
+    ce_shapes.update({"classifier.weight": (1, spec.hidden), "classifier.bias": (1,)})
+    ce = _seeded_checkpoint(ce_shapes, SEED + 2)
+    torch.save(ce, ce_dir / "pytorch_model.bin")
+    return bi_dir, bi, ce_dir, ce
+
+
+def _check_loaded(module, written: dict, names: dict[str, str]) -> None:
+    """The module's tensors named in `names` (ours -> checkpoint's) hold the
+    checkpoint's values exactly."""
+    import torch
+
+    sd = module.state_dict()
+    for ours, theirs in names.items():
+        if not torch.equal(sd[ours].cpu(), written[theirs]):
+            raise AssertionError(f"{ours} does not hold the checkpoint's {theirs}")
+
+
+def _sse_events(port: int, body: dict) -> tuple[list[dict], bool]:
+    """POST /compose_stream; its data events, runs of one type joined, and
+    whether the stream ended with `event: done`."""
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/compose_stream",
+                                 data=json.dumps(body).encode(), method="POST",
+                                 headers={"content-type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        frames = r.read().decode()
+    events = []
+    for block in frames.split("\n\n"):
+        if block.startswith("data: "):
+            evt = json.loads(block[6:])
+            if events and evt.get("type") and events[-1].get("type") == evt["type"]:
+                events[-1]["data"] += evt["data"]
+            else:
+                events.append(evt)
+    return events, frames.rstrip().endswith("event: done")
+
+
+def _serve_rerank_compose(cfg, engine, ce_written: dict, queries: list[str],
+                          saved: list[str]) -> tuple[dict, dict[str, int]]:
+    """/search with rerank (the cross-encoder, #5 at B 32, T 256), the
+    card's logits against the same checkpoint at f32 on the CPU, one forward
+    profiled, then /compose, /compose_stream and /threads on the extractive
+    backend.  Counters are zeroed just before and read just after."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from kernel_ab import _profile
+    from tpu_rag_torch.models.biencoder import spec_for_model
+    from tpu_rag_torch.models.crossencoder import CrossEncoder
+    from tpu_rag_torch.models.tokenizer import encode_pair_batch
+
+    r = _http(cfg.port, "POST", "/search", {"query": "warm the reranker", "k": 5,
+                                            "rerank": True})       # builds the CE
+    if r.get("reranked") is not True:
+        raise AssertionError(f"rerank warm-up: {r.get('rerank_error')}")
+    ce = engine.get_cross_encoder()
+    if ce.spec != spec_for_model(cfg.rerank_model) or ce.seq_len != min(256, ce.spec.max_len):
+        raise AssertionError(f"cross-encoder geometry {ce.seq_len} {ce.spec}")
+    last = ce.spec.layers - 1
+    _check_loaded(ce.module, ce_written, {
+        "classifier.weight": "classifier.weight", "pooler.weight": "bert.pooler.dense.weight",
+        "bert.word_embeddings.weight": "bert.embeddings.word_embeddings.weight",
+        "bert.layers.0.intermediate.weight": "bert.encoder.layer.0.intermediate.dense.weight",
+        f"bert.layers.{last}.output_ln.bias": f"bert.encoder.layer.{last}.output.LayerNorm.bias"})
+    forwards = []
+    forward_ids = ce.forward_ids
+
+    def counted(*a):
+        forwards.append(a[0].shape)
+        return forward_ids(*a)
+
+    ce.forward_ids = counted
+    _reset_counters()
+    rerank_ms, lat = [], []
+    for qtext in queries:                                   # a dozen requests
+        t1 = time.perf_counter()
+        r = _http(cfg.port, "POST", "/search", {"query": qtext, "k": 5, "rerank": True})
+        lat.append((time.perf_counter() - t1) * 1e3)
+        if r.get("reranked") is not True or "rerank_error" in r:
+            raise AssertionError(f"rerank: {r.get('rerank_error')}")
+        scores = [h.get("rerank_score") for h in r["hits"]]
+        if not (len(scores) == 5 and all(isinstance(v, float) and math.isfinite(v)
+                                         for v in scores)
+                and scores == sorted(scores, reverse=True)):
+            raise AssertionError(f"rerank scores not finite and descending: {scores}")
+        rerank_ms.append(r["timings_ms"]["rerank"])
+    counts = _read_counters()
+    ce.forward_ids = forward_ids
+    if not forwards or counts["mha"] < ce.spec.layers * len(forwards):
+        raise AssertionError(f"{len(forwards)} cross-encoder forwards launched #5 "
+                             f"{counts['mha']} times (at least {ce.spec.layers} each)")
+
+    # the card (bf16) against the same checkpoint at f32 on the CPU: 20
+    # candidates (RERANK_CANDIDATES) of distinct texts, the saved documents
+    # among them
+    query = queries[4]
+    texts = [_doc_text(i) for i in range(4)] + [_doc_text(i)[: 40 * (i % 7 + 1)]
+                                                 for i in range(10, 26)]
+    cands = [{"id": f"c{i}", "text": t, "score": 0.01 * i} for i, t in enumerate(texts)]
+    card = engine.rerank(query, copy.deepcopy(cands))
+    cpu_ce = CrossEncoder(cfg.rerank_model, weights_path=cfg.rerank_weights, device="cpu")
+    cpu = cpu_ce.predict([(query, t) for t in texts])
+    card_of = {h["id"]: h["rerank_score"] for h in card}
+    diff = max(abs(card_of[c["id"]] - float(v)) for c, v in zip(cands, cpu))
+    cpu_order = [cands[i]["id"] for i in np.argsort(-cpu, kind="stable")]
+    moved = sum(a != h["id"] for a, h in zip(cpu_order, card))
+    tol = RERANK_LOGIT_TOL * max(1.0, float(np.abs(cpu).max()))
+    if not diff <= tol:
+        raise AssertionError(f"card logits {diff} from the CPU f32 forward (tolerance {tol})")
+
+    # one forward at the shape /search gives it (20 pairs -> batch 32, T 256)
+    ids, mask, types = encode_pair_batch(ce.tokenizer, [(query, t) for t in texts],
+                                         ce.seq_len, batch=ce.batch)
+    prof = _profile(lambda: ce.forward_ids(ids, mask, types))
+    mha_ms = sum(v for key, v in prof["by_kernel_ms"].items() if "mha_tc_kernel" in key)
+    top = {key[:80]: v for key, v in sorted(prof["by_kernel_ms"].items(),
+                                            key=lambda kv: -kv[1])[:8]}
+
+    # compose on the extractive backend, against the saved documents
+    compose_ms, thread = [], "smoke-thread"
+    for qtext in queries[:4] + queries[4:8]:
+        t1 = time.perf_counter()
+        r = _http(cfg.port, "POST", "/compose", {"query": qtext, "k": 5, "language": "en",
+                                                 "namespace": "smoke", "thread_id": thread})
+        compose_ms.append((time.perf_counter() - t1) * 1e3)
+        cited = [c["id"] for c in r["citations"]]
+        if not (r.get("draft") and r.get("engine") == "extractive" and cited
+                and set(cited) <= set(saved) and f"[{cited[0]}]" in r["draft"]):
+            raise AssertionError(f"/compose: {r}")
+    events, done = _sse_events(cfg.port, {"query": queries[1], "k": 5, "language": "en",
+                                          "namespace": "smoke", "thread_id": "smoke-sse"})
+    text = "".join(e["data"] for e in events if e.get("type") == "text")
+    tail = [e for e in events if "citations" in e]
+    if not (done and text and tail and tail[0]["citations"]
+            and {c["id"] for c in tail[0]["citations"]} <= set(saved)
+            and any(f"[{i}]" in text for i in saved)):
+        raise AssertionError(f"/compose_stream: done={done} events={events[:4]}")
+    threads = {t["thread_id"]: t["count"]
+               for t in _http(cfg.port, "GET", "/threads")["threads"]}
+    if threads.get(thread) != 16 or threads.get("smoke-sse") != 2:
+        raise AssertionError(f"/threads: {threads}")
+    out = {"cross_encoder": {"seq_len": ce.seq_len, "hidden": ce.spec.hidden,
+                             "layers": ce.spec.layers, "heads": ce.spec.heads,
+                             "batch": ce.batch},
+           "requests": len(lat), "search_ms_p50": statistics.median(lat),
+           "rerank_stage_ms": rerank_ms, "rerank_stage_ms_p50": statistics.median(rerank_ms),
+           "ce_forwards": len(forwards), "ce_batch_shapes": sorted({tuple(s) for s in forwards}),
+           "launches": counts,
+           "logits_vs_cpu_f32": {"candidates": len(cands), "max_abs_diff": diff,
+                                 "tolerance": tol, "order_positions_moved": moved},
+           "ce_forward_b32_t256": {"wall_ms": prof["wall_ms"], "device_ms": prof["device_ms"],
+                                   "mha_ms": mha_ms,
+                                   "mha_share": mha_ms / prof["device_ms"],
+                                   "device_idle_share": max(0.0, 1.0 - prof["device_ms"]
+                                                            / prof["wall_ms"]),
+                                   "top_device_ms": top},
+           "compose_ms": compose_ms, "compose_ms_p50": statistics.median(compose_ms),
+           "compose_stream_text_chars": len(text), "threads": threads}
+    del cpu_ce
+    torch.cuda.empty_cache()
+    return out, counts
+
+
 def phase_serve(work: Path) -> dict:
     import torch
 
     from tpu_rag_torch.config import Config
     from tpu_rag_torch.index.flat import FlatIndex
     from tpu_rag_torch.index.store import save_index
+    from tpu_rag_torch.models.biencoder import spec_for_model
     from tpu_rag_torch.utils.metrics import GLOBAL_METRICS
 
     n, d = 1_000_000, 384
     t0 = time.perf_counter()
+    bi_dir, bi_written, ce_dir, ce_written = _write_checkpoints(work, spec_for_model("minilm-l6"))
+    weights_s = time.perf_counter() - t0
     store = FlatIndex(d, dtype="auto", device="cuda")
     store._bulk_adopt_rows(_unit_rows(n, d, SEED), (f"syn-{i}" for i in range(n)),
                            (("", {}) for _ in range(n)), count=n)
     cfg = Config(persist_dir=str(work / "vs"), kb_db_path=str(work / "db" / "kb.sqlite3"),
                  db_path=str(work / "db" / "app.sqlite3"), docs_dir=str(work / "docs"),
                  embedding_model="sentence-transformers/all-MiniLM-L6-v2",
-                 host="127.0.0.1", device="cuda")
+                 embedding_weights=str(bi_dir), rerank_weights=str(ce_dir),
+                 rerank_candidates=20, model_priority=("extractive",),
+                 summarize_mode="off", host="127.0.0.1", device="cuda")
     store_dir = Path(cfg.persist_dir) / cfg.collection_name
     save_index(store, store_dir)
     del store
@@ -953,6 +1206,11 @@ def phase_serve(work: Path) -> dict:
         save_s = time.perf_counter() - t_save
         assert engine.encoder.spec.hidden == 384 and engine.encoder.spec.layers == 6
         assert engine.encoder.spec.heads == 12
+        _check_loaded(engine.encoder.module, bi_written, {
+            "word_embeddings.weight": "embeddings.word_embeddings.weight",
+            "layers.0.attention.query.bias": "encoder.layer.0.attention.self.query.bias",
+            "layers.5.output.weight": "encoder.layer.5.output.dense.weight",
+            "layers.5.output_ln.weight": "encoder.layer.5.output.LayerNorm.weight"})
 
         queries = texts + [f"{w} tale of the {w} keeper" for w in
                            ("harbor", "falcon", "orchard", "winter", "glass", "copper",
@@ -1002,21 +1260,25 @@ def phase_serve(work: Path) -> dict:
         profile = _profile_window(engine, queries[4:])
         exact_top10 = _vector_ids(engine, queries[4:], 10)
         snapshot = dict(engine.index.snapshot_stats)
+        rerank, rerank_counts = _serve_rerank_compose(cfg, engine, ce_written, queries, saved)
     if counts["exact"] < 1 or counts["mha"] < 1:
         raise AssertionError(f"the main path did not launch the kernels: {counts}")
     del app, engine
     torch.cuda.empty_cache()
     packed = _serve_packed(cfg, queries[4:], exact_top10, n + len(texts))
-    out = {"phase": "serve", "rows": n, "store_build_s": build_s,
+    out = {"phase": "serve", "rows": n, "checkpoints_write_s": weights_s,
+           "store_build_s": build_s - weights_s,
            "docs_saved": len(saved), "docs_index_s": save_s, "docs_persisted_s": persisted_s,
            "searches": len(lat), "search_ms_p50": statistics.median(lat) * 1e3,
            "search_ms_max": max(lat) * 1e3, "windows": windows,
            "warm_search_ms": warm, "warm_search_ms_p50": statistics.median(warm),
            "warm_stage_ms_p50": {k: statistics.median(v) for k, v in stages.items()},
            "profile_8q_window": profile, "snapshot": snapshot,
-           "health_device": health["device"], "launches": counts, "packed": packed}
+           "health_device": health["device"], "launches": counts, "packed": packed,
+           "rerank_compose": rerank}
     emit(out)
-    return {name: counts[name] + packed["launches"][name] for name in counts}
+    return {name: counts[name] + packed["launches"][name] + rerank_counts[name]
+            for name in counts}
 
 
 def _serve_packed(cfg, queries: list[str], exact_top10, rows: int) -> dict:

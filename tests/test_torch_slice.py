@@ -1,6 +1,7 @@
 """The ported slice end to end on the CPU: /health, /docs/save (with a long
 document, so the T = 128 bucket runs the fused attention's plain version),
-/search with and without a namespace filter, DELETE /docs/{id}, and the
+/search with and without a namespace filter, DELETE /docs/{id}, /search
+with rerank (the lazily built cross-encoder, at the tiny spec), and the
 same docs and queries through tpu_rag's app with the same (carried-across)
 tiny encoder params, which must return the same documents; then the same
 drive with INDEX_SEARCH_MODE=packed (kernel #2's plain version here, the
@@ -75,6 +76,7 @@ def test_slice_end_to_end_matches_tpu_rag(tmp_path, encoders):
     assert enc.tokenizer.tokenize_ids(DOCS[2]["content"]).__len__() >= 130
     cfg = _paths(tmp_path / "port", Config)
     cfg.device = "cpu"
+    cfg.rerank_model = "tiny"
     engine = RagEngine(cfg, encoder=enc)
     client = TestClient(create_app(cfg, engine=engine))
     try:
@@ -97,7 +99,7 @@ def test_slice_end_to_end_matches_tpu_rag(tmp_path, encoders):
         assert saved[0] not in [h["id"] for h in r["hits"]]
         assert engine.index.count() == 2
         r = client.post("/search", json={"query": "moon", "k": 3, "rerank": True}).json()
-        assert r["reranked"] is False and "not yet ported" in r["rerank_error"]
+        assert r["reranked"] is True and all("rerank_score" in h for h in r["hits"])
     finally:
         engine.shutdown()
 

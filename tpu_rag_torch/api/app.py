@@ -1,7 +1,5 @@
-"""Application factory (port of tpu_rag/api/app.py).
-
-This slice registers the system and kb routes; the chat/compose routes
-(tpu_rag/api/routes/chat.py) wait for the LLM slice.
+"""Application factory (port of tpu_rag/api/app.py): the system, chat
+(threads, /compose, /compose_stream) and kb routes.
 
 The reference builds one FastAPI app with import-time side effects and
 routers importing back from api.app (SURVEY.md §1 flags the circular-import
@@ -14,7 +12,7 @@ from __future__ import annotations
 from pathlib import Path
 
 from tpu_rag_torch.api.asgi import App, HTTPException, Request
-from tpu_rag_torch.api.routes import kb, system
+from tpu_rag_torch.api.routes import chat, kb, system
 from tpu_rag_torch.config import Config
 from tpu_rag_torch.engine import RagEngine
 
@@ -39,6 +37,7 @@ def create_app(config: Config | None = None, engine: RagEngine | None = None,
     app.state = {"engine": engine}
 
     system.register(app, engine)
+    chat.register(app, engine)
     kb.register(app, engine)
 
     web = Path(web_dir) if web_dir else Path(__file__).resolve().parents[2] / "web"

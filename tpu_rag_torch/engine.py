@@ -1,18 +1,23 @@
 """RagEngine: the composition root (port of tpu_rag/engine.py).
 
-Owns the encoder + vector index (flat, or IVF with INDEX_KIND=ivf) + SQLite
-stores and implements the ingest and retrieval flows the HTTP routes call.
-The port carries the /docs/save and /search paths; LLM dispatch, compose,
-the summarizer, the cross-encoder and sharding come in later slices.
+Owns the encoder + cross-encoder + vector index (flat, or IVF with
+INDEX_KIND=ivf) + SQLite stores + LLM dispatcher and implements the ingest,
+retrieval, rerank and compose flows the HTTP routes call.  Sharding is not
+ported.
 
 Errors raised by the kernels or by CUDA are not caught here: they reach the
-client as a 500 instead of an empty answer.
+client as a 500 (or, for rerank, as /search's `rerank_error`) instead of an
+empty answer.  So a cross-encoder that fails to build raises on every
+rerank, where tpu_rag's engine remembers the failure and serves unreranked
+hits from then on.
 """
 
 from __future__ import annotations
 
 import hashlib
+import json
 import logging
+import os
 import threading
 import time
 from collections import OrderedDict
@@ -20,32 +25,52 @@ from pathlib import Path
 
 import numpy as np
 
+from tpu_rag_torch.compose.history import format_history_block, update_thread_summary
+from tpu_rag_torch.compose.language import norm_lang
+from tpu_rag_torch.compose.prompts import prepare_messages
+from tpu_rag_torch.compose.summarize import Summarizer
 from tpu_rag_torch.config import Config
 from tpu_rag_torch.device import resolve
 from tpu_rag_torch.index.flat import FlatIndex
 from tpu_rag_torch.index.ivf import IVFIndex
 from tpu_rag_torch.index.store import MANIFEST, load_index, save_index
 from tpu_rag_torch.ingest.indexer import DocIndexer
+from tpu_rag_torch.llm import LLMDispatcher
 from tpu_rag_torch.memory.db import ConversationDB
 from tpu_rag_torch.retrieval.hybrid import (clamp_k, filter_meta_hits,
                                             mix_with_recency, result_hits,
                                             vector_hits, vector_hits_batch)
+from tpu_rag_torch.retrieval.rerank import rerank_hits
 from tpu_rag_torch.utils.metrics import GLOBAL_METRICS
 from tpu_rag_torch.utils.timing import StageTimings
 
 logger = logging.getLogger(__name__)
 
+# scripts/train_reranker.py labels the rerank.json row of the serving blend
+# f"ensemble_bi+trained_ce(alpha={best_alpha})"
+_SERVING_ROW = "ensemble_bi+trained_ce(alpha="
+
 
 class RagEngine:
     def __init__(self, config: Config | None = None, *,
-                 encoder=None, index=None) -> None:
+                 encoder=None, cross_encoder=None, index=None,
+                 dispatcher=None) -> None:
         self.config = config or Config()
         # before anything else: a CUDA device without a card raises here
         self.device = resolve(self.config.device)
         self.config.ensure_dirs()
 
         self._encoder = encoder
+        self._cross_encoder = cross_encoder
+        self._ce_lock = threading.Lock()
+        self._rerank_gate: str | None = None  # lazy quality-gate verdict
         self.db = ConversationDB(self.config.db_path)
+        self.dispatcher = dispatcher or LLMDispatcher(self.config)
+        self.summarizer = Summarizer(
+            self.generate,
+            default_language=self.config.default_language,
+            mode=self.config.summarize_mode,
+        )
         self.index = index if index is not None else self._load_or_create_index()
         self._index_lock = threading.Lock()
         # query-embedding LRU
@@ -86,8 +111,28 @@ class RagEngine:
             )
         return self._encoder
 
+    def get_cross_encoder(self):
+        """Lazy and lock-guarded; a failure to build raises to the caller
+        (and again on the next call), where tpu_rag's engine logs it and
+        returns None for good."""
+        if self._cross_encoder is None:
+            with self._ce_lock:
+                if self._cross_encoder is None:
+                    from tpu_rag_torch.models.crossencoder import CrossEncoder
+                    cfg = self.config
+                    self._cross_encoder = CrossEncoder(
+                        cfg.rerank_model,
+                        weights_path=cfg.rerank_weights,
+                        tokenizer_path=cfg.tokenizer_path,
+                        device=self.device,
+                    )
+        return self._cross_encoder
+
     def embed(self, texts: list[str]):
         return self.encoder.embed(texts)
+
+    def generate(self, messages, *, stream: bool = False, engine: str | None = None, **kw):
+        return self.dispatcher.generate(messages, stream=stream, engine=engine, **kw)
 
     # ------------------------------------------------------------ index io
 
@@ -273,17 +318,108 @@ class RagEngine:
         return (doc_hits + db_hits)[: max(k, 1)]
 
     def rerank(self, query: str, hits: list[dict]) -> list[dict]:
-        raise NotImplementedError("cross-encoder not yet ported")
+        return rerank_hits(self.get_cross_encoder(), query, hits,
+                           mode=self._gated_rerank_mode(),
+                           alpha=self.config.rerank_ensemble_alpha)
+
+    def _gated_rerank_mode(self) -> str:
+        """Quality gate: a reranker that LOWERS recall must not reorder
+        results.  The trainer writes its held-out eval next to the
+        checkpoint (scripts/train_reranker.py rerank.json); if the row of
+        the blend that serving uses, `ensemble_bi+trained_ce(alpha=X)` with
+        X == RERANK_ENSEMBLE_ALPHA, has recall@10 below the bi-encoder's,
+        ensemble mode demotes to "annotate" (CE scores attached, retriever
+        order kept) with a one-time warning.  No manifest -> trust the
+        operator; no row for the serving alpha -> pass, with a warning
+        naming the missing label.  Divergence: tpu_rag reads the
+        equal-weight row `ensemble_bi+trained_ce`, a blend serving never
+        uses."""
+        mode = self.config.rerank_mode
+        if mode != "ensemble" or not self.config.rerank_weights:
+            return mode
+        if self._rerank_gate is None:
+            self._rerank_gate = self._rerank_gate_verdict()
+        return "annotate" if self._rerank_gate == "demote" else mode
+
+    def _rerank_gate_verdict(self) -> str:
+        alpha = float(self.config.rerank_ensemble_alpha)
+        mpath = os.path.join(os.path.dirname(os.path.abspath(self.config.rerank_weights)),
+                             "rerank.json")
+        if not os.path.exists(mpath):
+            return "pass"
+        try:
+            with open(mpath) as f:
+                rows = json.load(f).get("results", [])
+            by = {r.get("label"): r for r in rows}
+            serving = None
+            for label, row in by.items():
+                if (isinstance(label, str) and label.startswith(_SERVING_ROW)
+                        and label.endswith(")")
+                        and float(label[len(_SERVING_ROW):-1]) == alpha):
+                    serving = row
+        except (OSError, ValueError, AttributeError) as e:
+            logger.warning("rerank quality gate check failed: %s", e)
+            return "pass"
+        if serving is None:
+            logger.warning("rerank quality gate: %s has no row %s%s) for the "
+                           "serving RERANK_ENSEMBLE_ALPHA; passing", mpath,
+                           _SERVING_ROW, alpha)
+            return "pass"
+        bi = (by.get("biencoder_top20_no_rerank") or {}).get("recall@10")
+        ens = serving.get("recall@10")
+        if bi is not None and ens is not None and ens < bi:
+            logger.warning(
+                "rerank quality gate: checkpoint manifest %s shows the serving "
+                "ensemble (alpha=%s) recall@10 %.4f < biencoder %.4f — demoting "
+                "RERANK_MODE=ensemble to annotate (scores attached, retriever "
+                "order kept)", mpath, alpha, ens, bi)
+            return "demote"
+        return "pass"
 
     def recency_mix(self, hits: list[dict]) -> list[dict]:
         return mix_with_recency(hits, alpha=self.config.recency_alpha,
                                 half_life_days=self.config.half_life_days)
 
-    def warmup(self) -> float:
-        """Build the kernels and run one query before serving; returns the
-        seconds spent."""
+    # ------------------------------------------------------------ compose
+
+    def build_compose_context(self, hits: list[dict], thread_id: str,
+                              lang: str | None) -> tuple[str, int]:
+        """history block + summarized RAG context (reference
+        api/routes/chat.py:135-141 combined_ctx assembly)."""
+        history_block = format_history_block(self.db, self.summarizer, thread_id, lang)
+        rag_context, used_hits = self.summarizer.build_context(
+            hits, language=lang, max_chars=self.config.max_context_chars,
+            max_chars_per_chunk=600,
+        )
+        combined = (
+            f"<<<HISTORY_START>>>\n{history_block}\n<<<HISTORY_END>>>\n\n"
+            if history_block else ""
+        ) + rag_context
+        return combined, used_hits
+
+    def prepare_messages(self, query: str, context: str, mode: str,
+                         language: str | None, target_length: str | None = None,
+                         style: dict | None = None):
+        return prepare_messages(query, context, mode, language,
+                                target_length=target_length, style=style,
+                                default_language=self.config.default_language)
+
+    def norm_lang(self, lang: str | None) -> str:
+        return norm_lang(lang, self.config.default_language)
+
+    def update_summary(self, thread_id: str, query: str, draft: str, lang: str | None) -> None:
+        update_thread_summary(self.db, self.summarizer, thread_id, query, draft, lang)
+
+    def new_thread_id(self) -> str:
+        return f"auto-{int(time.time() * 1000)}"
+
+    def warmup(self, *, rerank: bool = False) -> float:
+        """Build the kernels and run one query (and, with rerank, one
+        cross-encoder forward) before serving; returns the seconds spent."""
         t0 = time.time()
         self.query_vector("warmup query", 5, None, None)
+        if rerank:
+            self.rerank("warmup", [{"id": "w", "text": "warmup text"}])
         dt = time.time() - t0
         logger.info("warmup done in %.1fs", dt)
         return dt

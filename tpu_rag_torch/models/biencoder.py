@@ -5,10 +5,13 @@ Texts are tokenized on the host, sorted by length and run in (batch, seq)
 buckets on the device; the attention mask is derived on the device from
 `ids != pad_id`, so only ids are uploaded (int16 when the vocab allows).
 
-Weights: `state_dict` (e.g. `params_from_flax` of a tpu_rag param tree), or
-weights drawn from a torch.Generator seeded by the model name — index-time
-and query-time embeddings agree, which is all retrieval needs.  They are not
-the JAX package's seeded numbers: parity tests carry params across instead.
+Weights: `state_dict` (e.g. `params_from_flax` of a tpu_rag param tree), a
+HF checkpoint at `weights_path` (models/hf_import.py: model.safetensors or
+pytorch_model.bin; an orbax directory raises), or, where neither gives
+weights, weights drawn from a torch.Generator seeded by the model name —
+index-time and query-time embeddings agree, which is all retrieval needs.
+They are not the JAX package's seeded numbers: parity tests carry params
+across instead.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import torch
 
 from tpu_rag_torch.device import compute_dtype, resolve
 from tpu_rag_torch.models.bert import BertEncoder, BertSpec, l2_normalize, mean_pool
+from tpu_rag_torch.models.hf_import import load_bert_params
 from tpu_rag_torch.models.tokenizer import _special_ids, load_tokenizer
 
 MODEL_SPECS: dict[str, BertSpec] = {
@@ -47,22 +51,28 @@ def _seed_from_name(name: str) -> int:
     return int.from_bytes(hashlib.blake2b(name.encode(), digest_size=4).digest(), "little")
 
 
-def init_params(spec: BertSpec, seed: int) -> dict[str, torch.Tensor]:
-    """Seeded random weights on the CPU: LeCun-normal Linear weights
-    (std 1/sqrt(fan_in)), embeddings with std 1/sqrt(hidden), zero biases,
-    unit LayerNorm scales."""
+def seeded_state_dict(module: torch.nn.Module, hidden: int,
+                      seed: int) -> dict[str, torch.Tensor]:
+    """module's state dict refilled with seeded random weights on the CPU:
+    LeCun-normal Linear weights (std 1/sqrt(fan_in)), embeddings with std
+    1/sqrt(hidden), zero biases, unit LayerNorm scales."""
     g = torch.Generator().manual_seed(seed)
-    sd = BertEncoder(spec).state_dict()
+    sd = module.state_dict()
     for name, p in sd.items():
         if name.endswith("_ln.weight"):
             p.fill_(1.0)
         elif name.endswith("bias"):
             p.zero_()
         elif "embeddings" in name:
-            p.copy_(torch.randn(p.shape, generator=g) / spec.hidden ** 0.5)
+            p.copy_(torch.randn(p.shape, generator=g) / hidden ** 0.5)
         else:
             p.copy_(torch.randn(p.shape, generator=g) / p.shape[1] ** 0.5)
     return sd
+
+
+def init_params(spec: BertSpec, seed: int) -> dict[str, torch.Tensor]:
+    """Seeded random BertEncoder weights (seeded_state_dict)."""
+    return seeded_state_dict(BertEncoder(spec), spec.hidden, seed)
 
 
 class BiEncoder:
@@ -83,10 +93,6 @@ class BiEncoder:
         device: str | torch.device = "cuda",
         state_dict: dict[str, torch.Tensor] | None = None,
     ) -> None:
-        if weights_path:
-            raise NotImplementedError(
-                "loading HF / orbax weight files is not yet ported; pass "
-                "state_dict=params_from_flax(tree)")
         self.device = resolve(device)
         self.model_name = model_name
         self.spec = spec or spec_for_model(model_name)
@@ -104,6 +110,8 @@ class BiEncoder:
                              if max(self.spec.vocab_size, tok_vocab) < 2 ** 15
                              else np.int32)
         self.pad_id = _special_ids(self.tokenizer)[2]
+        if state_dict is None and weights_path:
+            state_dict = load_bert_params(weights_path, self.spec)
         self.module = BertEncoder(self.spec, compute_dtype=self.compute_dtype)
         self.module.load_state_dict(
             state_dict if state_dict is not None
