@@ -29,12 +29,25 @@ Phases, each printing one JSON line (any failure exits non-zero):
            rewrites the store), sequential /search (per-list probe #6) and a
            concurrent burst; then 64 perturbed corpus rows searched
            one at a time (#6) and as one batch (batch-shared probe #7),
-           recall@10 against f32 exact, kernels against plain versions.
+           recall@10 against f32 exact, kernels against plain versions;
+  host_ivf a 12,500,000 x 384 HostArenaIVF (int8 lists in host RAM),
+           batches of 8, save and mmap load;
+  train    train_semantic at full width (MiniLM-L6, batch 512, T 128 / 48,
+           bf16), cut to 300 steps over make_corpus's 20,000 docstrings of
+           the installed packages (built beside the kernel build): every
+           step timed by CUDA events, one profiled; the loss must fall and
+           #5 must not launch in training (it has no backward: a call under
+           autograd must raise); the checkpoint (a HF directory) through
+           the labeled eval (trained recall@10 at least seeded + 0.05; its
+           embeds launch #5), the card's embeddings against the CPU's f32
+           forward of the same checkpoint (cosine >= 0.99), then served
+           over HTTP (EMBEDDING_WEIGHTS, TOKENIZER_PATH): 1,000 held-out
+           /docs/save, 32 /search at k 10, #1 and #5 launched.
 
-Then the kernels summary line, the card's name and power limit as nvidia-smi
-reports them, and, last, {"ok": true, "device": {...}}.  Without a CUDA
-device, or without the repository beside this file, it exits non-zero and
-prints no result.
+Then the seconds of each phase, the kernels summary line, the card's name
+and power limit as nvidia-smi reports them, and, last, {"ok": true,
+"device": {...}}.  Without a CUDA device, or without the repository beside
+this file, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -45,7 +58,6 @@ import json
 import math
 import socket
 import statistics
-import struct
 import subprocess
 import sys
 import tempfile
@@ -966,36 +978,19 @@ def _seeded_checkpoint(shapes: dict[str, tuple], seed: int) -> dict:
     return out
 
 
-def _write_safetensors(path: Path, tensors: dict) -> None:
-    """The safetensors layout, with plain numpy: a little-endian u64 header
-    length, the JSON header (padded with spaces to 8 bytes), the raw bytes."""
-    header, blobs, off = {"__metadata__": {"format": "pt"}}, [], 0
-    for name, t in tensors.items():
-        raw = t.contiguous().numpy().astype("<f4").tobytes()
-        header[name] = {"dtype": "F32", "shape": list(t.shape),
-                        "data_offsets": [off, off + len(raw)]}
-        blobs.append(raw)
-        off += len(raw)
-    hb = json.dumps(header).encode()
-    hb += b" " * (-len(hb) % 8)
-    with open(path, "wb") as f:
-        f.write(struct.pack("<Q", len(hb)))
-        f.write(hb)
-        for raw in blobs:
-            f.write(raw)
-
-
 def _write_checkpoints(work: Path, spec) -> tuple[Path, dict, Path, dict]:
     """A seeded HF-layout bi-encoder (BertModel) as model.safetensors and a
     seeded cross-encoder (BertForSequenceClassification, one label: the
     ms-marco-MiniLM-L-6-v2 geometry) as pytorch_model.bin."""
     import torch
 
+    from tpu_rag_torch.models.hf_export import write_safetensors
+
     bi_dir, ce_dir = work / "bi-encoder", work / "cross-encoder"
     bi_dir.mkdir()
     ce_dir.mkdir()
     bi = _seeded_checkpoint(_hf_bert_shapes(spec), SEED + 1)
-    _write_safetensors(bi_dir / "model.safetensors", bi)
+    write_safetensors(bi_dir / "model.safetensors", bi)
     ce_shapes = _hf_bert_shapes(spec, "bert.")
     ce_shapes.update({"classifier.weight": (1, spec.hidden), "classifier.bias": (1,)})
     ce = _seeded_checkpoint(ce_shapes, SEED + 2)
@@ -1484,11 +1479,12 @@ def phase_ivf(work: Path) -> dict:
         if index.device_snapshot()["vec_lists"].shape[1] != geometry["cap"]:
             raise AssertionError("the served lists differ from the built ones")
 
-        # two saves: each rewrites the whole store (persist_index); one
-        # /search once the doc is searchable, while the save may still be
-        # writing the store (the manifest, written last, still counts the
-        # old rows): it must not wait for the save
-        texts = [_doc_text(i) for i in range(2)]
+        # a save rewrites the whole store (persist_index, ~50 s at 4M
+        # rows); one /search once the doc is searchable, while the save may
+        # still be writing the store (the manifest, written last, still
+        # counts the old rows): it must not wait for the save.  One save
+        # (two until the train phase came: the script's time limit)
+        texts = [_doc_text(i) for i in range(1)]
         saved, save_times = [], []
         for i, text in enumerate(texts):
             t1 = time.perf_counter()
@@ -1726,10 +1722,305 @@ def phase_host_ivf(work: Path, n: int = HIVF_ROWS, nlist: int = HIVF_NLIST,
     return counts
 
 
+# train_semantic.py's geometry at full width (MiniLM-L6, batch 512, seq 128,
+# q 48, lr 4e-4, tau 0.05) with two cuts: 300 steps, warmup 30 (its defaults
+# 3000 and 200), over make_corpus's default 20,000 docs of the installed
+# site-packages and stdlib.  The checkpoint is served with 1,000 held-out
+# documents saved one by one: each save rewrites the store, so 1,970 took
+# 127-194 s of the script's time limit
+TRAIN_STEPS, TRAIN_WARMUP, TRAIN_MAX_DOCS = 300, 30, 20_000
+TRAIN_SAVE_DOCS, TRAIN_QUERIES, TRAIN_PROBE_ROWS = 1000, 32, 64
+# the card's bf16 embeddings against the CPU's f32 forward of the same
+# checkpoint: the least per-row cosine, set before any chip run
+TRAIN_EMBED_COS_MIN = 0.99
+
+
+def _train_step_flops(module, batch: int, q_len: int, d_len: int) -> float:
+    """One training step's matmul FLOPs: 6 x non-embedding parameters x
+    tokens (forward and backward), the attention's QK^T and PV (4 T^2 H a
+    sequence a layer, forward and backward: three times), and one more
+    forward of both for remat."""
+    spec = module.spec
+    params = sum(p.numel() for n, p in module.named_parameters()
+                 if not n.endswith("_embeddings.weight"))
+    tokens = batch * (q_len + d_len)
+    attn = spec.layers * batch * 4 * spec.hidden * (q_len ** 2 + d_len ** 2)
+    return 6 * params * tokens + 3 * attn + (2 * params * tokens + attn)
+
+
+_KINDS = (("gemm", ("gemm", "cutlass", "nvjet", "xmma")), ("softmax", ("softmax",)),
+          ("layer_norm", ("layer_norm", "gammabeta")),
+          ("optimizer", ("multi_tensor_apply",)), ("gelu", ("gelu",)),
+          ("where", ("where",)), ("copy", ("copy",)), ("reduce", ("reduce",)))
+
+
+def _kernel_kinds(by_kernel: dict[str, float]) -> dict[str, float]:
+    """Device ms by kind of kernel, from its name (first match of _KINDS;
+    the rest is "other")."""
+    out: dict[str, float] = {}
+    for name, ms in by_kernel.items():
+        low = name.lower()
+        kind = next((k for k, keys in _KINDS if any(x in low for x in keys)), "other")
+        out[kind] = out.get(kind, 0.0) + ms
+    return out
+
+
+def _serve_trained(work: Path, ckpt: str, vocab_path: str, docs: list[dict],
+                   queries: list[dict], device: str) -> dict:
+    """The trained checkpoint behind the real HTTP server (EMBEDDING_WEIGHTS,
+    TOKENIZER_PATH): the server's encoder must hold the checkpoint's values;
+    /docs/save of `docs` (held out from training), then /search of the
+    held-out summaries of `queries` at k 10, each answered with 10 hits.
+    Counters are zeroed as the server starts and read after the searches."""
+    from tpu_rag_torch.config import Config
+    from tpu_rag_torch.models.hf_import import bert_hf_names, read_safetensors
+
+    cfg = Config(persist_dir=str(work / "vs"), kb_db_path=str(work / "db" / "kb.sqlite3"),
+                 db_path=str(work / "db" / "app.sqlite3"), docs_dir=str(work / "docs"),
+                 embedding_weights=ckpt, tokenizer_path=vocab_path,
+                 model_priority=("extractive",), summarize_mode="off", host="127.0.0.1",
+                 device=device)
+    with _served(cfg) as (_app, engine, health):
+        enc = engine.encoder
+        names = bert_hf_names(enc.spec)
+        last = enc.spec.layers - 1
+        _check_loaded(enc.module, read_safetensors(Path(ckpt) / "model.safetensors"), {
+            k: names[k] for k in ("word_embeddings.weight", "position_embeddings.weight",
+                                  "layers.0.attention.key.weight",
+                                  f"layers.{last}.output_ln.bias")})
+        persists = _count_persists(engine)
+        saved = {}
+        t0 = time.perf_counter()
+        for d in docs:
+            # titles repeat across files, and a save replaces the document
+            # of the same title: the corpus id keeps each one its own
+            r = _http(cfg.port, "POST", "/docs/save",
+                      {"title": f"{d['title']} {d['id']}", "content": d["body"],
+                       "metadata": {"namespace": "corpus"}})
+            saved[d["id"]] = r["id"]
+        while engine.index.count() < len(docs) or len(persists) < len(docs):
+            if time.perf_counter() - t0 > 900:
+                raise TimeoutError(f"{engine.index.count()} of {len(docs)} documents "
+                                   f"indexed, {len(persists)} saves persisted")
+            time.sleep(0.2)
+        index_s = persists[-1] - t0
+        lat = []
+        for d in queries:
+            t1 = time.perf_counter()
+            r = _http(cfg.port, "POST", "/search", {"query": d["query"], "k": 10})
+            lat.append((time.perf_counter() - t1) * 1e3)
+            if len(r["hits"]) != 10 or not all(math.isfinite(h["score"]) for h in r["hits"]):
+                raise AssertionError(f"/search {d['query']!r}: {len(r['hits'])} hits")
+        counts = _read_counters()
+        vec = _vector_ids(engine, [d["query"] for d in queries], 10)
+        own = sum(saved[d["id"]] in ids for d, ids in zip(queries, vec))
+        spec = enc.spec
+    return {"docs_saved": len(docs), "docs_indexed_and_persisted_s": index_s,
+            "searches": len(lat), "search_ms": lat, "search_ms_p50": statistics.median(lat),
+            "own_doc_in_vector_top10": own, "encoder": {"hidden": spec.hidden,
+                                                        "layers": spec.layers,
+                                                        "max_len": spec.max_len,
+                                                        "vocab": spec.vocab_size},
+            "health_device": health["device"], "launches": counts}
+
+
+class _CorpusJob:
+    """`python -m tpu_rag_torch.scripts.make_corpus` in a process of its
+    own, started beside the kernel build: it parses the machine's packages
+    on one core for a minute or more.  Leaving the context kills it if it
+    still runs."""
+
+    def __init__(self, work: Path) -> None:
+        self.path = work / "corpus.jsonl"
+        self._t0 = time.perf_counter()
+        self._proc = subprocess.Popen(
+            [sys.executable, "-m", "tpu_rag_torch.scripts.make_corpus", "--out",
+             str(self.path), "--max-docs", str(TRAIN_MAX_DOCS)],
+            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self._done: dict = {}
+        self._waiter = threading.Thread(target=self._wait, daemon=True)
+        self._waiter.start()
+
+    def _wait(self) -> None:
+        self._done["log"] = self._proc.communicate()[0]
+        self._done["s"] = time.perf_counter() - self._t0
+
+    def result(self, timeout: float = 900.0) -> tuple[Path, float, float]:
+        """The corpus path, make_corpus's wall time, and how long the caller
+        waited for it."""
+        t0 = time.perf_counter()
+        self._waiter.join(timeout)
+        if self._waiter.is_alive():
+            raise TimeoutError(f"make_corpus ran past {timeout} s")
+        if self._proc.returncode != 0:
+            raise RuntimeError(f"make_corpus exited {self._proc.returncode}: "
+                               f"{self._done['log'][-2000:]}")
+        print(self._done["log"].strip(), flush=True)
+        return self.path, self._done["s"], time.perf_counter() - t0
+
+    def __enter__(self) -> "_CorpusJob":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._proc.poll() is None:
+            self._proc.kill()
+        self._waiter.join(60)
+
+
+def phase_train(work: Path, corpus_job: _CorpusJob) -> dict:
+    """train_semantic on the card: the corpus (make_corpus, started beside
+    the build), vocab, contrastive training timed step by step (one step
+    profiled), checkpoint, labeled eval, the card against the CPU on the
+    same checkpoint, and the checkpoint served."""
+    import numpy as np
+    import torch
+
+    from kernel_ab import _profile
+    from tpu_rag_torch.models.biencoder import BiEncoder
+    from tpu_rag_torch.models.tokenizer import load_tokenizer
+    from tpu_rag_torch.ops import attention
+    from tpu_rag_torch.scripts import train_semantic as ts
+
+    cuda = torch.device("cuda")
+    corpus, corpus_s, corpus_wait_s = corpus_job.result()
+    out = work / "semantic"
+    args = ts.parse_args(["--corpus", str(corpus), "--out", str(out), "--steps",
+                          str(TRAIN_STEPS), "--warmup", str(TRAIN_WARMUP), "--device", "cuda"])
+    out.mkdir()
+    vocab_path, ckpt = str(out / "vocab.txt"), str(out / "ckpt")
+    docs = ts.load_corpus(args.corpus)
+    train_docs, holdout = ts.split_holdout(docs, args.holdout_frac)
+    t0 = time.perf_counter()
+    vocab = ts.build_vocab(docs, args, vocab_path)
+    vocab_s = time.perf_counter() - t0
+    tok = load_tokenizer(vocab_path, vocab_size=args.vocab_size)
+    spec = ts.semantic_spec(args)
+    t0 = time.perf_counter()
+    sample = ts.batch_sampler(train_docs, tok, args)
+    pretokenize_s = time.perf_counter() - t0
+
+    trainer = ts.make_trainer(args, spec, cuda)
+    flops = _train_step_flops(trainer.module, args.batch, args.q_len, args.seq_len)
+    losses, step_ms, prof = [], [], None
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    t0 = time.perf_counter()
+    while len(losses) < args.steps:
+        if prof is None and len(losses) == args.steps // 2:
+            # a warm-up step and one profiled step, batches drawn beforehand
+            batches = [sample(), sample()]
+            prof = _profile(lambda: losses.append(trainer.train_step(batches.pop(0))), reps=1)
+            continue
+        batch = sample()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        losses.append(trainer.train_step(batch))
+        b.record()
+        b.synchronize()
+        step_ms.append(a.elapsed_time(b))
+    loop_s = time.perf_counter() - t0
+    train_counts = _read_counters()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    if len(losses) != args.steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{len(losses)} losses, not all finite: {losses[:5]}")
+    first, last = statistics.mean(losses[:20]), statistics.mean(losses[-20:])
+    if not last < first:
+        raise AssertionError(f"the loss did not fall: first 20 {first}, last 20 {last}")
+    if any(train_counts.values()):
+        raise AssertionError(f"the training steps launched kernels: {train_counts}")
+    q = torch.randn(8, 128, 12, 32, device=cuda, dtype=torch.bfloat16, requires_grad=True)
+    kv = torch.randn(8, 128, 12, 32, device=cuda, dtype=torch.bfloat16)
+    try:
+        attention.fused_mha(q, kv, kv, torch.ones(8, 128, dtype=torch.int32, device=cuda))
+    except RuntimeError as e:
+        guard = str(e)
+    else:
+        raise AssertionError("fused_mha on a q that requires grad did not raise")
+    if "no backward" not in guard or attention._fused_mha_cuda.launches:
+        raise AssertionError(f"fused_mha under autograd: {guard}")
+    trainer.save(ckpt)
+    del trainer, q, kv
+    torch.cuda.empty_cache()
+
+    _reset_counters()
+    t0 = time.perf_counter()
+    results = ts.evaluate(args, spec, docs, holdout, vocab_path, ckpt, cuda)
+    eval_s = time.perf_counter() - t0
+    eval_counts = _read_counters()
+    ts.write_report(args, spec, docs, holdout, results, ckpt, vocab_path)
+    rows = {r["label"]: r for r in results}
+    trained, seeded = rows["trained_biencoder"], rows["random_weights_round1"]
+    if eval_counts["mha"] < 1:
+        raise AssertionError(f"the eval's embeds did not launch #5: {eval_counts}")
+    if not trained["recall@10"] >= seeded["recall@10"] + 0.05:
+        raise AssertionError(f"trained recall@10 {trained['recall@10']} against seeded "
+                             f"{seeded['recall@10']}")
+
+    # the card (bf16) against the CPU (f32) on the same checkpoint, loaded
+    # without a spec (config.json): held-out queries (T 32-64, plain
+    # attention) and bodies (T 128, #5)
+    probe = holdout[:TRAIN_PROBE_ROWS]
+    encs = {dev: BiEncoder("minilm-l6-corpus", weights_path=ckpt, tokenizer_path=vocab_path,
+                           seq_len=args.seq_len, batch=128, device=dev)
+            for dev in ("cuda", "cpu")}
+    if encs["cuda"].spec != spec or encs["cpu"].spec != spec:
+        raise AssertionError(f"config.json gave {encs['cuda'].spec}, trained {spec}")
+    cos = {}
+    for name, texts in (("queries", [d["query"] for d in probe]),
+                        ("bodies", [d["body"] for d in probe])):
+        card, cpu = encs["cuda"].embed(texts), encs["cpu"].embed(texts)
+        cos[name] = float(np.min(np.sum(card * cpu, axis=1)))
+    if not min(cos.values()) >= TRAIN_EMBED_COS_MIN:
+        raise AssertionError(f"card against CPU cosine {cos} (at least {TRAIN_EMBED_COS_MIN})")
+    del encs
+    torch.cuda.empty_cache()
+
+    serve = _serve_trained(work, ckpt, vocab_path, holdout[:TRAIN_SAVE_DOCS],
+                           holdout[:TRAIN_QUERIES], "cuda")
+    if serve["launches"]["exact"] < 1 or serve["launches"]["mha"] < 1:
+        raise AssertionError(f"serving the trained encoder did not launch #1 and #5: "
+                             f"{serve['launches']}")
+
+    ms = sorted(step_ms)
+    p50, p90 = statistics.median(ms), ms[int(0.9 * (len(ms) - 1))]
+    tokens = args.batch * (args.q_len + args.seq_len)
+    top = sorted(prof["by_kernel_ms"].items(), key=lambda kv: -kv[1])[:10]
+    emit({"phase": "train", "cuts": {"steps": f"{TRAIN_STEPS} of 3000 (warmup "
+                                              f"{TRAIN_WARMUP} of 200)",
+                                     "corpus": f"make_corpus --max-docs {TRAIN_MAX_DOCS}"},
+          "spec": {"hidden": spec.hidden, "layers": spec.layers, "heads": spec.heads,
+                   "ffn": spec.ffn, "vocab": spec.vocab_size, "max_len": spec.max_len},
+          "batch": args.batch, "seq_len": args.seq_len, "q_len": args.q_len,
+          "lr": args.lr, "tau": args.tau, "compute_dtype": "bf16",
+          "corpus_docs": len(docs), "train_docs": len(train_docs), "holdout": len(holdout),
+          "vocab_tokens": len(vocab), "corpus_s": corpus_s,
+          "corpus_wait_s": corpus_wait_s, "vocab_s": vocab_s,
+          "pretokenize_s": pretokenize_s, "steps": len(losses), "timed_steps": len(step_ms),
+          "step_ms_p50": p50, "step_ms_p90": p90, "step_ms_min": ms[0],
+          "loop_s": loop_s, "tokens_per_step": tokens, "tokens_per_s": tokens / (p50 / 1e3),
+          "step_tflop": flops / 1e12,
+          "bf16_peak_share": flops / (p50 / 1e3) / PEAK_OPS_S["bf16"],
+          "peak_mem_gib": peak_gb,
+          "profiled_step": {"wall_ms": prof["wall_ms"], "device_ms": prof["device_ms"],
+                            "device_idle_share": max(0.0, 1.0 - prof["device_ms"]
+                                                     / prof["wall_ms"]),
+                            "spans_ms": prof["spans_ms"],
+                            "by_kind_ms": _kernel_kinds(prof["by_kernel_ms"]),
+                            "top10_device_ms": [[k[:120], v] for k, v in top]},
+          "loss_first": losses[0], "loss_last": losses[-1], "loss_first20_mean": first,
+          "loss_last20_mean": last, "training_launches": train_counts,
+          "grad_guard": guard, "eval": {"seconds": eval_s, "rows": results,
+                                        "launches": eval_counts},
+          "embed_cos_min_card_vs_cpu": cos, "embed_cos_tolerance": TRAIN_EMBED_COS_MIN,
+          "serve": serve})
+    return {name: eval_counts[name] + serve["launches"][name] for name in eval_counts}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,kernels,serve,scale,ivf,host_ivf",
-                    help="comma-separated subset of build,kernels,serve,scale,ivf,host_ivf")
+    ap.add_argument("--phases", default="build,kernels,serve,scale,ivf,host_ivf,train",
+                    help="comma-separated subset of "
+                         "build,kernels,serve,scale,ivf,host_ivf,train")
     args = ap.parse_args()
     phases = args.phases.split(",")
     try:
@@ -1756,20 +2047,30 @@ def main() -> int:
 
     rows, launches = [], {}
     (REPO / "build").mkdir(exist_ok=True)
-    if "build" in phases:
-        phase_build()
-    if "kernels" in phases:
-        rows = phase_kernels()
-    # each phase drives its part of the path with the counters zeroed first;
-    # a kernel's launches are the sum over the phases that ran
-    runs = {"serve": phase_serve, "scale": lambda _work: phase_scale(),
-            "ivf": phase_ivf, "host_ivf": phase_host_ivf}
-    for name, run in runs.items():
-        if name in phases:
-            with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{name}_",
-                                             dir=REPO / "build") as work:
-                for kern, count in run(Path(work)).items():
-                    launches[kern] = launches.get(kern, 0) + count
+    with contextlib.ExitStack() as stack:
+        if "train" in phases:
+            corpus_dir = stack.enter_context(tempfile.TemporaryDirectory(
+                prefix="chip_smoke_corpus_", dir=REPO / "build"))
+            corpus = stack.enter_context(_CorpusJob(Path(corpus_dir)))
+        if "build" in phases:
+            phase_build()
+        if "kernels" in phases:
+            rows = phase_kernels()
+        # each phase drives its part of the path with the counters zeroed
+        # first; a kernel's launches are the sum over the phases that ran
+        runs = {"serve": phase_serve, "scale": lambda _work: phase_scale(),
+                "ivf": phase_ivf, "host_ivf": phase_host_ivf,
+                "train": lambda work: phase_train(work, corpus)}
+        seconds = {}
+        for name, run in runs.items():
+            if name in phases:
+                t0 = time.perf_counter()
+                with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{name}_",
+                                                 dir=REPO / "build") as work:
+                    for kern, count in run(Path(work)).items():
+                        launches[kern] = launches.get(kern, 0) + count
+                seconds[name] = time.perf_counter() - t0
+    emit({"phase_seconds": seconds})
     for r in rows:
         r["launches"] = launches.get(r.pop("counter"))
     emit({"kernels": rows})

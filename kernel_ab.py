@@ -55,8 +55,9 @@ def _ms(fn, iters: int, batch: int) -> float:
 
 def _profile(fn, reps: int = 5) -> dict:
     """torch.profiler over `reps` calls of fn after one warm-up: the wall
-    time and each kernel's device time, per call (ms).  chip_smoke.py's
-    kernel times and its serve window's breakdown come from here too."""
+    time, each kernel's device time and each record_function range's device
+    span, per call (ms).  chip_smoke.py's kernel times and its serve
+    window's and training step's breakdowns come from here too."""
     import time
 
     import torch
@@ -71,16 +72,20 @@ def _profile(fn, reps: int = 5) -> dict:
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / reps
-    by_kernel = {}
+    by_kernel, spans = {}, {}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue                      # host ops; their kernels are listed
         us = getattr(e, "self_device_time_total", None)
         us = e.self_cuda_time_total if us is None else us
         if us > 0:
-            by_kernel[e.key] = us / reps / 1e3
+            # a record_function range (e.g. Optimizer.step) shows on the
+            # device as the span of its kernels, gaps included: kept apart,
+            # or device_ms would count its kernels twice
+            out = spans if getattr(e, "is_user_annotation", False) else by_kernel
+            out[e.key] = us / reps / 1e3
     return {"wall_ms": wall * 1e3, "device_ms": sum(by_kernel.values()),
-            "by_kernel_ms": by_kernel}
+            "by_kernel_ms": by_kernel, "spans_ms": spans}
 
 
 def _both(fn, profile: bool) -> dict:

@@ -1,8 +1,9 @@
 """tpu_rag_torch imports nothing of JAX or of tpu_rag, and needs neither
 requests, transformers nor safetensors (the machine with the card has none
-of them) to import every module and serve /compose on the extractive
-backend and /search with rerank; asking for CUDA without a card raises
-instead of falling back to the CPU."""
+of them) to import every module, serve /compose on the extractive backend
+and /search with rerank, and run `python -m
+tpu_rag_torch.scripts.train_semantic --help`; asking for CUDA without a
+card raises instead of falling back to the CPU."""
 
 import os
 import subprocess
@@ -42,6 +43,13 @@ out = client.post("/search", json={"query": "moon temple", "k": 2, "rerank": Tru
 assert out["reranked"] is True and "rerank_score" in out["hits"][0], out
 client.app.state["engine"].shutdown()
 
+import runpy
+sys.argv = ["train_semantic", "--help"]
+try:
+    runpy.run_module("tpu_rag_torch.scripts.train_semantic", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+
 bad = [k for k, v in sys.modules.items() if v is not None and k.split(".")[0] in %r]
 assert not bad, bad
 print(len(names))
@@ -53,7 +61,8 @@ def test_every_module_imports_with_jax_and_tpu_rag_blocked():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 63   # every module of the package
+    assert "--corpus" in out.stdout          # train_semantic --help ran
+    assert int(out.stdout.strip().splitlines()[-1]) >= 72   # every module of the package
 
 
 def test_cuda_without_a_card_raises(tmp_path):

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from tpu_rag_torch.ops.attention import fused_mha
 
@@ -92,13 +93,19 @@ class BertLayer(nn.Module):
 
 
 class BertEncoder(nn.Module):
-    """Returns final hidden states (B, T, H) in `compute_dtype`."""
+    """Returns final hidden states (B, T, H) in `compute_dtype`.
 
-    def __init__(self, spec: BertSpec, *, flash: bool = True,
+    flash=False keeps the plain attention at every T: the fused kernel has
+    no backward, so training sets it.  remat=True recomputes each layer's
+    activations in the backward pass (torch.utils.checkpoint; the JAX
+    trunk's nn.remat), trading FLOPs for memory; numerics do not change."""
+
+    def __init__(self, spec: BertSpec, *, flash: bool = True, remat: bool = False,
                  compute_dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
         self.spec = spec
         self.flash = flash
+        self.remat = remat
         self.compute_dtype = compute_dtype
         self.word_embeddings = nn.Embedding(spec.vocab_size, spec.hidden)
         self.position_embeddings = nn.Embedding(spec.max_len, spec.hidden)
@@ -120,8 +127,12 @@ class BertEncoder(nn.Module):
         # fused kernel masks keys from the (B, T) mask
         attn_mask = (None if flash else
                      (mask[:, None, None, :] > 0) & (mask[:, None, :, None] > 0))
+        remat = self.remat and torch.is_grad_enabled()
         for layer in self.layers:
-            x = layer(x, mask, attn_mask, flash)
+            if remat:
+                x = checkpoint(layer, x, mask, attn_mask, flash, use_reentrant=False)
+            else:
+                x = layer(x, mask, attn_mask, flash)
         return x
 
 

@@ -7,7 +7,9 @@ buckets on the device; the attention mask is derived on the device from
 
 Weights: `state_dict` (e.g. `params_from_flax` of a tpu_rag param tree), a
 HF checkpoint at `weights_path` (models/hf_import.py: model.safetensors or
-pytorch_model.bin; an orbax directory raises), or, where neither gives
+pytorch_model.bin; an orbax directory raises; without `spec=` a config.json
+beside the weights sets the architecture, as in the checkpoints the port's
+trainer writes), or, where neither gives
 weights, weights drawn from a torch.Generator seeded by the model name —
 index-time and query-time embeddings agree, which is all retrieval needs.
 They are not the JAX package's seeded numbers: parity tests carry params
@@ -24,7 +26,7 @@ import torch
 
 from tpu_rag_torch.device import compute_dtype, resolve
 from tpu_rag_torch.models.bert import BertEncoder, BertSpec, l2_normalize, mean_pool
-from tpu_rag_torch.models.hf_import import load_bert_params
+from tpu_rag_torch.models.hf_import import load_bert_params, spec_from_hf_config
 from tpu_rag_torch.models.tokenizer import _special_ids, load_tokenizer
 
 MODEL_SPECS: dict[str, BertSpec] = {
@@ -95,6 +97,10 @@ class BiEncoder:
     ) -> None:
         self.device = resolve(device)
         self.model_name = model_name
+        if spec is None and weights_path:
+            # a checkpoint with a config.json (HF, or models/hf_export.py)
+            # fixes its own architecture, position table included
+            spec = spec_from_hf_config(weights_path)
         self.spec = spec or spec_for_model(model_name)
         self.batch = batch
         self.compute_dtype = (compute_dtype(self.device) if dtype == "bfloat16"

@@ -96,13 +96,9 @@ def _strip_prefix(sd: dict) -> dict:
     return out
 
 
-def map_bert_state_dict(sd: dict, spec) -> dict[str, torch.Tensor]:
-    """HF BertModel state dict -> state dict of the port's BertEncoder(spec).
-    Raises KeyError for a missing name, ValueError for a shape that does not
-    fit `spec`."""
-    from tpu_rag_torch.models.bert import BertEncoder
-
-    sd = _strip_prefix(sd)
+def bert_hf_names(spec) -> dict[str, str]:
+    """BertEncoder(spec) state-dict name -> HF BertModel name (no "bert."
+    prefix).  models/hf_export.py writes checkpoints through the same map."""
     names = {
         "word_embeddings.weight": "embeddings.word_embeddings.weight",
         "position_embeddings.weight": "embeddings.position_embeddings.weight",
@@ -124,7 +120,16 @@ def map_bert_state_dict(sd: dict, spec) -> dict[str, torch.Tensor]:
         for ours, theirs in hf_layer.items():
             for leaf in ("weight", "bias"):
                 names[f"layers.{i}.{ours}.{leaf}"] = f"encoder.layer.{i}.{theirs}.{leaf}"
-    return _take(sd, names, _shapes(BertEncoder, spec))
+    return names
+
+
+def map_bert_state_dict(sd: dict, spec) -> dict[str, torch.Tensor]:
+    """HF BertModel state dict -> state dict of the port's BertEncoder(spec).
+    Raises KeyError for a missing name, ValueError for a shape that does not
+    fit `spec`."""
+    from tpu_rag_torch.models.bert import BertEncoder
+
+    return _take(_strip_prefix(sd), bert_hf_names(spec), _shapes(BertEncoder, spec))
 
 
 def _shapes(module_cls, spec) -> dict[str, torch.Size]:
@@ -171,6 +176,8 @@ def spec_from_hf_config(path: str | Path):
             heads=int(cfg["num_attention_heads"]),
             ffn=int(cfg["intermediate_size"]),
             max_len=int(cfg.get("max_position_embeddings", 512)),
+            type_vocab=int(cfg.get("type_vocab_size", 2)),
+            ln_eps=float(cfg.get("layer_norm_eps", 1e-12)),
         )
     except (KeyError, ValueError, TypeError):
         return None

@@ -5,7 +5,9 @@ tpu_rag/ops/attention.py).
 head), softmax(Q.K^T / sqrt(D), keys with mask 0 set to -1e30).V with scores
 and softmax in f32 and the output in the input dtype.  Only the key side is
 masked: pad query rows come out as values the callers' masked mean-pool
-drops.  On a CUDA tensor it launches csrc/attention.cu (kernel #5: for
+drops.  Forward only: on the card a q/k/v that requires grad raises (the
+kernel has no backward; training uses the encoder's plain attention).  On a
+CUDA tensor it launches csrc/attention.cu (kernel #5: for
 bf16, Q.K^T and P.V on the tensor cores with the head's K and V in shared
 memory and an online softmax over chunks of 64 keys; f32 on CUDA cores) or
 raises; on a CPU tensor it runs the plain version below, which repeats the
@@ -44,7 +46,14 @@ def fused_mha_plain(q, k, v, mask):
 
 
 def _fused_mha_cuda(q, k, v, mask):
-    """Launch kernel #5 of csrc/attention.cu."""
+    """Launch kernel #5 of csrc/attention.cu.  Forward only: the kernel has
+    no backward (nor has tpu_rag's), so a call that autograd would have to
+    differentiate raises rather than return an output with no gradient."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise RuntimeError(
+            "fused_mha (kernel #5) has no backward: run it under torch.no_grad(), "
+            "or build the encoder with flash=False to train through the plain "
+            "attention")
     b, t, h, d = q.shape
     for name, x in (("k", k), ("v", v)):
         if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:

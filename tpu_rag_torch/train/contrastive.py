@@ -1,0 +1,141 @@
+"""Contrastive (InfoNCE) training of the bi-encoder on one device, port of
+tpu_rag/train/contrastive.py.
+
+- In-batch negatives: logits = q @ d^T / tau with labels on the diagonal,
+  symmetric cross-entropy.
+- `BertEncoder(spec, flash=False, remat=True)` with f32 parameters: the
+  plain attention (kernel #5 has no backward, nor has tpu_rag's Pallas
+  kernel, whose trainer keeps XLA's attention), each layer recomputed in the
+  backward pass; forward in `compute_dtype` (bf16 on the card).
+- `torch.optim.AdamW` at `optax.adamw`'s defaults: betas 0.9/0.999, eps
+  1e-8 and weight decay 1e-4 on every parameter (optax has no mask, so
+  LayerNorm scales and biases decay too).  The schedule's value is written
+  into the lr before each step, the first step at count 0, as optax counts.
+
+tpu_rag shards the batch over a mesh "data" axis and the FFN and heads over
+"model"; the port trains on one device, and a mesh of more than one device
+raises (multi-card DP/TP comes with torch.distributed, ROADMAP.md queue 1
+item 4).  Initial weights are `init_params(spec, seed)`: flax's init cannot
+be redrawn in torch, so parity with tpu_rag starts from shared parameters
+(`params_from_flax` loaded into `trainer.module`).  Checkpoints are HF
+BertModel directories (models/hf_export.py), which `BiEncoder(weights_path=)`
+serves without a spec; tpu_rag writes orbax.
+"""
+
+from __future__ import annotations
+
+import math
+from pathlib import Path
+from typing import Any, Callable
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch.profiler import record_function
+
+from tpu_rag_torch.device import resolve
+from tpu_rag_torch.models.bert import BertEncoder, BertSpec, l2_normalize, mean_pool
+from tpu_rag_torch.models.biencoder import init_params
+from tpu_rag_torch.models.hf_export import save_bert
+from tpu_rag_torch.models.hf_import import load_bert_params
+
+
+def info_nce_loss(q_emb: torch.Tensor, d_emb: torch.Tensor, tau: float = 0.05) -> torch.Tensor:
+    logits = (q_emb @ d_emb.T) / tau
+    labels = torch.arange(logits.shape[0], device=logits.device)
+    return 0.5 * (F.cross_entropy(logits, labels) + F.cross_entropy(logits.T, labels))
+
+
+def warmup_cosine_decay(init_value: float, peak_value: float, warmup_steps: int,
+                        decay_steps: int, end_value: float = 0.0) -> Callable[[int], float]:
+    """optax.warmup_cosine_decay_schedule as a function of the step: linear
+    from init to peak over `warmup_steps`, then cosine from peak to end over
+    `decay_steps - warmup_steps`, then flat at end.  Like optax, raises
+    ValueError when the cosine part has no steps."""
+    cos_steps = decay_steps - warmup_steps
+    if not cos_steps > 0:
+        raise ValueError(f"the cosine decay needs positive decay_steps - warmup_steps, "
+                         f"got {decay_steps} - {warmup_steps}")
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+
+    def schedule(step: int) -> float:
+        if step < warmup_steps:
+            return (init_value - peak_value) * (1.0 - step / warmup_steps) + peak_value
+        count = min(step - warmup_steps, cos_steps)
+        cosine = 0.5 * (1.0 + math.cos(math.pi * count / cos_steps))
+        return peak_value * ((1.0 - alpha) * cosine + alpha)
+
+    return schedule
+
+
+def adamw(params) -> torch.optim.AdamW:
+    """torch's AdamW at optax.adamw's defaults (weight decay 1e-4, where
+    torch's is 1e-2); the lr is set before each step from the schedule.
+    torch picks its implementation: the multi-tensor (foreach) one on the
+    card, the per-tensor loop on the CPU; not the fused kernel, which is
+    opt-in (passing fused=False would also turn foreach off)."""
+    return torch.optim.AdamW(params, lr=0.0, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=1e-4)
+
+
+class ContrastiveTrainer:
+    def __init__(self, spec: BertSpec, *, lr: float | Callable[[int], float] = 2e-5,
+                 tau: float = 0.05, compute_dtype: torch.dtype = torch.float32,
+                 seed: int = 0, device: str | torch.device = "cuda",
+                 mesh: dict[str, int] | None = None) -> None:
+        """mesh: axis name -> size, as tpu_rag's ("data", "model") mesh; only
+        one device in all is supported."""
+        if mesh and math.prod(mesh.values()) > 1:
+            raise NotImplementedError(
+                f"mesh {mesh}: the port trains on one device; multi-card "
+                "data/tensor parallel training is ROADMAP.md queue 1 item 4")
+        self.device = resolve(device)
+        self.spec = spec
+        self.tau = tau
+        self.schedule = lr if callable(lr) else (lambda _step: lr)
+        self.module = BertEncoder(spec, flash=False, remat=True, compute_dtype=compute_dtype)
+        self.module.load_state_dict(init_params(spec, seed))
+        self.module.to(self.device).train()
+        self._reset_optimizer()
+
+    def _reset_optimizer(self) -> None:
+        self.step = 0
+        self.optimizer = adamw(self.module.parameters())
+
+    def _embed(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        hidden = self.module(ids, mask)
+        return l2_normalize(mean_pool(hidden, mask).to(torch.float32))
+
+    def train_step(self, batch: dict[str, Any]) -> float:
+        """batch: {q_ids, q_mask, d_ids, d_mask}, int (B, L) numpy arrays.
+        One AdamW update; returns the loss before it."""
+        t = {k: torch.as_tensor(np.asarray(v)).to(self.device, torch.int64)
+             for k, v in batch.items()}
+        for group in self.optimizer.param_groups:
+            group["lr"] = float(self.schedule(self.step))
+        self.optimizer.zero_grad(set_to_none=True)
+        # a named range for torch.profiler: chip_smoke.py's train phase
+        # reads its device span beside AdamW's own (Optimizer.step).  The
+        # backward's kernels are launched by autograd's device thread, which
+        # a range on this thread does not see
+        with record_function("contrastive.forward"):
+            loss = info_nce_loss(self._embed(t["q_ids"], t["q_mask"]),
+                                 self._embed(t["d_ids"], t["d_mask"]), self.tau)
+        loss.backward()
+        self.optimizer.step()
+        self.step += 1
+        return float(loss.detach())
+
+    def save(self, path: str | Path) -> None:
+        """The encoder as a HF BertModel directory (models/hf_export.py)."""
+        save_bert(self.module.state_dict(), self.spec, path)
+
+    def load(self, path: str | Path) -> None:
+        """Restore the PARAMETERS only: AdamW's moments and the schedule's
+        count start again from zero, as tpu_rag's load re-initializes its
+        optimizer state (checkpoints hold the parameters alone)."""
+        sd = load_bert_params(path, self.spec)
+        if sd is None:
+            raise FileNotFoundError(f"no checkpoint of {self.spec} at {path}")
+        self.module.load_state_dict(sd)
+        self._reset_optimizer()
