@@ -42,7 +42,22 @@ Phases, each printing one JSON line (any failure exits non-zero):
            embeds launch #5), the card's embeddings against the CPU's f32
            forward of the same checkpoint (cosine >= 0.99), then served
            over HTTP (EMBEDDING_WEIGHTS, TOKENIZER_PATH): 1,000 held-out
-           /docs/save, 32 /search at k 10, #1 and #5 launched.
+           /docs/save, 32 /search at k 10, #1 and #5 launched;
+  rerank_train  train_reranker at MiniLM-L6 width over the train phase's
+           corpus and bi-encoder (batch 256 pairs, T 160, bf16), cut to 400
+           steps with val evals and two mining rounds: every step timed by
+           CUDA events, one profiled; the loss must fall and no kernel may
+           launch in training; the held-out lift through the serving
+           CrossEncoder (#5 at B 256, T 160; trained recall@10 at least
+           seeded + 0.05), the checkpoint loaded without a spec on the card
+           against the CPU (RERANK_LOGIT_TOL), then the trained pair served
+           with RERANK_MODE=ensemble over the train phase's store: 32
+           /search with rerank, every reply reranked, #1 and #5 launched;
+  scripts  the offline tools in process: build_index + query_local over
+           examples/docs, eval_recall --synthetic 1,000,000 (bf16, int8,
+           bucketed on bf16 rows, ivf: #1, #3, #7), prove_checkpoint of the
+           train phase's checkpoint (exit 0; #5's f32 kernel).
+  (rerank_train and scripts read what train writes: run them with it.)
 
 Then the seconds of each phase, the kernels summary line, the card's name
 and power limit as nvidia-smi reports them, and, last, {"ok": true,
@@ -114,10 +129,16 @@ def kernel_ms(fn, name: str, reps: int = 10) -> float:
     give only where the device, not the host's launches, sets the pace."""
     from kernel_ab import _profile
 
-    ms = sum(v for key, v in _profile(fn, reps)["by_kernel_ms"].items() if name in key)
-    if ms <= 0.0:
-        raise AssertionError(f"the profiler saw no device time of {name}")
-    return ms
+    seen = {}
+    for _ in range(3):
+        # CUPTI now and then delivers none of a window's records of the
+        # kernel: profile again rather than report no time
+        seen = _profile(fn, reps)["by_kernel_ms"]
+        ms = sum(v for key, v in seen.items() if name in key)
+        if ms > 0.0:
+            return ms
+    raise AssertionError(f"the profiler saw no device time of {name} in three windows; "
+                         f"it saw {sorted(seen)[:6]}")
 
 
 # ------------------------------------------------------------------ phases
@@ -295,57 +316,36 @@ def phase_kernels() -> list[dict]:
             row["library"] = "composite: torch.matmul + round18 + torch.topk"
         rows.append(row)
 
+    # ---- #3 bucketed scan on the same 1M x 384 bf16 rows, q 32: eval_recall's
+    # `bucketed` config (FlatIndex(search_mode="bucketed") over a bf16 store)
+    rows.append(_bucketed_row(g, xb, None, ns, canon, 32, 20, smem_of, sms,
+                              floor_of(xb, "bf16")))
     # ---- #4 read-rate probe on the 1M x 384 bf16 matrix (the 2M int8 below)
     rows.append(_floor_row(xb, "bf16", floors.get("bf16")))
     del xb, x8, s8, ns, canon
     torch.cuda.empty_cache()
 
     # ---- #3 bucketed scan: 2M x 384 int8, q 64, k_scan 40
-    n, nq, k = 2_000_000, 64, 40
+    n = 2_000_000
     x, ns, canon = corpus(n)
     x8, s8 = quantize_int8_rows(x)
     del x
-    q8, qs = quantize_int8_rows(torch.randn((nq, d), generator=g, device=dev))
-    bargs = (q8, x8, s8, ns, canon, -1, -1)
-    bplan = tk._scan_plan(n, d, nq, 0, torch.int8, sms, "bucketed")
-    smem_of(torch.int8, bplan, 0, "bucketed")
-    k_sc, k_id = tk._bucketed_scan_cuda(*bargs)
-    p_sc, p_id = tk._bucketed_scan_plain(*bargs)
-    torch.cuda.synchronize()
-    # per-bucket maxima: compare the top k the wrapper keeps, as for #1
-    chk = _id_check(*tk.select_topk(k_sc, k_id, k), *tk.select_topk(p_sc, p_id, k), 1e-4)
-    if not torch.equal(k_id[torch.isfinite(p_sc)], p_id[torch.isfinite(p_sc)]):
-        raise AssertionError("bucketed scan: bucket winners differ from the plain version")
-
-    def bucket_library():
-        s = torch.matmul(q8.to(torch.bfloat16), x8.to(torch.bfloat16).T).float() * s8[None, :]
-        s = torch.where((ns != tk.PAD_TAG)[None, :], s, -math.inf)
-        bm = s.view(nq, -1, tk.BUCKET).amax(dim=2)
-        return torch.topk(bm, k, dim=1)
-
-    nbytes = n * d + n * 12 + nq * d + nq * (n // tk.BUCKET) * 8
-    b_ms, b_by = bound(nbytes, 2.0 * n * d * nq, "int8")
-    ms = cuda_ms(lambda: tk._bucketed_scan_cuda(*bargs))
     floor = cuda_ms(lambda: tk._read_sum_cuda(x8), iters=5, batch=10)
-    rows.append({"name": f"bucketed_scan[int8,n={n},q={nq}]", "route": "cuda",
-                 "source": "tpu_rag_torch/csrc/topk.cu",
-                 "replaces": "tpu_rag/ops/topk.py:284", "counter": "bucketed",
-                 "plan": bplan._asdict(),
-                 "max_abs_err": chk["max_abs_err"], "ms": ms,
-                 "plain_ms": cuda_ms(lambda: tk._bucketed_scan_plain(*bargs), iters=5),
-                 "library_ms": cuda_ms(bucket_library, iters=5),
-                 "bound_ms": b_ms, "bound_by": b_by,
-                 "floor_ms": floor, "pct_of_floor": 100.0 * floor / ms})
+    rows.append(_bucketed_row(g, x8, s8, ns, canon, 64, 40, smem_of, sms, floor))
     rows.append(_floor_row(x8, "int8", floor))
     del x8, s8, ns, canon
     torch.cuda.empty_cache()
 
     # ---- #5 attention: B 64, H 12, D 32, bf16, ragged masks, at the
-    # encoder's document buckets T 128, 256 and 512, and the cross-encoder's
-    # shape (20 rerank candidates -> batch 32, T 256)
+    # encoder's document buckets T 128, 256 and 512, the cross-encoder's
+    # shape (20 rerank candidates -> batch 32, T 256), the trained
+    # reranker's eval (B 256 at T 160: a ragged last 64-key chunk), and the
+    # f32 kernel (prove_checkpoint's f32 encoder) at B 64, T 256
     for t in (256, 128, 512):
         rows.append(_attention_row(g, 64, t, 12, 32))
     rows.append(_attention_row(g, 32, 256, 12, 32))
+    rows.append(_attention_row(g, 256, 160, 12, 32))
+    rows.append(_attention_row(g, 64, 256, 12, 32, torch.float32))
     rows += _probe_kernel_rows(g)
     floats = {**_list_checks(g), **_batched_checks(g), **_probe_float_checks(g)}
     emit({"phase": "kernels", "checked": [r["name"] for r in rows] + list(floats),
@@ -353,16 +353,18 @@ def phase_kernels() -> list[dict]:
     return rows
 
 
-def _attention_row(g, b: int, t: int, h: int, hd: int) -> dict:
+def _attention_row(g, b: int, t: int, h: int, hd: int, dtype=None) -> dict:
     """#5 against its plain version (in f32, tolerance 2e-2) with a full
-    row, a one-token row and an all-pad row; times beside SDPA's."""
+    row, a one-token row and an all-pad row; times beside SDPA's in the
+    same dtype (bf16 by default: mha_tc_kernel; f32: mha_f32_kernel)."""
     import torch
     import torch.nn.functional as F
 
     from tpu_rag_torch.ops import attention as att
 
+    dtype = dtype or torch.bfloat16
     dev = torch.device("cuda")
-    q, k_, v = (torch.randn((b, t, h, hd), generator=g, device=dev).to(torch.bfloat16)
+    q, k_, v = (torch.randn((b, t, h, hd), generator=g, device=dev).to(dtype)
                 for _ in range(3))
     lens = torch.randint(1, t + 1, (b,), generator=g, device=dev)
     lens[0], lens[1] = t, 1
@@ -374,22 +376,89 @@ def _attention_row(g, b: int, t: int, h: int, hd: int) -> dict:
     err = float((out.float() - ref).abs().max())
     pad_err = float((out[2].float() - v[2].float().mean(dim=0, keepdim=True)).abs().max())
     if not (err <= 2e-2 and pad_err <= 2e-2):
-        raise AssertionError(f"attention T={t} disagrees with its plain version: {err}, "
-                             f"all-pad row {pad_err}")
+        raise AssertionError(f"attention T={t} {dtype} disagrees with its plain version: "
+                             f"{err}, all-pad row {pad_err}")
     bool_mask = (mask > 0)[:, None, None, :]
     qh, kh, vh = (z.permute(0, 2, 1, 3) for z in (q, k_, v))
-    nbytes = 4 * b * t * h * hd * 2 + b * t * 4
-    b_ms, b_by = bound(nbytes, 4.0 * b * h * t * t * hd, "bf16")
-    return {"name": f"fused_mha[bf16,B={b},T={t},H={h},D={hd}]", "route": "cuda",
-            "source": "tpu_rag_torch/csrc/attention.cu",
+    f32 = dtype == torch.float32
+    nbytes = 4 * b * t * h * hd * q.element_size() + b * t * 4
+    b_ms, b_by = bound(nbytes, 4.0 * b * h * t * t * hd, "f32" if f32 else "bf16")
+    return {"name": f"fused_mha[{'f32' if f32 else 'bf16'},B={b},T={t},H={h},D={hd}]",
+            "route": "cuda", "source": "tpu_rag_torch/csrc/attention.cu",
             "replaces": "tpu_rag/ops/attention.py:41", "counter": "mha",
             "max_abs_err": err, "all_pad_row_err": pad_err,
             "ms": cuda_ms(lambda: att._fused_mha_cuda(q, k_, v, mask)),
-            "device_ms": kernel_ms(lambda: att._fused_mha_cuda(q, k_, v, mask), "mha_tc_kernel"),
+            "device_ms": kernel_ms(lambda: att._fused_mha_cuda(q, k_, v, mask),
+                                   "mha_f32_kernel" if f32 else "mha_tc_kernel"),
             "plain_ms": cuda_ms(lambda: att.fused_mha_plain(q, k_, v, mask)),
             "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
                 qh, kh, vh, attn_mask=bool_mask)),
             "bound_ms": b_ms, "bound_by": b_by}
+
+
+def _bucketed_row(g, x, scale, ns, canon, nq: int, k: int, smem_of, sms: int,
+                  floor: float) -> dict:
+    """#3 against its plain version on the rows x (int8 with `scale`, or
+    bf16): the top k the wrapper keeps by _id_check (1e-4), and each
+    bucket's winner the plain one's, exactly for int8 (integer sums) and,
+    for bf16 (sums in another order), but where the two rows' plain scores
+    lie within 1e-4 of each other; times beside the matmul + bucket max
+    composite and the read floor of x."""
+    import torch
+
+    from tpu_rag_torch.ops import topk as tk
+    from tpu_rag_torch.ops.quant import quantize_int8_rows
+
+    n, d = x.shape
+    qf = torch.randn((nq, d), generator=g, device=x.device)
+    int8 = x.dtype == torch.int8
+    q, qs = quantize_int8_rows(qf) if int8 else (qf.to(x.dtype), None)
+    kind, elt = ("int8", 1) if int8 else ("bf16", 2)
+    bargs = (q, x, scale, ns, canon, -1, -1)
+    plan = tk._scan_plan(n, d, nq, 0, x.dtype, sms, "bucketed")
+    smem_of(x.dtype, plan, 0, "bucketed")
+    k_sc, k_id = tk._bucketed_scan_cuda(*bargs)
+    p_sc, p_id = tk._bucketed_scan_plain(*bargs)
+    torch.cuda.synchronize()
+    chk = _id_check(*tk.select_topk(k_sc, k_id, k), *tk.select_topk(p_sc, p_id, k), 1e-4)
+    fin = torch.isfinite(p_sc)
+    if not torch.equal(torch.isfinite(k_sc), fin) or float((k_sc - p_sc)[fin].abs().max()) > 1e-4:
+        raise AssertionError(f"bucketed {kind} scan: bucket maxima differ from the plain "
+                             f"version by more than 1e-4")
+    differ = ((k_id != p_id) & fin).nonzero().tolist()
+    if int8 and differ:
+        raise AssertionError(f"bucketed int8 scan: {len(differ)} bucket winners differ "
+                             f"from the plain version")
+    for qi, bi in differ:
+        row = int(k_id[qi, bi])
+        s_row = float(q[qi].float() @ x[row].float())
+        if abs(s_row - float(p_sc[qi, bi])) > 1e-4:
+            raise AssertionError(f"bucketed {kind} scan: bucket {bi} of query {qi} took row "
+                                 f"{row} ({s_row}) over {int(p_id[qi, bi])} "
+                                 f"({float(p_sc[qi, bi])})")
+
+    nb = -(-n // tk.BUCKET)
+
+    def library():
+        s = torch.matmul(q.to(torch.bfloat16), x.to(torch.bfloat16).T).float()
+        if int8:
+            s = s * scale[None, :]
+        s = torch.where((ns != tk.PAD_TAG)[None, :], s, -math.inf)
+        s = torch.nn.functional.pad(s, (0, nb * tk.BUCKET - n), value=-math.inf)
+        return torch.topk(s.view(nq, nb, tk.BUCKET).amax(dim=2), k, dim=1)
+
+    nbytes = n * d * elt + n * 8 + (n * 4 if int8 else 0) + nq * d * elt + nq * nb * 8
+    b_ms, b_by = bound(nbytes, 2.0 * n * d * nq, kind)
+    ms = cuda_ms(lambda: tk._bucketed_scan_cuda(*bargs))
+    return {"name": f"bucketed_scan[{kind},n={n},q={nq}]", "route": "cuda",
+            "source": "tpu_rag_torch/csrc/topk.cu",
+            "replaces": "tpu_rag/ops/topk.py:284", "counter": "bucketed",
+            "plan": plan._asdict(), "max_abs_err": chk["max_abs_err"],
+            "winners_differing_in_ties": len(differ), "ms": ms,
+            "plain_ms": cuda_ms(lambda: tk._bucketed_scan_plain(*bargs), iters=5),
+            "library_ms": cuda_ms(library, iters=5),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "floor_ms": floor, "pct_of_floor": 100.0 * floor / ms}
 
 
 def _smem_check():
@@ -1766,12 +1835,17 @@ def _kernel_kinds(by_kernel: dict[str, float]) -> dict[str, float]:
 
 
 def _serve_trained(work: Path, ckpt: str, vocab_path: str, docs: list[dict],
-                   queries: list[dict], device: str) -> dict:
+                   queries: list[dict], device: str, rerank: tuple[str, float] | None = None
+                   ) -> dict:
     """The trained checkpoint behind the real HTTP server (EMBEDDING_WEIGHTS,
-    TOKENIZER_PATH): the server's encoder must hold the checkpoint's values;
-    /docs/save of `docs` (held out from training), then /search of the
-    held-out summaries of `queries` at k 10, each answered with 10 hits.
-    Counters are zeroed as the server starts and read after the searches."""
+    TOKENIZER_PATH) over the store in work/vs: the server's encoder must
+    hold the checkpoint's values; /docs/save of `docs` (held out from
+    training), then /search of the held-out summaries of `queries` at k 10,
+    each answered with 10 hits.  With `rerank` = (reranker checkpoint,
+    alpha) the server also loads RERANK_WEIGHTS in RERANK_MODE=ensemble at
+    RERANK_ENSEMBLE_ALPHA=alpha (20 candidates) and every /search asks for
+    rerank: each reply must be reranked with no rerank_error.  Counters are
+    zeroed as the server starts and read after the searches."""
     from tpu_rag_torch.config import Config
     from tpu_rag_torch.models.hf_import import bert_hf_names, read_safetensors
 
@@ -1780,6 +1854,9 @@ def _serve_trained(work: Path, ckpt: str, vocab_path: str, docs: list[dict],
                  embedding_weights=ckpt, tokenizer_path=vocab_path,
                  model_priority=("extractive",), summarize_mode="off", host="127.0.0.1",
                  device=device)
+    if rerank is not None:
+        cfg.rerank_weights, cfg.rerank_ensemble_alpha = rerank
+        cfg.rerank_mode, cfg.rerank_candidates = "ensemble", 20
     with _served(cfg) as (_app, engine, health):
         enc = engine.encoder
         names = bert_hf_names(enc.spec)
@@ -1798,30 +1875,44 @@ def _serve_trained(work: Path, ckpt: str, vocab_path: str, docs: list[dict],
                       {"title": f"{d['title']} {d['id']}", "content": d["body"],
                        "metadata": {"namespace": "corpus"}})
             saved[d["id"]] = r["id"]
-        while engine.index.count() < len(docs) or len(persists) < len(docs):
+        while len(persists) < len(docs) or engine.index.count() < len(docs):
             if time.perf_counter() - t0 > 900:
                 raise TimeoutError(f"{engine.index.count()} of {len(docs)} documents "
                                    f"indexed, {len(persists)} saves persisted")
             time.sleep(0.2)
-        index_s = persists[-1] - t0
-        lat = []
+        out = {"docs_saved": len(docs), "docs_in_store": engine.index.count()}
+        if docs:
+            out["docs_indexed_and_persisted_s"] = persists[-1] - t0
+        lat, rerank_ms = [], []
         for d in queries:
             t1 = time.perf_counter()
-            r = _http(cfg.port, "POST", "/search", {"query": d["query"], "k": 10})
+            r = _http(cfg.port, "POST", "/search",
+                      {"query": d["query"], "k": 10, "rerank": rerank is not None})
             lat.append((time.perf_counter() - t1) * 1e3)
             if len(r["hits"]) != 10 or not all(math.isfinite(h["score"]) for h in r["hits"]):
                 raise AssertionError(f"/search {d['query']!r}: {len(r['hits'])} hits")
+            if rerank is not None:
+                if r.get("reranked") is not True or "rerank_error" in r:
+                    raise AssertionError(f"/search with rerank: {r.get('rerank_error')}")
+                rerank_ms.append(r["timings_ms"]["rerank"])
         counts = _read_counters()
-        vec = _vector_ids(engine, [d["query"] for d in queries], 10)
-        own = sum(saved[d["id"]] in ids for d, ids in zip(queries, vec))
+        if saved:
+            vec = _vector_ids(engine, [d["query"] for d in queries], 10)
+            out["own_doc_in_vector_top10"] = sum(saved[d["id"]] in ids
+                                                 for d, ids in zip(queries, vec))
+        if rerank is not None:
+            ce = engine.get_cross_encoder()
+            out.update(rerank_gate=engine._rerank_gate, rerank_stage_ms=rerank_ms,
+                       rerank_stage_ms_p50=statistics.median(rerank_ms),
+                       cross_encoder={"seq_len": ce.seq_len, "batch": ce.batch,
+                                      "max_len": ce.spec.max_len,
+                                      "vocab": ce.spec.vocab_size})
         spec = enc.spec
-    return {"docs_saved": len(docs), "docs_indexed_and_persisted_s": index_s,
-            "searches": len(lat), "search_ms": lat, "search_ms_p50": statistics.median(lat),
-            "own_doc_in_vector_top10": own, "encoder": {"hidden": spec.hidden,
-                                                        "layers": spec.layers,
-                                                        "max_len": spec.max_len,
-                                                        "vocab": spec.vocab_size},
-            "health_device": health["device"], "launches": counts}
+    out.update({"searches": len(lat), "search_ms": lat, "search_ms_p50": statistics.median(lat),
+                "encoder": {"hidden": spec.hidden, "layers": spec.layers,
+                            "max_len": spec.max_len, "vocab": spec.vocab_size},
+                "health_device": health["device"], "launches": counts})
+    return out
 
 
 class _CorpusJob:
@@ -2016,13 +2107,336 @@ def phase_train(work: Path, corpus_job: _CorpusJob) -> dict:
     return {name: eval_counts[name] + serve["launches"][name] for name in eval_counts}
 
 
+# rerank_train: train_reranker's defaults at MiniLM-L6 width (batch 256 pairs
+# = 64 groups of 1 + 3, T 160, lr 3e-4, hard-k 8, cand-k 20, bf16) over the
+# train phase's corpus, vocab and bi-encoder; cut to 400 of 1,500 steps
+# (warmup 40 of 150), with val evals every 100 steps and two mining rounds
+# of 1,000 queries so that best-val keeping and re-mining run
+RERANK_STEPS, RERANK_WARMUP, RERANK_EVAL_EVERY = 400, 40, 100
+RERANK_MINE_ROUNDS, RERANK_MINE_QUERIES = 2, 1000
+RERANK_PROBE_PAIRS, RERANK_QUERIES = 64, 32
+
+
+def _rank_step_flops(module, batch: int, t: int) -> float:
+    """One ranking step's matmul FLOPs: 6 x non-embedding parameters x
+    tokens (forward and backward) and the attention's QK^T and PV (4 T^2 H
+    a sequence a layer, forward and backward: three times); no remat."""
+    spec = module.bert.spec
+    params = sum(p.numel() for n, p in module.named_parameters()
+                 if not n.endswith("_embeddings.weight"))
+    return 6 * params * batch * t + 3 * spec.layers * batch * 4 * spec.hidden * t * t
+
+
+def phase_rerank_train(work: Path, corpus: Path) -> dict:
+    """train_reranker on the card over the train phase's corpus and
+    bi-encoder (work/semantic): mining (the bi-encoder's embeds launch #5),
+    ranking training timed step by step (one step profiled; no kernel may
+    launch), the held-out lift through the serving CrossEncoder (#5 at B
+    256, T 160), the checkpoint loaded without a spec on the card and on the
+    CPU, then served: the trained bi-encoder and reranker behind HTTP over
+    the train phase's store, 32 /search with rerank (#1 and #5)."""
+    import numpy as np
+    import torch
+
+    from kernel_ab import _profile
+    from tpu_rag_torch.models.crossencoder import CrossEncoder
+    from tpu_rag_torch.models.tokenizer import load_tokenizer
+    from tpu_rag_torch.scripts import train_reranker as tr
+
+    cuda = torch.device("cuda")
+    semantic, out = work / "semantic", work / "reranker"
+    args = tr.parse_args(["--corpus", str(corpus), "--biencoder", str(semantic), "--out",
+                          str(out), "--steps", str(RERANK_STEPS), "--warmup",
+                          str(RERANK_WARMUP), "--eval-every", str(RERANK_EVAL_EVERY),
+                          "--mine-rounds", str(RERANK_MINE_ROUNDS), "--mine-queries",
+                          str(RERANK_MINE_QUERIES), "--device", "cuda"])
+    out.mkdir()
+    vocab_path, ckpt = str(semantic / "vocab.txt"), str(out / "ckpt")
+    seconds = {}
+    t0 = time.perf_counter()
+    tok = load_tokenizer(vocab_path, vocab_size=30522)
+    data = tr.make_data(args, tr.load_corpus(args.corpus), tok)
+    seconds["tokenize"] = time.perf_counter() - t0
+
+    _reset_counters()
+    t0 = time.perf_counter()
+    bi, bi_sd = tr.load_biencoder(args, cuda)
+    demb = bi.embed(data.bodies)
+    spec, bert_sd = tr.reranker_spec(args, tok.vocab_size, bi_sd)
+    mined = tr.mine(args, data, bi, demb)
+    seconds["mine"] = time.perf_counter() - t0
+    mine_counts = _read_counters()
+    if mine_counts["mha"] < 1 or spec.max_len != 160 or args.seq_len != 160:
+        raise AssertionError(f"mining launched {mine_counts}; spec {spec}, T {args.seq_len}")
+
+    trainer = tr.make_trainer(args, spec, bert_sd, cuda)
+    flops = _rank_step_flops(trainer.module, args.batch, args.seq_len)
+    step_ms, prof = [], {}
+    step = trainer.train_step
+
+    def timed(*batch):
+        if not prof and len(step_ms) == args.steps // 2:
+            losses = []
+            prof.update(_profile(lambda: losses.append(step(*batch)), reps=1, warmup=False))
+            return losses[0]
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        loss = step(*batch)
+        b.record()
+        b.synchronize()
+        step_ms.append(a.elapsed_time(b))
+        return loss
+
+    trainer.train_step = timed
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    t0 = time.perf_counter()
+    summary = tr.train(args, data, mined, trainer, ckpt)
+    seconds["train"] = time.perf_counter() - t0
+    train_counts = _read_counters()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = summary["losses"]
+    if len(losses) != args.steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{len(losses)} losses, not all finite: {losses[:5]}")
+    first, last = statistics.mean(losses[:20]), statistics.mean(losses[-20:])
+    if not last < first:
+        raise AssertionError(f"the ranking loss did not fall: first 20 {first}, last 20 {last}")
+    if any(train_counts.values()):
+        raise AssertionError(f"the ranking training launched kernels: {train_counts}")
+    if len(summary["val"]) != args.steps // args.eval_every - (args.steps % args.eval_every == 0):
+        raise AssertionError(f"val evals: {summary['val']}")
+    del trainer
+    torch.cuda.empty_cache()
+
+    _reset_counters()
+    t0 = time.perf_counter()
+    results, alpha, curve = tr.heldout_lift(args, data, bi, demb, ckpt, spec, vocab_path, cuda)
+    seconds["eval"] = time.perf_counter() - t0
+    eval_counts = _read_counters()
+    report = tr.write_report(args, data, results, alpha, curve, ckpt, vocab_path)
+    rows = {r["label"]: r for r in results}
+    trained, seeded = rows["trained_reranker"], rows["random_weights_round1"]
+    bi_row = rows["biencoder_top20_no_rerank"]
+    if eval_counts["mha"] < 1:
+        raise AssertionError(f"the eval's cross-encoder did not launch #5: {eval_counts}")
+    if not trained["recall@10"] >= seeded["recall@10"] + 0.05:
+        raise AssertionError(f"trained recall@10 {trained['recall@10']} against seeded "
+                             f"{seeded['recall@10']}")
+    del bi, demb
+    torch.cuda.empty_cache()
+
+    # the card (bf16) against the CPU (f32) on the checkpoint loaded without
+    # a spec: each held-out query with its own body and a hard candidate
+    probe = data.holdout[:RERANK_PROBE_PAIRS // 2]
+    pairs = [(d["query"], data.bodies[data.id_pos[d["id"]]]) for d in probe]
+    pairs += [(d["query"], data.bodies[(data.id_pos[d["id"]] + 1) % len(data.bodies)])
+              for d in probe]
+    ces = {dev: CrossEncoder(weights_path=ckpt, tokenizer_path=vocab_path, seq_len=256,
+                             device=dev) for dev in ("cuda", "cpu")}
+    if ces["cuda"].spec != spec or ces["cpu"].spec != spec or ces["cuda"].seq_len != 160:
+        raise AssertionError(f"config.json gave {ces['cuda'].spec}, trained {spec}")
+    card, cpu = ces["cuda"].predict(pairs), ces["cpu"].predict(pairs)
+    diff = float(np.abs(card - cpu).max())
+    tol = RERANK_LOGIT_TOL * max(1.0, float(np.abs(cpu).max()))
+    if not diff <= tol:
+        raise AssertionError(f"card logits {diff} from the CPU f32 forward (tolerance {tol})")
+    del ces
+    torch.cuda.empty_cache()
+
+    holdout = data.holdout
+    serve = _serve_trained(work, str(semantic / "ckpt"), vocab_path, [],
+                           holdout[:RERANK_QUERIES], "cuda", rerank=(ckpt, alpha))
+    if serve["launches"]["exact"] < 1 or serve["launches"]["mha"] < 1:
+        raise AssertionError(f"reranked /search did not launch #1 and #5: {serve['launches']}")
+
+    ms = sorted(step_ms)
+    p50, p90 = statistics.median(ms), ms[int(0.9 * (len(ms) - 1))]
+    top = sorted(prof["by_kernel_ms"].items(), key=lambda kv: -kv[1])[:10]
+    emit({"phase": "rerank_train",
+          "cuts": {"steps": f"{RERANK_STEPS} of 1500 (warmup {RERANK_WARMUP} of 150)",
+                   "eval_every": f"{RERANK_EVAL_EVERY} (default 0: off)",
+                   "mine": f"--mine-rounds {RERANK_MINE_ROUNDS} --mine-queries "
+                           f"{RERANK_MINE_QUERIES} (defaults 1, 8000)",
+                   "corpus": f"the train phase's (make_corpus --max-docs {TRAIN_MAX_DOCS})",
+                   "profiled_step": "one step under the profiler, out of the timed ones"},
+          "spec": {"hidden": spec.hidden, "layers": spec.layers, "heads": spec.heads,
+                   "ffn": spec.ffn, "vocab": spec.vocab_size, "max_len": spec.max_len},
+          "batch_pairs": args.batch, "group": 1 + args.neg_per_pos, "seq_len": args.seq_len,
+          "lr": args.lr, "hard_k": args.hard_k, "cand_k": args.cand_k,
+          "compute_dtype": "bf16", "train_docs": len(data.train_docs),
+          "holdout": len(data.holdout), "seconds": seconds,
+          "steps": len(losses), "timed_steps": len(step_ms), "step_ms_p50": p50,
+          "step_ms_p90": p90, "step_ms_min": ms[0],
+          "tokens_per_step": args.batch * args.seq_len, "step_tflop": flops / 1e12,
+          "bf16_peak_share": flops / (p50 / 1e3) / PEAK_OPS_S["bf16"],
+          "peak_mem_gib": peak_gb,
+          "profiled_step": {"wall_ms": prof["wall_ms"], "device_ms": prof["device_ms"],
+                            "device_idle_share": max(0.0, 1.0 - prof["device_ms"]
+                                                     / prof["wall_ms"]),
+                            "spans_ms": prof["spans_ms"],
+                            "by_kind_ms": _kernel_kinds(prof["by_kernel_ms"]),
+                            "top10_device_ms": [[k[:120], v] for k, v in top]},
+          "loss_first": losses[0], "loss_last": losses[-1], "loss_first20_mean": first,
+          "loss_last20_mean": last, "chance": float(np.log(1 + args.neg_per_pos)),
+          "val": summary["val"], "best_step": summary["best_step"],
+          "restored_best": summary["restored_best"], "rollbacks": summary["rollbacks"],
+          "skipped_steps": summary["skipped_steps"],
+          "launches": {"mine": mine_counts, "train": train_counts, "eval": eval_counts},
+          "eval": {"rows": results, "alpha": alpha, "alpha_val_curve": curve,
+                   "lift_recall@10_over_biencoder": trained["recall@10"] - bi_row["recall@10"],
+                   "lift_recall@10_ensemble_over_biencoder":
+                       rows[f"ensemble_bi+trained_ce(alpha={alpha})"]["recall@10"]
+                       - bi_row["recall@10"]},
+          # the spread of the trained CE's logits over the probe pairs: ~0
+          # where training collapsed to constant logits (loss at ln 4)
+          "logits_card_vs_cpu": {"pairs": len(pairs), "max_abs_diff": diff, "tolerance": tol,
+                                 "card_logit_std": float(card.std()),
+                                 "own_body_minus_neighbour_mean": float(
+                                     (card[:len(probe)] - card[len(probe):]).mean())},
+          "report_serving": report["serving"], "serve": serve})
+    return {name: mine_counts[name] + eval_counts[name] + serve["launches"][name]
+            for name in eval_counts}
+
+
+@contextlib.contextmanager
+def _dtypes_of(module, name: str):
+    """Wrap module.<name> (a kernel wrapper) for the block: yields the list
+    of the dtypes of its second argument (the rows, or k for #5) at each
+    call.  The wrapper counts its launches on the module's name, so the
+    stand-in carries the count and hands it back."""
+    fn, seen = getattr(module, name), []
+
+    def recorded(*a, **k):
+        seen.append(a[1].dtype)
+        return fn(*a, **k)
+
+    recorded.launches = fn.launches
+    setattr(module, name, recorded)
+    try:
+        yield seen
+    finally:
+        fn.launches = recorded.launches
+        setattr(module, name, fn)
+
+
+@contextlib.contextmanager
+def _environ(**env):
+    import os
+
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _run_tool(main, argv: list[str]) -> tuple[object, str, float]:
+    """An entry point's main(argv) in process: (its return, its stdout,
+    seconds)."""
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        ret = main(argv)
+    return ret, buf.getvalue(), time.perf_counter() - t0
+
+
+# scripts: eval_recall over 1,000,000 synthetic rows of 384
+SCRIPTS_EVAL_ROWS = 1_000_000
+
+
+def phase_scripts(work: Path) -> dict:
+    """The offline entry points in process on the card, over the train
+    phase's bi-encoder (work/semantic): build_index + query_local over
+    examples/docs (#5, #1), eval_recall --synthetic 1,000,000 at bf16, int8,
+    bucketed and ivf (#1, #3 on bf16 rows, #7), prove_checkpoint (the f32
+    encoder: #5's f32 kernel)."""
+    import torch
+
+    from tpu_rag_torch.ops import attention as att
+    from tpu_rag_torch.ops import topk as tk
+    from tpu_rag_torch.scripts import build_index, eval_recall, prove_checkpoint, query_local
+
+    semantic, root = work / "semantic", work / "scripts"
+    out, launches = {}, {}
+
+    def counted(name: str) -> dict[str, int]:
+        counts = _read_counters()
+        for kern, c in counts.items():
+            launches[kern] = launches.get(kern, 0) + c
+        out.setdefault("launches", {})[name] = counts
+        return counts
+
+    env = {"PERSIST_DIR": str(root / "vs"), "KB_DB_PATH": str(root / "db" / "kb.sqlite3"),
+           "DB_PATH": str(root / "db" / "app.sqlite3"), "DOCS_DIR": str(REPO / "examples" / "docs"),
+           "EMBEDDING_WEIGHTS": str(semantic / "ckpt"),
+           "TOKENIZER_PATH": str(semantic / "vocab.txt"), "DEVICE": "cuda",
+           "MODEL_PRIORITY": "extractive", "TPU_RAG_ENV_FILE": str(root / "none.env")}
+    with _environ(**env):
+        _reset_counters()
+        _, text, secs = _run_tool(build_index.main, [])
+        counts = counted("build_index")
+        if "Done. Indexed logical documents: 254 (" not in text or counts["mha"] < 1:
+            raise AssertionError(f"build_index: {text[-400:]} {counts}")
+        out["build_index"] = {"seconds": secs, "last_line": text.strip().splitlines()[-1]}
+        _reset_counters()
+        _, text, secs = _run_tool(query_local.main, ["the moon temple on the silver cliff",
+                                                     "--k", "5", "--json"])
+        counts = counted("query_local")
+        hits = json.loads(text)["hits"]
+        if len(hits) != 5 or counts["exact"] < 1:
+            raise AssertionError(f"query_local: {len(hits)} hits, {counts}")
+        out["query_local"] = {"seconds": secs, "hits": [[h["id"], h["score"]] for h in hits]}
+
+    _reset_counters()
+    with _dtypes_of(tk, "_bucketed_scan_cuda") as bucketed_rows:
+        _, text, secs = _run_tool(eval_recall.main, [
+            "--synthetic", str(SCRIPTS_EVAL_ROWS), "--configs", "bf16,int8,bucketed,ivf",
+            "--device", "cuda"])
+    counts = counted("eval_recall")
+    configs = {r["config"]: r for r in map(json.loads, text.strip().splitlines())}
+    recall = {c: configs[c]["recall_at_k"] for c in ("bf16", "int8", "bucketed", "ivf")}
+    if not (counts["exact"] >= 2 and torch.bfloat16 in bucketed_rows
+            and counts["batched"] >= 1):
+        raise AssertionError(f"eval_recall launched {counts}, #3 on {bucketed_rows}")
+    if not all(0.0 <= v <= 1.0 for v in recall.values()) or min(
+            recall["bf16"], recall["int8"], recall["bucketed"]) < 0.95:
+        raise AssertionError(f"eval_recall: {recall}")
+    out["eval_recall"] = {"seconds": secs, "rows": SCRIPTS_EVAL_ROWS, "recall_at_10": recall,
+                          "configs": configs}
+
+    _reset_counters()
+    with _dtypes_of(att, "_fused_mha_cuda") as mha_dtypes:
+        rc, text, secs = _run_tool(prove_checkpoint.main, [
+            "--embedding-weights", str(semantic / "ckpt"),
+            "--tokenizer", str(semantic / "vocab.txt"), "--device", "cuda"])
+    counts = counted("prove_checkpoint")
+    report = json.loads(text.strip().splitlines()[-1])
+    if rc != 0 or not report["bundled_recall_at_k"]["ok"] or torch.float32 not in mha_dtypes:
+        raise AssertionError(f"prove_checkpoint exited {rc}: {report}; #5 on {set(mha_dtypes)}")
+    out["prove_checkpoint"] = {"seconds": secs, "exit": rc, "report": report,
+                               "mha_f32_launches": mha_dtypes.count(torch.float32)}
+    emit({"phase": "scripts", **out})
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,kernels,serve,scale,ivf,host_ivf,train",
-                    help="comma-separated subset of "
-                         "build,kernels,serve,scale,ivf,host_ivf,train")
+    all_phases = "build,kernels,serve,scale,ivf,host_ivf,train,rerank_train,scripts"
+    ap.add_argument("--phases", default=all_phases,
+                    help=f"comma-separated subset of {all_phases}; rerank_train and "
+                         f"scripts read what train writes")
     args = ap.parse_args()
     phases = args.phases.split(",")
+    unknown = set(phases) - set(all_phases.split(","))
+    if unknown or ({"rerank_train", "scripts"} & set(phases) and "train" not in phases):
+        ap.error(f"unknown phases {sorted(unknown)}, or rerank_train/scripts without train")
     try:
         import torch
     except ImportError:
@@ -2052,6 +2466,10 @@ def main() -> int:
             corpus_dir = stack.enter_context(tempfile.TemporaryDirectory(
                 prefix="chip_smoke_corpus_", dir=REPO / "build"))
             corpus = stack.enter_context(_CorpusJob(Path(corpus_dir)))
+            # train, rerank_train and scripts share one work directory: the
+            # corpus, the bi-encoder and the served store carry over
+            trained = Path(stack.enter_context(tempfile.TemporaryDirectory(
+                prefix="chip_smoke_train_", dir=REPO / "build")))
         if "build" in phases:
             phase_build()
         if "kernels" in phases:
@@ -2060,7 +2478,9 @@ def main() -> int:
         # first; a kernel's launches are the sum over the phases that ran
         runs = {"serve": phase_serve, "scale": lambda _work: phase_scale(),
                 "ivf": phase_ivf, "host_ivf": phase_host_ivf,
-                "train": lambda work: phase_train(work, corpus)}
+                "train": lambda _work: phase_train(trained, corpus),
+                "rerank_train": lambda _work: phase_rerank_train(trained, corpus.path),
+                "scripts": lambda _work: phase_scripts(trained)}
         seconds = {}
         for name, run in runs.items():
             if name in phases:

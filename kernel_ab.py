@@ -53,17 +53,19 @@ def _ms(fn, iters: int, batch: int) -> float:
     return statistics.median(times)
 
 
-def _profile(fn, reps: int = 5) -> dict:
-    """torch.profiler over `reps` calls of fn after one warm-up: the wall
-    time, each kernel's device time and each record_function range's device
-    span, per call (ms).  chip_smoke.py's kernel times and its serve
-    window's and training step's breakdowns come from here too."""
+def _profile(fn, reps: int = 5, warmup: bool = True) -> dict:
+    """torch.profiler over `reps` calls of fn after one warm-up call (none
+    with warmup=False, for a training step whose call must not repeat): the
+    wall time, each kernel's device time and each record_function range's
+    device span, per call (ms).  chip_smoke.py's kernel times and its serve
+    window's and training steps' breakdowns come from here too."""
     import time
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:

@@ -1,9 +1,9 @@
 """tpu_rag_torch imports nothing of JAX or of tpu_rag, and needs neither
 requests, transformers nor safetensors (the machine with the card has none
 of them) to import every module, serve /compose on the extractive backend
-and /search with rerank, and run `python -m
-tpu_rag_torch.scripts.train_semantic --help`; asking for CUDA without a
-card raises instead of falling back to the CPU."""
+and /search with rerank, and run `python -m tpu_rag_torch.scripts.<tool>
+--help` for every entry point; asking for CUDA without a card raises
+instead of falling back to the CPU."""
 
 import os
 import subprocess
@@ -44,11 +44,13 @@ assert out["reranked"] is True and "rerank_score" in out["hits"][0], out
 client.app.state["engine"].shutdown()
 
 import runpy
-sys.argv = ["train_semantic", "--help"]
-try:
-    runpy.run_module("tpu_rag_torch.scripts.train_semantic", run_name="__main__")
-except SystemExit as e:
-    assert e.code == 0, e.code
+for tool in ("train_semantic", "train_reranker", "build_index", "ingest_docs", "bulk_import",
+             "query_local", "rag_ask", "eval_recall", "prove_checkpoint"):
+    sys.argv = [tool, "--help"]
+    try:
+        runpy.run_module("tpu_rag_torch.scripts." + tool, run_name="__main__")
+    except SystemExit as e:
+        assert e.code == 0, (tool, e.code)
 
 bad = [k for k, v in sys.modules.items() if v is not None and k.split(".")[0] in %r]
 assert not bad, bad
@@ -62,7 +64,9 @@ def test_every_module_imports_with_jax_and_tpu_rag_blocked():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "--corpus" in out.stdout          # train_semantic --help ran
-    assert int(out.stdout.strip().splitlines()[-1]) >= 72   # every module of the package
+    assert "--biencoder" in out.stdout and "--embedding-weights" in out.stdout
+    assert "--synthetic" in out.stdout and "--api" in out.stdout
+    assert int(out.stdout.strip().splitlines()[-1]) >= 80   # every module of the package
 
 
 def test_cuda_without_a_card_raises(tmp_path):

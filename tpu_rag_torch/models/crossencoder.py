@@ -8,8 +8,11 @@ fixed T = min(seq_len, max_len), 256 by default, so every forward takes the
 fused attention (kernel #5) on the card.
 
 Weights: `state_dict` (e.g. `cross_encoder_params_from_flax` of a tpu_rag
-param tree), a HF checkpoint at `weights_path` (an orbax directory raises),
-or weights drawn from a torch.Generator seeded by the model name.
+param tree), a HF checkpoint at `weights_path` (an orbax directory raises;
+without `spec=` a config.json beside the weights sets the architecture, as
+in the checkpoints the reranker trainer writes: a corpus vocab, a position
+table of 160), or weights drawn from a torch.Generator seeded by the model
+name.
 """
 
 from __future__ import annotations
@@ -21,17 +24,19 @@ from torch import nn
 from tpu_rag_torch.device import compute_dtype, resolve
 from tpu_rag_torch.models.bert import BertEncoder, BertSpec, _linear, params_from_flax
 from tpu_rag_torch.models.biencoder import _seed_from_name, seeded_state_dict, spec_for_model
-from tpu_rag_torch.models.hf_import import load_cross_encoder_params
+from tpu_rag_torch.models.hf_import import load_cross_encoder_params, spec_from_hf_config
 from tpu_rag_torch.models.tokenizer import encode_pair_batch, load_tokenizer
 
 
 class CrossEncoderModule(nn.Module):
-    """(ids, mask, type_ids) -> (B,) f32 logits."""
+    """(ids, mask, type_ids) -> (B,) f32 logits.  flash=False keeps the
+    plain attention at every T, as training needs (kernel #5 has no
+    backward); serving keeps the fused one."""
 
-    def __init__(self, spec: BertSpec, *,
+    def __init__(self, spec: BertSpec, *, flash: bool = True,
                  compute_dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
-        self.bert = BertEncoder(spec, compute_dtype=compute_dtype)
+        self.bert = BertEncoder(spec, flash=flash, compute_dtype=compute_dtype)
         self.pooler = nn.Linear(spec.hidden, spec.hidden)
         self.classifier = nn.Linear(spec.hidden, 1)
 
@@ -68,6 +73,9 @@ class CrossEncoder:
     ) -> None:
         self.device = resolve(device)
         self.model_name = model_name
+        if spec is None and weights_path:
+            # a checkpoint with a config.json fixes its own architecture
+            spec = spec_from_hf_config(weights_path)
         self.spec = spec or spec_for_model(model_name)
         self.compute_dtype = (compute_dtype(self.device) if dtype == "bfloat16"
                               else torch.float32)
