@@ -8,8 +8,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
   build    compile every kernel of tpu_rag_torch/csrc with nvcc (sm_90a),
            all sources in parallel, into build/tpu_rag_torch/;
   kernels  hold each kernel against its plain PyTorch version on the card at
-           the main path's shapes, and time kernel, plain version and one
-           library call (CUDA events, median);
+           the main path's shapes, d 384 and bge-base's d 768 (head dim 64
+           for #5), and time kernel, plain version and one library call
+           (CUDA events, median); every launch plan at d 384 and 768 against
+           the kernels' own shared-memory arithmetic;
   serve    a 1,000,000 x 384 flat store (bf16, exact scan) behind the real
            HTTP server with all-MiniLM-L6-v2 at full width, its seeded
            weights written by this script as a HF model.safetensors and
@@ -30,8 +32,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
            concurrent burst; then 64 perturbed corpus rows searched
            one at a time (#6) and as one batch (batch-shared probe #7),
            recall@10 against f32 exact, kernels against plain versions;
-  host_ivf a 12,500,000 x 384 HostArenaIVF (int8 lists in host RAM),
-           batches of 8, save and mmap load;
+  host_ivf a 12,500,000 x 384 HostArenaIVF (int8 lists in host RAM)
+           through scripts/rehearse_host_ivf.py (build, exact truth, nprobe
+           sweep), batches of 8, save and mmap load;
   train    train_semantic at full width (MiniLM-L6, batch 512, T 128 / 48,
            bf16), cut to 300 steps over make_corpus's 20,000 docstrings of
            the installed packages (built beside the kernel build): every
@@ -43,6 +46,17 @@ Phases, each printing one JSON line (any failure exits non-zero):
            forward of the same checkpoint (cosine >= 0.99), then served
            over HTTP (EMBEDDING_WEIGHTS, TOKENIZER_PATH): 1,000 held-out
            /docs/save, 32 /search at k 10, #1 and #5 launched;
+  scripts  the offline tools in process: build_index + query_local over
+           examples/docs, eval_recall --synthetic 1,000,000 (bf16, int8,
+           bucketed on bf16 rows, ivf: #1, #3, #7), prove_checkpoint of the
+           train phase's checkpoint (exit 0; #5's f32 kernel), bench_scale
+           flat-1m-bf16 at d 768 (#1-#4) and encoder-minilm, and the
+           CPU HNSW baseline at 100,000 x 384 (built in a process of its own
+           from the start);
+  rehearse scripts/rehearse_scale.py at its defaults over the train phase's
+           corpus (or one of its own): bge-base (768 wide, head dim 64)
+           embeds 20,000 documents, 1,000,000 x 768 rows served through the
+           index API and HTTP against f32 exact, bench_http's load.
   rerank_train  train_reranker at MiniLM-L6 width over the train phase's
            corpus and bi-encoder (batch 256 pairs, T 160, bf16), cut to 400
            steps with val evals and two mining rounds: every step timed by
@@ -53,11 +67,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
            against the CPU (RERANK_LOGIT_TOL), then the trained pair served
            with RERANK_MODE=ensemble over the train phase's store: 32
            /search with rerank, every reply reranked, #1 and #5 launched;
-  scripts  the offline tools in process: build_index + query_local over
-           examples/docs, eval_recall --synthetic 1,000,000 (bf16, int8,
-           bucketed on bf16 rows, ivf: #1, #3, #7), prove_checkpoint of the
-           train phase's checkpoint (exit 0; #5's f32 kernel).
   (rerank_train and scripts read what train writes: run them with it.)
+  Every WordPiece tokenizer a phase builds must run natively.
 
 Then the seconds of each phase, the kernels summary line, the card's name
 and power limit as nvidia-smi reports them, and, last, {"ok": true,
@@ -146,17 +157,22 @@ def kernel_ms(fn, name: str, reps: int = 10) -> float:
 
 def phase_build():
     from tpu_rag_torch import _build
+    from tpu_rag_torch.native import binding
 
     t0 = time.perf_counter()
     paths = _build.build_all()
     for name in paths:
         _build.load(name)
+    t1 = time.perf_counter()
+    for name in ("wordpiece", "hnsw"):              # the host libraries (g++)
+        binding.load(name)
+    host_s = time.perf_counter() - t1
     ptxas = {}
     for name, path in paths.items():
         log = path.with_suffix(".log")
         lines = log.read_text().splitlines() if log.is_file() else []
         ptxas[name] = [ln.strip() for ln in lines if "registers" in ln or "spill" in ln][:12]
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "host_libraries_s": host_s,
           "compiled": _build.last_build["compiled"], "libraries": sorted(paths),
           "ptxas": ptxas})
 
@@ -210,53 +226,44 @@ def _packed_check(k_sc, k_id, p_sc, p_id) -> dict:
     return {"max_abs_err": err, "id_mismatches_in_ties": len(diff)}
 
 
-def phase_kernels() -> list[dict]:
+def _corpus(g, n: int, d: int):
+    """n unit rows of width d on the card with random ns/canon tags, the
+    last 1,000 rows PAD, and exact ties within one block (rows 11 and 77)
+    and across two blocks' ranges (5000 and n - 5000)."""
+    import torch
+
+    from tpu_rag_torch.ops import topk as tk
+
+    dev = torch.device("cuda")
+    x = torch.randn((n, d), generator=g, device=dev)
+    x = x / x.norm(dim=1, keepdim=True)
+    ns = torch.randint(0, 4, (n,), generator=g, device=dev, dtype=torch.int32)
+    canon = torch.randint(0, 2, (n,), generator=g, device=dev, dtype=torch.int32)
+    ns[-1000:] = tk.PAD_TAG                       # padding rows
+    x[77] = x[11]                                  # an exact tie in one block
+    x[n - 5000] = x[5000]                          # and across two blocks' ranges
+    return x, ns, canon
+
+
+def _scan_rows(g, n: int, d: int, cases, smem_of, sms: int, floor_of) -> tuple[list, tuple]:
+    """#1 (exact) and #2 (packed) against their plain versions on n x d rows,
+    bf16 and int8, one row for each (mode, dtype, nq, k) of `cases`; returns
+    the rows and the database (bf16 rows, int8 rows, their scales, ns,
+    canon) for the rows after them."""
     import torch
 
     from tpu_rag_torch.ops import topk as tk
     from tpu_rag_torch.ops.quant import quantize_int8_rows
 
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(SEED)
-    rows = []
-    d = 384
-
-    def corpus(n):
-        x = torch.randn((n, d), generator=g, device=dev)
-        x = x / x.norm(dim=1, keepdim=True)
-        ns = torch.randint(0, 4, (n,), generator=g, device=dev, dtype=torch.int32)
-        canon = torch.randint(0, 2, (n,), generator=g, device=dev, dtype=torch.int32)
-        ns[-1000:] = tk.PAD_TAG                       # padding rows
-        x[77] = x[11]                                  # an exact tie in one block
-        x[n - 5000] = x[5000]                          # and across two blocks' ranges
-        return x, ns, canon
-
-    floors = {}
-
-    def floor_of(xx, key):
-        """#4 over the matrix a scan reads: the read floor of that scan
-        (back to back: the device's read rate, not the wrapper's)."""
-        if key not in floors:
-            floors[key] = cuda_ms(lambda: tk._read_sum_cuda(xx), iters=5, batch=10)
-        return floors[key]
-
-    # ---- #1 exact scan: 1M x 384, bf16 (q 8, 64; k_scan 20) and int8 (q 64;
-    # 4k = 40; q 8, k_scan 1024: a rerank of 256 candidates on int8); #2
-    # packed scan at the same rows, bf16 (q 8, k_scan 64 = packed_k_scan(10))
-    # and int8 (q 64, k_scan 80 = packed_k_scan(20))
-    n = 1_000_000
-    x, ns, canon = corpus(n)
+    x, ns, canon = _corpus(g, n, d)
     xb = x.to(torch.bfloat16)
     x8, s8 = quantize_int8_rows(x)
     del x
     scans = {"exact": (tk._exact_scan_cuda, tk._exact_scan_plain, "tpu_rag/ops/topk.py:96"),
              "packed": (tk._packed_scan_cuda, tk._packed_scan_plain, "tpu_rag/ops/topk.py:201")}
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    smem_of = _smem_check()
-    for mode, dtype, nq, k in (("exact", "bf16", 8, 20), ("exact", "bf16", 1, 20),
-                               ("exact", "bf16", 64, 20),
-                               ("exact", "int8", 64, 40), ("exact", "int8", 8, 1024),
-                               ("packed", "bf16", 8, 64), ("packed", "int8", 64, 80)):
+    rows = []
+    for mode, dtype, nq, k in cases:
         kernel, plain, replaces = scans[mode]
         packed = mode == "packed"
         qf = torch.randn((nq, d), generator=g, device=dev)
@@ -282,7 +289,7 @@ def phase_kernels() -> list[dict]:
             chk = _id_check(k_sc, k_id, p_sc, p_id, 1e-4)
             _id_check(*kernel(*fargs), *plain(*fargs), 1e-4)
         plan = tk._scan_plan(n, d, nq, k, xx.dtype, sms, mode)
-        smem_of(xx.dtype, plan, k, mode)
+        smem_of(xx.dtype, plan, k, mode, d)
         if k_id[0, 0].item() != 11:
             raise AssertionError(f"{mode} scan: the tie must go to the lowest row")
         if nq > 1:
@@ -302,8 +309,8 @@ def phase_kernels() -> list[dict]:
         nbytes = n * d * elt + n * 8 + (n * 4 if sc is not None else 0) + nq * d * elt + nq * k * 8
         b_ms, b_by = bound(nbytes, 2.0 * n * d * nq, dtype)
         ms = cuda_ms(lambda: kernel(*args))
-        floor = floor_of(xx, dtype)
-        row = {"name": f"{mode}_scan[{dtype},n={n},q={nq},k={k}]", "route": "cuda",
+        floor = floor_of(xx)
+        row = {"name": f"{mode}_scan[{dtype},n={n},d={d},q={nq},k={k}]", "route": "cuda",
                "plan": plan._asdict(),
                "source": "tpu_rag_torch/csrc/topk.cu", "replaces": replaces, "counter": mode,
                "max_abs_err": chk["max_abs_err"], "ms": ms,
@@ -315,41 +322,106 @@ def phase_kernels() -> list[dict]:
             row["exact_ms_same_shape"] = cuda_ms(lambda: tk._exact_scan_cuda(*args))
             row["library"] = "composite: torch.matmul + round18 + torch.topk"
         rows.append(row)
+    return rows, (xb, x8, s8, ns, canon)
 
+
+def phase_kernels() -> list[dict]:
+    import torch
+
+    from tpu_rag_torch.ops import topk as tk
+    from tpu_rag_torch.ops.quant import quantize_int8_rows
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    floors = {}
+
+    def floor_of(xx):
+        """#4 over the matrix a scan reads: the read floor of that scan
+        (back to back: the device's read rate, not the wrapper's)."""
+        key = (xx.dtype, tuple(xx.shape))
+        if key not in floors:
+            floors[key] = cuda_ms(lambda: tk._read_sum_cuda(xx), iters=5, batch=10)
+        return floors[key]
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    smem_of = _smem_check()
+    plans_checked = _plan_sweep(smem_of, sms)
+    # ---- #1 exact scan: 1M x 384, bf16 (q 8, 64; k_scan 20) and int8 (q 64;
+    # 4k = 40; q 8, k_scan 1024: a rerank of 256 candidates on int8); #2
+    # packed scan at the same rows, bf16 (q 8, k_scan 64 = packed_k_scan(10))
+    # and int8 (q 64, k_scan 80 = packed_k_scan(20))
+    n = 1_000_000
+    rows, (xb, x8, s8, ns, canon) = _scan_rows(
+        g, n, 384, (("exact", "bf16", 8, 20), ("exact", "bf16", 1, 20),
+                    ("exact", "bf16", 64, 20), ("exact", "int8", 64, 40),
+                    ("exact", "int8", 8, 1024), ("packed", "bf16", 8, 64),
+                    ("packed", "int8", 64, 80)), smem_of, sms, floor_of)
     # ---- #3 bucketed scan on the same 1M x 384 bf16 rows, q 32: eval_recall's
     # `bucketed` config (FlatIndex(search_mode="bucketed") over a bf16 store)
-    rows.append(_bucketed_row(g, xb, None, ns, canon, 32, 20, smem_of, sms,
-                              floor_of(xb, "bf16")))
+    rows.append(_bucketed_row(g, xb, None, ns, canon, 32, 20, smem_of, sms, floor_of(xb)))
     # ---- #4 read-rate probe on the 1M x 384 bf16 matrix (the 2M int8 below)
-    rows.append(_floor_row(xb, "bf16", floors.get("bf16")))
+    rows.append(_floor_row(xb, "bf16", floor_of(xb)))
     del xb, x8, s8, ns, canon
     torch.cuda.empty_cache()
 
     # ---- #3 bucketed scan: 2M x 384 int8, q 64, k_scan 40
     n = 2_000_000
-    x, ns, canon = corpus(n)
+    x, ns, canon = _corpus(g, n, 384)
     x8, s8 = quantize_int8_rows(x)
     del x
-    floor = cuda_ms(lambda: tk._read_sum_cuda(x8), iters=5, batch=10)
-    rows.append(_bucketed_row(g, x8, s8, ns, canon, 64, 40, smem_of, sms, floor))
-    rows.append(_floor_row(x8, "int8", floor))
+    rows.append(_bucketed_row(g, x8, s8, ns, canon, 64, 40, smem_of, sms, floor_of(x8)))
+    rows.append(_floor_row(x8, "int8", floor_of(x8)))
     del x8, s8, ns, canon
+    floors.clear()
+    torch.cuda.empty_cache()
+
+    # ---- d 768 (bge-base, rehearse_scale's 1M rows): #1 exact at q 1, 8
+    # and 64, bf16 (k_scan 20: k 10, bf16 refine 2x, the rehearsal's path)
+    # and int8 (k_scan 40: int8 refine 4x); #1 and #2 bf16 at q 8, k_scan
+    # 512 (RERANK_CANDIDATES 256 refined 2x; packed_k_scan(128)): 32-row
+    # stages; #3 bucketed int8 at 2M x 768
+    n = 1_000_000
+    cases = tuple(("exact", dt, nq, k) for dt, k in (("bf16", 20), ("int8", 40))
+                  for nq in (1, 8, 64)) + (("exact", "bf16", 8, 512), ("packed", "bf16", 8, 512))
+    wide, (xb, x8, s8, ns, canon) = _scan_rows(g, n, 768, cases, smem_of, sms, floor_of)
+    rows += wide
+    rows.append(_floor_row(xb, "bf16", floor_of(xb)))
+    del xb, x8, s8, ns, canon
+    floors.clear()
+    torch.cuda.empty_cache()
+    n = 2_000_000
+    x, ns, canon = _corpus(g, n, 768)
+    x8, s8 = quantize_int8_rows(x)
+    del x
+    rows.append(_bucketed_row(g, x8, s8, ns, canon, 64, 40, smem_of, sms, floor_of(x8)))
+    del x8, s8, ns, canon
+    floors.clear()
     torch.cuda.empty_cache()
 
     # ---- #5 attention: B 64, H 12, D 32, bf16, ragged masks, at the
     # encoder's document buckets T 128, 256 and 512, the cross-encoder's
     # shape (20 rerank candidates -> batch 32, T 256), the trained
     # reranker's eval (B 256 at T 160: a ragged last 64-key chunk), and the
-    # f32 kernel (prove_checkpoint's f32 encoder) at B 64, T 256
+    # f32 kernel (prove_checkpoint's f32 encoder) at B 64, T 256; then
+    # head dim 64 (bge-base: 768 wide, 12 heads): mha_tc_kernel<64> at
+    # T 128 (rehearse_scale's documents) and 512 (the largest T), and
+    # mha_f32_kernel<64> at T 256
     for t in (256, 128, 512):
         rows.append(_attention_row(g, 64, t, 12, 32))
     rows.append(_attention_row(g, 32, 256, 12, 32))
     rows.append(_attention_row(g, 256, 160, 12, 32))
     rows.append(_attention_row(g, 64, 256, 12, 32, torch.float32))
+    for t in (128, 512):
+        rows.append(_attention_row(g, 64, t, 12, 64))
+    rows.append(_attention_row(g, 64, 256, 12, 64, torch.float32))
     rows += _probe_kernel_rows(g)
+    rows += _probe_kernel_rows(g, d=768, dtypes=(torch.int8,))
+    rows += _probe_float_rows(g)
     floats = {**_list_checks(g), **_batched_checks(g), **_probe_float_checks(g)}
     emit({"phase": "kernels", "checked": [r["name"] for r in rows] + list(floats),
-          "max_abs_err": {**{r["name"]: r["max_abs_err"] for r in rows}, **floats}})
+          "plans_checked": plans_checked,
+          "max_abs_err": {**{r["name"]: r["max_abs_err"] for r in rows}, **floats},
+          "rows": rows})                 # the kernels line at the end adds the launches
     return rows
 
 
@@ -416,7 +488,7 @@ def _bucketed_row(g, x, scale, ns, canon, nq: int, k: int, smem_of, sms: int,
     kind, elt = ("int8", 1) if int8 else ("bf16", 2)
     bargs = (q, x, scale, ns, canon, -1, -1)
     plan = tk._scan_plan(n, d, nq, 0, x.dtype, sms, "bucketed")
-    smem_of(x.dtype, plan, 0, "bucketed")
+    smem_of(x.dtype, plan, 0, "bucketed", d)
     k_sc, k_id = tk._bucketed_scan_cuda(*bargs)
     p_sc, p_id = tk._bucketed_scan_plain(*bargs)
     torch.cuda.synchronize()
@@ -450,7 +522,7 @@ def _bucketed_row(g, x, scale, ns, canon, nq: int, k: int, smem_of, sms: int,
     nbytes = n * d * elt + n * 8 + (n * 4 if int8 else 0) + nq * d * elt + nq * nb * 8
     b_ms, b_by = bound(nbytes, 2.0 * n * d * nq, kind)
     ms = cuda_ms(lambda: tk._bucketed_scan_cuda(*bargs))
-    return {"name": f"bucketed_scan[{kind},n={n},q={nq}]", "route": "cuda",
+    return {"name": f"bucketed_scan[{kind},n={n},d={d},q={nq}]", "route": "cuda",
             "source": "tpu_rag_torch/csrc/topk.cu",
             "replaces": "tpu_rag/ops/topk.py:284", "counter": "bucketed",
             "plan": plan._asdict(), "max_abs_err": chk["max_abs_err"],
@@ -464,7 +536,7 @@ def _bucketed_row(g, x, scale, ns, canon, nq: int, k: int, smem_of, sms: int,
 def _smem_check():
     """A check that the wrapper's launch plan (ops/topk.py _scan_plan, pure
     Python) and the kernel (csrc/topk.cu tr_scan_smem_bytes) agree on a
-    block's shared-memory bytes."""
+    block's shared-memory bytes at width d."""
     import ctypes
 
     from tpu_rag_torch import _build
@@ -474,12 +546,59 @@ def _smem_check():
     fn.argtypes = [_build.I] * 6
     fn.restype = ctypes.c_size_t
 
-    def check(dtype, plan, k: int, mode: str) -> None:
-        got = int(fn(tk._DTYPE_CODE[dtype], 384, plan.qc, k if mode != "bucketed" else 0,
+    def check(dtype, plan, k: int, mode: str, d: int) -> None:
+        got = int(fn(tk._DTYPE_CODE[dtype], d, plan.qc, k if mode != "bucketed" else 0,
                      tk._SCAN_MODE[mode], plan.stages))
         if got != plan.smem:
-            raise AssertionError(f"scan plan {plan} says {plan.smem} bytes, the kernel {got}")
+            raise AssertionError(f"scan plan {plan} at d {d} says {plan.smem} bytes, "
+                                 f"the kernel {got}")
     return check
+
+
+# the scan depths of tests/test_torch_scan_plan.py
+PLAN_KS = (1, 2, 5, 10, 20, 40, 64, 80, 127, 128, 129, 160, 256, 512, 640, 1000, 1024)
+
+
+def _plan_sweep(smem_of, sms: int) -> dict:
+    """Every scan plan (bf16/int8 x exact/packed/bucketed x q 1-80 x the
+    test's depths) and every IVF probe plan (#6 at q 1/3, k 1/40/128; #7 at
+    q 8/64/80) at d 384 and 768 held against the kernels' own byte counts
+    (tr_scan_smem_bytes, tr_probe_smem_bytes); a scan plan that does not
+    fit raises ValueError in _scan_plan and is counted, not launched."""
+    import torch
+
+    from tpu_rag_torch.ops import ivf_probe as ip
+    from tpu_rag_torch.ops import topk as tk
+
+    out = {"scan_plans": 0, "scan_refused": [], "probe_plans": 0}
+    for d in (384, 768):
+        for dtype in (torch.bfloat16, torch.int8):
+            for mode in ("exact", "packed", "bucketed"):
+                for nq in (1, 2, 8, 9, 16, 32, 33, 64, 80):
+                    for k in (PLAN_KS if mode != "bucketed" else (0,)):
+                        try:
+                            plan = tk._scan_plan(2_000_000, d, nq, k, dtype, sms, mode)
+                        except ValueError:
+                            out["scan_refused"].append(f"{str(dtype)[6:]} {mode} d {d} "
+                                                       f"q {nq} k {k}")
+                            continue
+                        smem_of(dtype, plan, k, mode, d)
+                        out["scan_plans"] += 1
+            for nq in (1, 3):
+                for k in (1, 40, 128):
+                    plan = ip._list_plan(nq, IVF_NPROBE, IVF_CAP, d, dtype, k, sms)
+                    got = ip._smem_bytes(0, tk._DTYPE_CODE[dtype], d, 0, k, plan.stages,
+                                         plan.rows)
+                    if got != plan.smem:
+                        raise AssertionError(f"list plan {plan} at d {d}: kernel {got}")
+                    out["probe_plans"] += 1
+            for nq in (8, 64, 80):
+                plan = ip._bucket_plan(IVF_NLIST, IVF_CAP // 128, nq, d, dtype, sms)
+                got = ip._smem_bytes(1, tk._DTYPE_CODE[dtype], d, plan.qc, 0, plan.stages)
+                if got != plan.smem:
+                    raise AssertionError(f"bucket plan {plan} at d {d}: kernel {got}")
+                out["probe_plans"] += 1
+    return out
 
 
 def _floor_row(x, dtype: str, ms: float | None) -> dict:
@@ -529,11 +648,12 @@ def _probed(lists, ns) -> tuple[int, int]:
     return len(uniq), int((ns[uniq.long()] != PAD_TAG).sum())
 
 
-def _probe_kernel_rows(g) -> list[dict]:
-    """#6 and #7 against their plain versions at the ivf phase's shapes, on
-    random lists; each list is ~half filled, the rest PAD, as there.  #6 at
-    one and three queries on int8 lists and at one on bf16 lists (IVFIndex's
-    default); #7 at 8 and 64 queries on int8 lists.  #6's `device_ms` is its
+def _probe_kernel_rows(g, d: int = 384, dtypes=None) -> list[dict]:
+    """#6 and #7 against their plain versions at the ivf phase's shapes (at
+    width d), on random lists; each list is ~half filled, the rest PAD, as
+    there.  #6 at one and three queries on int8 lists and at one on bf16
+    lists (IVFIndex's default; `dtypes` (torch.int8,) leaves it out); #7 at
+    8 and 64 queries on int8 lists.  #6's `device_ms` is its
     kernel's own time (torch.profiler; ten calls back to back would time
     the host's wrapper, which takes longer); `pct_of_bound` is the bound
     over `device_ms`.  No row filters, so the bounds count no canon tag."""
@@ -544,7 +664,8 @@ def _probe_kernel_rows(g) -> list[dict]:
     from tpu_rag_torch.ops.topk import PAD_TAG
 
     dev = torch.device("cuda")
-    d, nlist, cap, nprobe, k_eff, m = 384, IVF_NLIST, IVF_CAP, IVF_NPROBE, IVF_KSCAN, 2
+    nlist, cap, nprobe, k_eff, m = IVF_NLIST, IVF_CAP, IVF_NPROBE, IVF_KSCAN, 2
+    dtypes = dtypes or (torch.int8, torch.bfloat16)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     vec = torch.randint(-127, 128, (nlist, cap, d), generator=g, device=dev, dtype=torch.int8)
     scale = torch.rand((nlist, cap), generator=g, device=dev) * 1e-3 + 1e-3
@@ -558,6 +679,8 @@ def _probe_kernel_rows(g) -> list[dict]:
     centroids /= centroids.norm(dim=1, keepdim=True)
     rows = []
     for nq, dtype in ((1, torch.int8), (3, torch.int8), (1, torch.bfloat16)):   # ---- #6
+        if dtype not in dtypes:
+            continue
         qf = torch.randn((nq, d), generator=g, device=dev)
         qf[0] = centroids[3]                                # probes list 3 first
         lists = ip._top_lists(qf, centroids, nprobe)
@@ -599,7 +722,7 @@ def _probe_kernel_rows(g) -> list[dict]:
         dev_ms = kernel_ms(lambda: ip._probe_list_cuda(*args), "probe_split_kernel")
         dt = str(dtype)[6:]
         rows.append({"name": f"ivf_probe_per_list[{dt},q={nq},nprobe={nprobe},cap={cap},"
-                             f"k={k_eff}]", "route": "cuda",
+                             f"d={d},k={k_eff}]", "route": "cuda",
                      "source": "tpu_rag_torch/csrc/ivf_probe.cu",
                      "replaces": "tpu_rag/ops/ivf_probe.py:41", "counter": "per_list",
                      "plan": ip._list_plan(nq, nprobe, cap, d, dtype, k_eff, sms)._asdict(),
@@ -645,7 +768,7 @@ def _probe_kernel_rows(g) -> list[dict]:
         b_ms, b_by = bound(nbytes, 2.0 * live * d * nq, "int8")
         ms = cuda_ms(lambda: ip._probe_batched_cuda(*args))
         rows.append({"name": f"ivf_probe_batched[int8,q={nq},nprobe={nprobe},cap={cap},"
-                             f"m={m},union={nu}]", "route": "cuda",
+                             f"d={d},m={m},union={nu}]", "route": "cuda",
                      "source": "tpu_rag_torch/csrc/ivf_probe.cu",
                      "replaces": "tpu_rag/ops/ivf_probe.py:237", "counter": "batched",
                      "plan": ip._bucket_plan(uniq.shape[0], cap // 128, nq, d, torch.int8,
@@ -883,6 +1006,91 @@ def _probe_float_checks(g) -> dict:
         out[f"ivf_probes[{str(dtype)[6:]},q=3/80,nprobe={nprobe},cap={cap}]"] = err
     torch.cuda.empty_cache()
     return out
+
+
+def _probe_float_rows(g) -> list[dict]:
+    """Rows for #6 and #7 on f32 lists (probe_list_kernel and
+    batched_bucket_kernel, the f32 forms of IVFIndex(dtype="float32")) at
+    _probe_float_checks's geometry, every list ~90% live: #6 at three
+    queries, #7 at 80 (two query chunks), each against its plain version
+    (scores within 1e-4, ids but in ties) and timed beside it and the
+    gather + bmm + topk composite."""
+    import torch
+
+    from tpu_rag_torch.ops import ivf_probe as ip
+    from tpu_rag_torch.ops.topk import PAD_TAG
+
+    dev = torch.device("cuda")
+    nlist, cap, d, nprobe, k_eff, m, tol = 256, 1024, 384, 16, 40, 2, 1e-4
+    vec = torch.randn((nlist, cap, d), generator=g, device=dev)
+    vec = vec / vec.norm(dim=2, keepdim=True)
+    scale = torch.ones((nlist, cap), device=dev)
+    ns = torch.randint(0, 4, (nlist, cap), generator=g, device=dev, dtype=torch.int32)
+    ns[:, -100:] = PAD_TAG
+    canon = torch.randint(0, 2, (nlist, cap), generator=g, device=dev, dtype=torch.int32)
+    centroids = torch.randn((nlist, d), generator=g, device=dev)
+    rows = []
+    for nq in (3, 80):
+        q = torch.randn((nq, d), generator=g, device=dev)
+        q = q / q.norm(dim=1, keepdim=True)
+        lists = ip._top_lists(q, centroids, nprobe)
+        flat = lists.reshape(-1)
+        if nq == 3:                                                   # ---- #6
+            args = (q, lists, vec, scale, ns, canon, -1, -1, k_eff)
+            kern, plain, what = ip._probe_list_cuda, ip._probe_list_plain, "per_list"
+            chk = _id_check(*(t.view(-1, k_eff) for t in kern(*args)),
+                            *(t.view(-1, k_eff) for t in plain(*args)), tol)
+            err = chk["max_abs_err"]
+
+            def library(flat=flat, q=q):
+                s = torch.bmm(vec[flat], q.repeat_interleave(nprobe, 0)[:, :, None])[..., 0]
+                s = torch.where(ns[flat] != PAD_TAG, s, -math.inf)
+                return torch.topk(s, k_eff, dim=1)
+
+            n_lists, live = _probed(lists, ns)
+            pairs = int((ns[flat] != PAD_TAG).sum())
+            nbytes = (n_lists * cap * 4 + live * d * 4 + nq * d * 4 + lists.numel() * 4
+                      + nq * nprobe * k_eff * 8)
+            b_ms, b_by = bound(nbytes, 2.0 * pairs * d, "f32")
+            name = f"ivf_probe_per_list[f32,q={nq},nprobe={nprobe},cap={cap},d={d},k={k_eff}]"
+            replaces, kname = "tpu_rag/ops/ivf_probe.py:41", "probe_list_kernel"
+        else:                                                         # ---- #7
+            uniq, n_uniq, _ = ip._dedup(lists, nlist)
+            args = (q, uniq, n_uniq, vec, scale, ns, canon, -1, -1, m)
+            kern, plain, what = ip._probe_batched_cuda, ip._probe_batched_plain, "batched"
+            (k_sc, k_id), (p_sc, p_id) = kern(*args), plain(*args)
+            fin = torch.isfinite(p_sc)
+            if not torch.equal(torch.isfinite(k_sc), fin):
+                raise AssertionError("batched probe f32: -inf slots differ from the plain version")
+            err = float((k_sc[fin] - p_sc[fin]).abs().max())
+            if err > tol:
+                raise AssertionError(f"batched probe f32: score error {err}")
+            nu = int(n_uniq)
+            lst = uniq[:nu].long()
+
+            def library(lst=lst, q=q, nq=nq):
+                s = torch.bmm(vec[lst], q.T.expand(len(lst), d, nq))
+                s = torch.where((ns[lst] != PAD_TAG)[..., None], s, -math.inf)
+                s = s.transpose(1, 2).reshape(len(lst), nq, cap // 128, 128)
+                return torch.topk(s, m, dim=3)
+
+            _, live = _probed(lst, ns)
+            nbytes = nu * cap * 4 + live * d * 4 + nq * d * 4 + nu * 4 + nu * nq * m * (cap // 128) * 8
+            b_ms, b_by = bound(nbytes, 2.0 * live * d * nq, "f32")
+            name = f"ivf_probe_batched[f32,q={nq},nprobe={nprobe},cap={cap},d={d},m={m},union={nu}]"
+            replaces, kname = "tpu_rag/ops/ivf_probe.py:237", "batched_bucket_kernel"
+        torch.cuda.synchronize()
+        dev_ms = kernel_ms(lambda: kern(*args), kname)
+        rows.append({"name": name, "route": "cuda", "source": "tpu_rag_torch/csrc/ivf_probe.cu",
+                     "replaces": replaces, "counter": what, "max_abs_err": err,
+                     "ms": cuda_ms(lambda: kern(*args)), "device_ms": dev_ms,
+                     "plain_ms": cuda_ms(lambda: plain(*args), iters=5),
+                     "library_ms": cuda_ms(library, iters=5),
+                     "library": "composite: list gather + torch.bmm + torch.topk",
+                     "bound_ms": b_ms, "bound_by": b_by, "pct_of_bound": 100.0 * b_ms / dev_ms})
+    del vec, scale, ns, canon
+    torch.cuda.empty_cache()
+    return rows
 
 
 def _counters():
@@ -1686,69 +1894,39 @@ HIVF_ROWS, HIVF_NLIST, HIVF_NPROBE, HIVF_CHUNK, HIVF_TRAIN = (
 
 def phase_host_ivf(work: Path, n: int = HIVF_ROWS, nlist: int = HIVF_NLIST,
                    device: str = "cuda") -> dict:
-    """HostArenaIVF at a corpus whose lists live in host RAM: built from
-    chunks born on the card, searched in batches of 8 (the gathered union
+    """HostArenaIVF at a corpus whose lists live in host RAM, through
+    tpu_rag_torch/scripts/rehearse_host_ivf.py's run(): built from chunks
+    born on the card, its exact truth (the stored int8 rows streamed to the
+    card) and its nprobe sweep; then batches of 8 (the gathered union
     through #1, one batch through #2), saved and loaded with mmap."""
     import numpy as np
     import torch
 
     from tpu_rag_torch.index.host_ivf import HostArenaIVF
-    from tpu_rag_torch.ops.quant import quantize_int8_rows
-    from tpu_rag_torch.ops.topk import fused_matmul_topk
+    from tpu_rag_torch.scripts import rehearse_host_ivf
 
     d, k, qb, nbatch = 384, 10, 8, 4
+    args = rehearse_host_ivf.parser().parse_args([
+        "--n", str(n), "--d", str(d), "--nlist", str(nlist), "--chunk", str(HIVF_CHUNK),
+        "--queries", str(qb * nbatch), "--qbatch", str(qb), "--train-sample", str(HIVF_TRAIN),
+        "--k", str(k), "--seed", str(SEED + 4), "--device", device])
     dev = torch.device(device)
-    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    g = torch.Generator(device=dev).manual_seed(SEED + 4)
-    bq, _ = torch.linalg.qr(torch.randn((d, d), generator=g, device=dev).cpu())
-    basis = (bq * torch.arange(1, d + 1, dtype=torch.float32).rsqrt()[:, None]).to(dev)
-
-    def gen(rows):
-        z = torch.randn((rows, d), generator=g, device=dev) @ basis
-        return z * torch.rsqrt((z * z).sum(dim=1, keepdim=True) + 1e-9)
-
-    ivf = HostArenaIVF(d, nlist=nlist, nprobe=HIVF_NPROBE, cap_factor=2.0,
-                       expected_rows=n, max_overflow=max(2_000_000, n // 4), device=dev)
-    t0 = time.perf_counter()
-    ivf.train(gen(min(HIVF_TRAIN, n)))
-    sync()
-    train_s = time.perf_counter() - t0
-    # the int8 corpus stays on the card too: the recall reference is #1 over it
-    x8 = torch.empty((n, d), dtype=torch.int8, device=dev)
-    s8 = torch.empty((n,), dtype=torch.float32, device=dev)
-    t0 = time.perf_counter()
-    for off in range(0, n, HIVF_CHUNK):
-        c = gen(min(HIVF_CHUNK, n - off))
-        if off == 0:
-            first = c[:qb * nbatch].clone()
-        ivf.add(c)
-        x8[off:off + len(c)], s8[off:off + len(c)] = quantize_int8_rows(c)
-    sync()
-    add_s = time.perf_counter() - t0
-    eps = gen(qb * nbatch)
-    q = first + 0.25 * eps
-    q = (q / q.norm(dim=1, keepdim=True)).cpu().numpy()
-    batches = [q[i:i + qb] for i in range(0, len(q), qb)]
-
     _reset_counters()
-    ivf.search(batches[0], k)                      # first use: staging buffers
+    rep, ivf, q, truth = rehearse_host_ivf.run(args)
+    batches = [q[i:i + qb] for i in range(0, len(q), qb)]
     lat, splits, rows = [], [], {}
     for _ in range(2):
         for i, b in enumerate(batches):
             t1 = time.perf_counter()
-            _, rows[i] = ivf.search(b, k)
+            _, rows[i] = ivf.search(b, k, nprobe=HIVF_NPROBE)
             lat.append((time.perf_counter() - t1) * 1e3)
             splits.append(ivf.last_search_stats)
     t1 = time.perf_counter()
-    p_sc, p_rows = ivf.search(batches[0], k, mode="packed")
+    p_sc, p_rows = ivf.search(batches[0], k, nprobe=HIVF_NPROBE, mode="packed")
     packed_ms = (time.perf_counter() - t1) * 1e3
     counts = _read_counters()
     if counts["exact"] < 1 or counts["packed"] < 1:
         raise AssertionError(f"host-arena search did not launch #1 and #2: {counts}")
-
-    t1 = time.perf_counter()
-    truth = fused_matmul_topk(torch.from_numpy(q).to(dev), x8, k, db_scales=s8)[1].cpu().numpy()
-    truth_ms = (time.perf_counter() - t1) * 1e3
 
     def recall(got, want):
         return float(np.mean([len(set(a[a >= 0].tolist()) & set(b.tolist())) / k
@@ -1763,10 +1941,10 @@ def phase_host_ivf(work: Path, n: int = HIVF_ROWS, nlist: int = HIVF_NLIST,
     t1 = time.perf_counter()
     ivf.save(str(work / "hivf"))
     save_s = time.perf_counter() - t1
-    sc0, rows0 = ivf.search(batches[1], k)
+    sc0, rows0 = ivf.search(batches[1], k, nprobe=HIVF_NPROBE)
     t1 = time.perf_counter()
     back = HostArenaIVF.load(str(work / "hivf"), mmap=True, device=dev)
-    sc1, rows1 = back.search(batches[1], k)
+    sc1, rows1 = back.search(batches[1], k, nprobe=HIVF_NPROBE)
     reload_ms = (time.perf_counter() - t1) * 1e3
     if not (np.array_equal(rows0, rows1) and np.allclose(sc0, sc1, rtol=0, atol=1e-5)):
         raise AssertionError("the mmap-loaded store searches differently")
@@ -1774,7 +1952,7 @@ def phase_host_ivf(work: Path, n: int = HIVF_ROWS, nlist: int = HIVF_NLIST,
     out = {"phase": "host_ivf", "rows": n, "nlist": nlist, "cap": ivf.cap,
            "nprobe": HIVF_NPROBE, "spilled_rows": ivf.spilled_rows,
            "host_list_bytes": int(ivf._vec.nbytes + 4 * ivf._scale.nbytes + ivf._fill.nbytes),
-           "build_s": {"train": train_s, "add": add_s},
+           "build_s": {"train": rep["train_s"], "add": rep["build"]["seconds"]},
            "batch_ms": lat, "batch_ms_p50": statistics.median(lat),
            "split_ms_p50": {kk: statistics.median(s_[kk] for s_ in splits)
                             for kk in keys if kk in splits[0]},
@@ -1782,10 +1960,11 @@ def phase_host_ivf(work: Path, n: int = HIVF_ROWS, nlist: int = HIVF_NLIST,
            "recall_at_10_vs_int8_exact": rec, "packed_batch": {
                "ms": packed_ms, "recall_at_10_vs_int8_exact": rec_packed,
                "exact_recall_same_batch": rec_exact0},
-           "truth_scan_ms": truth_ms, "save_s": save_s,
-           "mmap_load_and_search_ms": reload_ms, "launches": counts}
+           "truth_s": rep["gt_seconds_host"], "save_s": save_s,
+           "mmap_load_and_search_ms": reload_ms, "launches": counts,
+           "rehearse_host_ivf": rep}
     emit(out)
-    del ivf, back, x8, s8
+    del ivf, back
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return counts
@@ -1958,6 +2137,73 @@ class _CorpusJob:
         self._waiter.join(60)
 
 
+# the CPU-ANN baseline: bench.py's vs_baseline geometry (100,000 x 384
+# clustered rows, 256 centres, noise 0.25, 64 queries, k 10; M 16,
+# ef_construction 100, ef 64)
+HNSW_ROWS, HNSW_DIM, HNSW_QUERIES = 100_000, 384, 64
+
+
+def hnsw_baseline() -> dict:
+    """The port's CPU HNSW (tpu_rag_torch/baseline) on bench.py's corpus:
+    build seconds, recall@10 against numpy's exact top 10, and QPS of 20
+    batches of 64 queries on every core."""
+    import os
+
+    import numpy as np
+
+    from tpu_rag_torch.baseline import CpuHnswIndex
+
+    n, d, k = HNSW_ROWS, HNSW_DIM, 10
+    rng = np.random.default_rng(0)
+    centers = rng.standard_normal((256, d)).astype(np.float32)
+    x = (centers[rng.integers(0, 256, n)] + 0.25 * rng.standard_normal((n, d))).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    q = (centers[rng.integers(0, 256, HNSW_QUERIES)]
+         + 0.25 * rng.standard_normal((HNSW_QUERIES, d))).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    truth = np.argsort(-(q @ x.T), axis=1, kind="stable")[:, :k]
+    t0 = time.perf_counter()
+    index = CpuHnswIndex(d, n, m=16, ef_construction=100)
+    index.add(x)
+    build_s = time.perf_counter() - t0
+    index.search(q, k, ef=64)                      # warm
+    t0 = time.perf_counter()
+    for _ in range(20):
+        ids, _ = index.search(q, k, ef=64)
+    qps = HNSW_QUERIES * 20 / (time.perf_counter() - t0)
+    recall = float(np.mean([len(set(ids[i]) & set(truth[i])) / k for i in range(len(q))]))
+    return {"rows": n, "dim": d, "m": 16, "ef_construction": 100, "ef_search": 64,
+            "build_s": build_s, "recall_at_10": recall, "qps": qps,
+            "threads": os.cpu_count()}
+
+
+class _HnswJob:
+    """hnsw_baseline() in a process of its own, started beside the kernel
+    build: the graph's build is single-threaded C++ for minutes, on one core
+    of the card machine's eight.  Leaving the context kills it if it still
+    runs."""
+
+    def __init__(self) -> None:
+        self._proc = subprocess.Popen(
+            [sys.executable, "-c", "import json, chip_smoke; "
+             "print(json.dumps(chip_smoke.hnsw_baseline()))"],
+            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def result(self, timeout: float = 900.0) -> dict:
+        out, err = self._proc.communicate(timeout=timeout)
+        if self._proc.returncode != 0:
+            raise RuntimeError(f"hnsw_baseline exited {self._proc.returncode}: {err[-2000:]}")
+        return json.loads(out.strip().splitlines()[-1])
+
+    def __enter__(self) -> "_HnswJob":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._proc.poll() is None:
+            self._proc.kill()
+            self._proc.communicate()
+
+
 def phase_train(work: Path, corpus_job: _CorpusJob) -> dict:
     """train_semantic on the card: the corpus (make_corpus, started beside
     the build), vocab, contrastive training timed step by step (one step
@@ -2127,6 +2373,38 @@ def _rank_step_flops(module, batch: int, t: int) -> float:
     return 6 * params * batch * t + 3 * spec.layers * batch * 4 * spec.hidden * t * t
 
 
+# the tokenizers' speed: the pairs of this many held-out queries, each with
+# cand_k bodies, as the held-out lift scores them
+TOKENIZE_QUERIES = 200
+
+
+def _tokenizer_speed(tok, vocab_path: str, data, cand_k: int) -> dict:
+    """Tokens a second of the native WordPiece and of the Python one on
+    (held-out query, body) pairs as train_reranker's held-out lift forms
+    them (each query with cand_k bodies), on the host's CPU; the ids must
+    be equal."""
+    from tpu_rag_torch.models.tokenizer import WordPieceTokenizer
+
+    if tok.backend != "native":
+        raise AssertionError(f"the reranker's tokenizer is {tok.backend}")
+    python = WordPieceTokenizer(vocab_path)
+    python._native = None
+    nb = len(data.bodies)
+    pairs = [(d["query"], data.bodies[(data.id_pos[d["id"]] + j) % nb])
+             for d in data.holdout[:TOKENIZE_QUERIES] for j in range(cand_k)]
+    out, ids = {"pairs": len(pairs)}, {}
+    for name, t in (("native", tok), ("python", python)):
+        t0 = time.perf_counter()
+        ids[name] = [(t.tokenize_ids(a), t.tokenize_ids(b)) for a, b in pairs]
+        secs = time.perf_counter() - t0
+        n_tok = sum(len(a) + len(b) for a, b in ids[name])
+        out[name] = {"seconds": secs, "tokens": n_tok, "tokens_per_s": n_tok / secs}
+    if ids["native"] != ids["python"]:
+        raise AssertionError("the native and Python tokenizers disagree on the eval's pairs")
+    out["native_over_python"] = out["native"]["tokens_per_s"] / out["python"]["tokens_per_s"]
+    return out
+
+
 def phase_rerank_train(work: Path, corpus: Path) -> dict:
     """train_reranker on the card over the train phase's corpus and
     bi-encoder (work/semantic): mining (the bi-encoder's embeds launch #5),
@@ -2157,6 +2435,8 @@ def phase_rerank_train(work: Path, corpus: Path) -> dict:
     tok = load_tokenizer(vocab_path, vocab_size=30522)
     data = tr.make_data(args, tr.load_corpus(args.corpus), tok)
     seconds["tokenize"] = time.perf_counter() - t0
+    tok_speed = _tokenizer_speed(tok, vocab_path, data, args.cand_k)
+    emit({"phase": "rerank_train", "tokenizer_speed": tok_speed})
 
     _reset_counters()
     t0 = time.perf_counter()
@@ -2261,6 +2541,7 @@ def phase_rerank_train(work: Path, corpus: Path) -> dict:
                    "profiled_step": "one step under the profiler, out of the timed ones"},
           "spec": {"hidden": spec.hidden, "layers": spec.layers, "heads": spec.heads,
                    "ffn": spec.ffn, "vocab": spec.vocab_size, "max_len": spec.max_len},
+          "tokenizer_speed": tok_speed,
           "batch_pairs": args.batch, "group": 1 + args.neg_per_pos, "seq_len": args.seq_len,
           "lr": args.lr, "hard_k": args.hard_k, "cand_k": args.cand_k,
           "compute_dtype": "bf16", "train_docs": len(data.train_docs),
@@ -2351,17 +2632,21 @@ def _run_tool(main, argv: list[str]) -> tuple[object, str, float]:
 SCRIPTS_EVAL_ROWS = 1_000_000
 
 
-def phase_scripts(work: Path) -> dict:
+def phase_scripts(work: Path, hnsw_job: _HnswJob) -> dict:
     """The offline entry points in process on the card, over the train
     phase's bi-encoder (work/semantic): build_index + query_local over
     examples/docs (#5, #1), eval_recall --synthetic 1,000,000 at bf16, int8,
     bucketed and ivf (#1, #3 on bf16 rows, #7), prove_checkpoint (the f32
-    encoder: #5's f32 kernel)."""
+    encoder: #5's f32 kernel), bench_scale flat-1m-bf16 at d 768 (its five
+    paths: the plain scan, #1, #2, #3, #4) and encoder-minilm (short texts:
+    the plain attention at T 32); and the CPU HNSW baseline, built in its
+    own process since the phases began."""
     import torch
 
     from tpu_rag_torch.ops import attention as att
     from tpu_rag_torch.ops import topk as tk
-    from tpu_rag_torch.scripts import build_index, eval_recall, prove_checkpoint, query_local
+    from tpu_rag_torch.scripts import (bench_scale, build_index, eval_recall,
+                                       prove_checkpoint, query_local)
 
     semantic, root = work / "semantic", work / "scripts"
     out, launches = {}, {}
@@ -2422,13 +2707,94 @@ def phase_scripts(work: Path) -> dict:
         raise AssertionError(f"prove_checkpoint exited {rc}: {report}; #5 on {set(mha_dtypes)}")
     out["prove_checkpoint"] = {"seconds": secs, "exit": rc, "report": report,
                                "mha_f32_launches": mha_dtypes.count(torch.float32)}
+
+    _reset_counters()
+    _, text, secs = _run_tool(bench_scale.main, ["--config", "flat-1m-bf16", "--d", "768",
+                                                 "--device", "cuda"])
+    counts = counted("bench_scale_flat")
+    flat = json.loads(text.strip().splitlines()[-1])
+    paths = set(flat["paths_ms"])
+    if paths != set(bench_scale.PATHS.values()) or min(
+            counts[c] for c in ("exact", "packed", "bucketed", "floor")) < 1:
+        raise AssertionError(f"bench_scale flat-1m-bf16: paths {sorted(paths)}, {counts}")
+    out["bench_scale_flat_1m_768"] = {"seconds": secs, **flat}
+    _reset_counters()
+    _, text, secs = _run_tool(bench_scale.main, ["--config", "encoder-minilm",
+                                                 "--device", "cuda"])
+    counted("bench_scale_encoder")      # its ~25-token texts run T 32: no #5
+    enc = json.loads(text.strip().splitlines()[-1])
+    if enc["dim"] != 384 or enc["n"] != 4096 or not enc["texts_per_second"] > 0:
+        raise AssertionError(f"bench_scale encoder-minilm: {enc}")
+    out["bench_scale_encoder_minilm"] = {"seconds": secs, **enc}
+
+    t0 = time.perf_counter()
+    hnsw = hnsw_job.result()
+    out["hnsw_baseline"] = {**hnsw, "waited_s": time.perf_counter() - t0}
+    if hnsw["recall_at_10"] < 0.9:
+        raise AssertionError(f"the HNSW baseline's recall@10 is {hnsw['recall_at_10']}")
     emit({"phase": "scripts", **out})
     return launches
 
 
+@contextlib.contextmanager
+def _wordpiece_backends():
+    """Record the backend ("native" or "python") of every WordPieceTokenizer
+    built in the block: yields the list."""
+    from tpu_rag_torch.models import tokenizer as tz
+
+    init, built = tz.WordPieceTokenizer.__init__, []
+
+    def recorded(self, *a, **k):
+        init(self, *a, **k)
+        built.append(self.backend)
+
+    tz.WordPieceTokenizer.__init__ = recorded
+    try:
+        yield built
+    finally:
+        tz.WordPieceTokenizer.__init__ = init
+
+
+# rehearse: scripts/rehearse_scale.py's defaults (1M rows, 20,000 real
+# documents, 16 queries, k 10, bge-base at T 128, batch 128)
+REHEARSE_RECALL_MIN = 0.99
+
+
+def phase_rehearse(work: Path, corpus: Path) -> dict:
+    """tpu_rag_torch/scripts/rehearse_scale.py at its defaults on the card
+    over `corpus` (make_corpus's): bge-base (768 wide, head dim 64: #5's
+    mha_tc_kernel<64>) embeds 20,000 documents, a 1M x 768 FlatIndex (bf16:
+    #1 at d 768) serves the index API and HTTP /search, and bench_http
+    loads it from its own process.  Fails unless both recalls@10 against
+    f32 exact reach REHEARSE_RECALL_MIN, the load had no failed request,
+    #1 and #5 launched, and the tokenizer ran natively."""
+    from tpu_rag_torch.scripts import rehearse_scale
+
+    _reset_counters()
+    with _wordpiece_backends() as built:
+        rep, _, secs = _run_tool(rehearse_scale.main, ["--corpus", str(corpus),
+                                                        "--device", "cuda"])
+    counts = _read_counters()
+    emit({"phase": "rehearse", "seconds": secs, "tokenizers_built": built,
+          "launches": counts, "report": rep})
+    load = rep.get("http_load", {})
+    recalls = (rep["index_api"]["recall_at_10_vs_f32"], rep["http"]["recall_at_10_vs_f32"])
+    if min(recalls) < REHEARSE_RECALL_MIN:
+        raise AssertionError(f"rehearse_scale recall@10 (index API, HTTP) {recalls}")
+    if "error" in load or load.get("requests_failed") != 0:
+        raise AssertionError(f"rehearse_scale's bench_http load: {load}")
+    if counts["exact"] < 1 or counts["mha"] < 1:
+        raise AssertionError(f"rehearse_scale did not launch #1 and #5: {counts}")
+    if rep["encoder"]["tokenizer"] != "native" or not built:
+        raise AssertionError(f"rehearse_scale tokenized with {rep['encoder']['tokenizer']}")
+    if rep["dim"] != 768 or rep["ingest"]["rows"] != 1_000_000:
+        raise AssertionError(f"rehearse_scale ran {rep['dim']} x {rep['ingest']['rows']}")
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    all_phases = "build,kernels,serve,scale,ivf,host_ivf,train,rerank_train,scripts"
+    all_phases = "build,kernels,serve,scale,ivf,host_ivf,train,scripts,rehearse,rerank_train"
     ap.add_argument("--phases", default=all_phases,
                     help=f"comma-separated subset of {all_phases}; rerank_train and "
                          f"scripts read what train writes")
@@ -2462,10 +2828,13 @@ def main() -> int:
     rows, launches = [], {}
     (REPO / "build").mkdir(exist_ok=True)
     with contextlib.ExitStack() as stack:
-        if "train" in phases:
+        if {"train", "rehearse"} & set(phases):
             corpus_dir = stack.enter_context(tempfile.TemporaryDirectory(
                 prefix="chip_smoke_corpus_", dir=REPO / "build"))
             corpus = stack.enter_context(_CorpusJob(Path(corpus_dir)))
+        if "scripts" in phases:
+            hnsw = stack.enter_context(_HnswJob())
+        if "train" in phases:
             # train, rerank_train and scripts share one work directory: the
             # corpus, the bi-encoder and the served store carry over
             trained = Path(stack.enter_context(tempfile.TemporaryDirectory(
@@ -2476,21 +2845,28 @@ def main() -> int:
             rows = phase_kernels()
         # each phase drives its part of the path with the counters zeroed
         # first; a kernel's launches are the sum over the phases that ran
+        # rerank_train last: the phases that need only train's work run
+        # (and report) whatever its outcome
         runs = {"serve": phase_serve, "scale": lambda _work: phase_scale(),
                 "ivf": phase_ivf, "host_ivf": phase_host_ivf,
                 "train": lambda _work: phase_train(trained, corpus),
-                "rerank_train": lambda _work: phase_rerank_train(trained, corpus.path),
-                "scripts": lambda _work: phase_scripts(trained)}
-        seconds = {}
+                "scripts": lambda _work: phase_scripts(trained, hnsw),
+                "rehearse": lambda work: phase_rehearse(work, corpus.result()[0]),
+                "rerank_train": lambda _work: phase_rerank_train(trained, corpus.path)}
+        seconds, backends = {}, {}
         for name, run in runs.items():
             if name in phases:
                 t0 = time.perf_counter()
                 with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{name}_",
-                                                 dir=REPO / "build") as work:
+                                                 dir=REPO / "build") as work, \
+                        _wordpiece_backends() as built:
                     for kern, count in run(Path(work)).items():
                         launches[kern] = launches.get(kern, 0) + count
                 seconds[name] = time.perf_counter() - t0
-    emit({"phase_seconds": seconds})
+                backends[name] = sorted(set(built))
+                if set(built) - {"native"}:
+                    raise AssertionError(f"the {name} phase tokenized in Python: {built}")
+    emit({"phase_seconds": seconds, "wordpiece_backends": backends})
     for r in rows:
         r["launches"] = launches.get(r.pop("counter"))
     emit({"kernels": rows})

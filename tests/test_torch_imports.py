@@ -2,7 +2,8 @@
 requests, transformers nor safetensors (the machine with the card has none
 of them) to import every module, serve /compose on the extractive backend
 and /search with rerank, and run `python -m tpu_rag_torch.scripts.<tool>
---help` for every entry point; asking for CUDA without a card raises
+--help` for every entry point (the native/ and baseline/ modules included,
+which tokenize and search in C++ built at first use); asking for CUDA without a card raises
 instead of falling back to the CPU."""
 
 import os
@@ -43,9 +44,19 @@ out = client.post("/search", json={"query": "moon temple", "k": 2, "rerank": Tru
 assert out["reranked"] is True and "rerank_score" in out["hits"][0], out
 client.app.state["engine"].shutdown()
 
+import numpy as np
+from tpu_rag_torch.baseline import CpuHnswIndex
+from tpu_rag_torch.models.tokenizer import WordPieceTokenizer
+assert WordPieceTokenizer("examples/vocab.txt").backend == "native"
+hnsw = CpuHnswIndex(8, 8)
+hnsw.add(np.eye(8, dtype=np.float32))
+assert hnsw.search(np.eye(8, dtype=np.float32)[3:4], 1)[0].tolist() == [[3]]
+
 import runpy
 for tool in ("train_semantic", "train_reranker", "build_index", "ingest_docs", "bulk_import",
-             "query_local", "rag_ask", "eval_recall", "prove_checkpoint"):
+             "query_local", "rag_ask", "eval_recall", "prove_checkpoint", "bench_http",
+             "bench_scale", "rehearse_scale", "rehearse_host_ivf", "make_demo_corpus",
+             "md_to_json", "import_chat_history"):
     sys.argv = [tool, "--help"]
     try:
         runpy.run_module("tpu_rag_torch.scripts." + tool, run_name="__main__")
@@ -66,7 +77,8 @@ def test_every_module_imports_with_jax_and_tpu_rag_blocked():
     assert "--corpus" in out.stdout          # train_semantic --help ran
     assert "--biencoder" in out.stdout and "--embedding-weights" in out.stdout
     assert "--synthetic" in out.stdout and "--api" in out.stdout
-    assert int(out.stdout.strip().splitlines()[-1]) >= 80   # every module of the package
+    assert "--concurrency" in out.stdout and "--dim-model" in out.stdout   # the scale tools
+    assert int(out.stdout.strip().splitlines()[-1]) >= 91   # every module of the package
 
 
 def test_cuda_without_a_card_raises(tmp_path):

@@ -125,3 +125,55 @@ def test_prefix_seed_keeps_the_top_k(mode):
     got_sc, got_id = tk.select_topk(kept, None, k)
     assert torch.equal(got_id, want_id) and torch.equal(got_sc, want_sc)
     assert int(want_id[0, 0]) == 7
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("mode", ["exact", "packed", "bucketed"])
+@pytest.mark.parametrize("n", [1, 129, 5000, 1_000_000, 2_000_000])
+def test_d768_blocks_cover_rows_once_in_order(dtype, mode, n):
+    """bge-base's width: the same cover, contiguous and in block order."""
+    for nq in (1, 8, 64, 80):
+        plan = tk._scan_plan(n, 768, nq, 20, dtype, SMS, mode)
+        assert plan.block_rows % tk.BUCKET == 0
+        ranges = _ranges(n, plan)
+        assert ranges[0][0] == 0 and ranges[-1][1] == n
+        assert all(e == b for (_, e), (b, _) in zip(ranges, ranges[1:]))
+        assert sum(e - b for b, e in ranges) == n and all(b < e for b, e in ranges)
+        assert plan.blocks * -(-nq // plan.qc) <= SMS or plan.block_rows == tk.BUCKET
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("mode", ["exact", "packed", "bucketed"])
+def test_d768_every_plan_fits_shared_memory(dtype, mode):
+    """At d 768 a 128-row bf16 stage is 198,656 bytes: a plan falls back to
+    64-row stages, and for a chunk of 8 queries whose lists leave no room
+    for two of those (bf16 above k 252) to 32-row stages; every depth up to
+    K_MAX fits, with the kernel's own arithmetic (_pipe_smem)."""
+    elt = tk._ELT[dtype]
+    for k in (KS if mode != "bucketed" else (0,)):
+        for nq in (1, 2, 7, 8, 9, 16, 31, 32, 33, 63, 64, 80, 128):
+            plan = tk._scan_plan(1_000_000, 768, nq, k, dtype, SMS, mode)
+            rows = tk._pipe_rows(elt, 768, plan.qc, k, mode)
+            assert 2 <= plan.stages <= tk._PIPE_STAGES_MAX and plan.smem <= tk._SMEM_MAX
+            assert plan.smem == tk._pipe_smem(elt, 768, plan.qc, k, mode, plan.stages, rows)
+            assert rows in (32, 64, 128) and (rows != 64) <= (plan.qc == 8)
+            if dtype == torch.bfloat16:
+                assert rows != 128                     # one 128-row stage: 198,656 bytes
+                assert (rows == 32) == (tk._pipe_fit(elt, 768, plan.qc, k, mode, 64) < 2)
+            want = max(8, 1 << (nq - 1).bit_length())
+            assert plan.qc == min(want, 64) or (plan.qc < want and tk._pipe_smem(
+                elt, 768, 2 * plan.qc, k, mode, 2, 64) > tk._SMEM_MAX)
+    # the rehearsal's shapes (k 10: bf16 refine scans 20, int8 40) keep 64 rows
+    for nq in (1, 8, 64):
+        plan = tk._scan_plan(1_000_000, 768, nq, 20, torch.bfloat16, SMS, "exact")
+        assert tk._pipe_rows(2, 768, plan.qc, 20, "exact") == 64
+
+
+def test_d384_plans_never_take_32_row_stages():
+    """The 32-row stage exists for wide rows and deep lists only: at d 384
+    every plan keeps the rows it had."""
+    for dtype in (torch.bfloat16, torch.int8):
+        for mode in ("exact", "packed", "bucketed"):
+            for k in (KS if mode != "bucketed" else (0,)):
+                for qc in (8, 16, 32, 64):
+                    assert tk._pipe_rows(tk._ELT[dtype], 384, qc, k, mode) in (64, 128)

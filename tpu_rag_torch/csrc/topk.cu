@@ -279,17 +279,25 @@ __host__ __device__ inline PipeSmem pipe_smem(int elt, int d, int qc, int k, int
   return o;
 }
 
+// Stages of `rows` rows that fit beside the rest of a block's shared memory.
+__host__ __device__ inline size_t pipe_fit(int elt, int d, int qc, int k, int mode, int rows) {
+  const size_t fixed = pipe_smem(elt, d, qc, k, mode, 0, rows).total;
+  const size_t stage = pipe_smem(elt, d, qc, k, mode, 1, rows).total - fixed;
+  const size_t fit = fixed < size_t(kSmemMax) ? (size_t(kSmemMax) - fixed) / stage : 0;
+  return fit < size_t(kMaxStages) ? fit : size_t(kMaxStages);
+}
+
 // Rows of one ring stage: 128 (one m16 tile a warp) for a chunk of 8
 // queries where the stages that fit beside the lists keep 64 KB of rows in
 // flight, else 64, the 8 warps then splitting the queries in two halves (a
-// chunk of 8: 4 warps multiply).
+// chunk of 8: 4 warps multiply); 32 (2 warps multiply) for a chunk of 8
+// where two 64-row stages do not fit beside the lists (bf16 at d 768 and
+// k above 252: a 64-row stage is 100,096 bytes there).
 __host__ __device__ inline int pipe_rows(int elt, int d, int qc, int k, int mode) {
   if (qc != 8) return 64;
-  const size_t fixed = pipe_smem(elt, d, qc, k, mode, 0, 128).total;
-  const size_t stage = pipe_smem(elt, d, qc, k, mode, 1, 128).total - fixed;
-  const size_t fit = fixed < size_t(kSmemMax) ? (size_t(kSmemMax) - fixed) / stage : 0;
-  const size_t stages = fit < size_t(kMaxStages) ? fit : size_t(kMaxStages);
-  return stages >= 2 && (stages - 1) * 128 * d * elt >= 65536 ? 128 : 64;
+  const size_t stages = pipe_fit(elt, d, qc, k, mode, 128);
+  if (stages >= 2 && (stages - 1) * 128 * d * elt >= 65536) return 128;
+  return pipe_fit(elt, d, qc, k, mode, 64) >= 2 ? 64 : 32;
 }
 
 template <typename T, int kMode, int NT, int kRows>
@@ -615,7 +623,7 @@ int launch_pipe_qc(int qc, int rows, const void* q, const void* x, const void* s
   launch_pipe<T, kMode, NT, R>(q, x, scale, ns, canon, qscale, n, d, nq, want_ns, want_canon, \
                                block_rows, k, stages, seed, out_sc, out_id, stream)
   switch (qc) {
-    case 8: return rows == 128 ? TR_PIPE(1, 128) : TR_PIPE(1, 64);
+    case 8: return rows == 128 ? TR_PIPE(1, 128) : rows == 64 ? TR_PIPE(1, 64) : TR_PIPE(1, 32);
     case 16: return TR_PIPE(2, 64);
     case 32: return TR_PIPE(4, 64);
     case 64: return TR_PIPE(8, 64);

@@ -6,11 +6,20 @@ chroma.sqlite3 + hnswlib data_level0.bin/link_lists.bin segments): a
 directory per collection holding
 
     manifest.json   — dims, dtype, metric, kind, counts, file names
-    vectors.f32     — row-major float32 master vectors
-    ids.jsonl       — one JSON-encoded id per row (format v2; v1 stores
+    vectors.<g>.f32 — row-major float32 master vectors
+    ids.<g>.jsonl   — one JSON-encoded id per row (format v2; v1 stores
                       carry a single-array ids.json, loaded back-compat)
-    meta.jsonl      — one metadata JSON object per row
-    docs.jsonl      — one JSON-encoded document string per row
+    meta.<g>.jsonl  — one metadata JSON object per row
+    docs.<g>.jsonl  — one JSON-encoded document string per row
+
+Each save writes its files under a fresh tag <g>, then replaces
+manifest.json (written to a temporary name) in one rename, then deletes the
+files the old manifest named.  A load opens every file its manifest names
+before it reads any, so it sees one whole snapshot: the old one, or, if a
+save deleted the old files between its reading of the manifest and its
+opening of them, the new one on a second reading.  Both packages' loaders
+take the file names from the manifest (`files`, `ivf.centroids`), so
+tpu_rag loads these stores as they are.
 
 The index is always rebuildable from DOCS_DIR (same durability contract as
 the reference, SURVEY.md §5 "Checkpoint / resume"), so the store favors
@@ -25,6 +34,7 @@ from __future__ import annotations
 
 import json
 import os
+import secrets
 import time
 from pathlib import Path
 
@@ -37,18 +47,32 @@ MANIFEST = "manifest.json"
 _YIELD_ROWS = 64       # rows of the row files a save writes between two yields
 
 
-def iter_store_ids(ids_file: Path):
-    """Yield the store's ids in row order.  Format v2 streams ids.jsonl
-    line by line; v1 stores (a single JSON array in ids.json — e.g.
-    previously-built demo indexes) load whole and iterate."""
-    ids_file = Path(ids_file)
-    if ids_file.suffix == ".jsonl":
-        with open(ids_file, encoding="utf-8") as f:
-            for line in f:
-                if line.strip():
-                    yield json.loads(line)
+def iter_store_ids(ids_file):
+    """Yield the store's ids in row order from its open ids file.  Format
+    v2 streams ids.jsonl line by line; v1 stores (a single JSON array in
+    ids.json — e.g. previously-built demo indexes) load whole and
+    iterate."""
+    if not ids_file.name.endswith(".jsonl"):
+        yield from json.loads(ids_file.read())
         return
-    yield from json.loads(ids_file.read_text(encoding="utf-8"))
+    for line in ids_file:
+        if line.strip():
+            yield json.loads(line)
+
+
+def _manifest_files(manifest: dict) -> list[str]:
+    """Every file name a manifest refers to."""
+    names = list(manifest.get("files", {}).values())
+    if "centroids" in manifest.get("ivf", {}):
+        names.append(manifest["ivf"]["centroids"])
+    return names
+
+
+def _read_manifest(p: Path) -> dict | None:
+    try:
+        return json.loads((p / MANIFEST).read_text(encoding="utf-8"))
+    except (FileNotFoundError, json.JSONDecodeError):
+        return None
 
 
 def save_index(index: FlatIndex, path: str | Path) -> None:
@@ -60,10 +84,16 @@ def save_index(index: FlatIndex, path: str | Path) -> None:
     and the row files are then written from that pin with the lock released,
     so searches and adds go on meanwhile.  Rows added or killed during the
     write belong to the next save.  Everything streams: vectors from the
-    arena chunk by chunk, ids/meta/docs from the row store batch by batch."""
+    arena chunk by chunk, ids/meta/docs from the row store batch by batch.
+    The files go under a fresh tag and become the store in one rename of
+    the manifest (module docstring)."""
     p = Path(path)
     p.mkdir(parents=True, exist_ok=True)
-    with index._save_lock:               # saves of one index share the temp name
+    with index._save_lock:               # saves of one index, one at a time
+        old = _read_manifest(p)
+        tag = secrets.token_hex(6)
+        files = {"vectors": f"vectors.{tag}.f32", "ids": f"ids.{tag}.jsonl",
+                 "meta": f"meta.{tag}.jsonl", "docs": f"docs.{tag}.jsonl"}
         with index._lock:
             live = np.flatnonzero(index._alive)
             arena, rowmeta = index._arena, index._rowmeta
@@ -75,29 +105,23 @@ def save_index(index: FlatIndex, path: str | Path) -> None:
                 "dtype": index.dtype_config,  # "auto" persists unresolved
                 "metric": index.metric,
                 "count": None,                # the rows written, below
-                "files": {"vectors": "vectors.f32", "ids": "ids.jsonl",
-                          "meta": "meta.jsonl", "docs": "docs.jsonl"},
+                "files": files,
             }
             centroids = None
             if isinstance(index, IVFIndex):
                 manifest["ivf"] = {"nlist": index.nlist, "nprobe": index.nprobe}
                 centroids = index._cached_centroids    # replaced, never mutated
                 trained_n = int(index._centroids_trained_n)
-        # write to a temp name + rename: the arena may have ADOPTED a
-        # read-only memmap of this very vectors.f32 (zero-copy load) —
-        # opening it "wb" in place would truncate the pages the write loop
-        # is about to read (SIGBUS + a destroyed store).  The rename keeps
-        # the old inode alive for any live memmap.
-        tmp = p / "vectors.f32.tmp"
-        manifest["count"] = arena.write_rows(tmp, rows=live)
-        os.replace(tmp, p / "vectors.f32")
+        # a fresh name: the arena may have ADOPTED a read-only memmap of the
+        # old vector file (zero-copy load), whose pages the write loop reads
+        manifest["count"] = arena.write_rows(p / files["vectors"], rows=live)
         alive = np.zeros(n_rows, bool)
         alive[live] = True
         # ids as jsonl (format v2): the loader streams all three row files
         # line by line — no 100M-entry list materializes on open
-        with open(p / "ids.jsonl", "w", encoding="utf-8") as f_ids, \
-                open(p / "meta.jsonl", "w", encoding="utf-8") as f_meta, \
-                open(p / "docs.jsonl", "w", encoding="utf-8") as f_docs:
+        with open(p / files["ids"], "w", encoding="utf-8") as f_ids, \
+                open(p / files["meta"], "w", encoding="utf-8") as f_meta, \
+                open(p / files["docs"], "w", encoding="utf-8") as f_docs:
             for row, rid, doc, meta in rowmeta.iter_rows():
                 if row >= n_rows:
                     break
@@ -111,28 +135,71 @@ def save_index(index: FlatIndex, path: str | Path) -> None:
                     # interval (5 ms), and a search needs it many times
                     time.sleep(0)
         if centroids is not None:
-            centroids.astype(np.float32).tofile(p / "centroids.f32")
-            manifest["ivf"]["centroids"] = "centroids.f32"
+            name = f"centroids.{tag}.f32"
+            centroids.astype(np.float32).tofile(p / name)
+            manifest["ivf"]["centroids"] = name
             manifest["ivf"]["centroids_shape"] = list(centroids.shape)
             manifest["ivf"]["trained_n"] = trained_n
-        # Write manifest last: its presence marks a complete snapshot.
-        (p / MANIFEST).write_text(json.dumps(manifest, indent=2), encoding="utf-8")
+        # the manifest last, in one rename: its presence marks a complete
+        # snapshot, and a reader sees the old one or the new one whole
+        tmp = p / f"{MANIFEST}.{tag}.tmp"
+        tmp.write_text(json.dumps(manifest, indent=2), encoding="utf-8")
+        os.replace(tmp, p / MANIFEST)
+        if old is not None:
+            # a live memmap or an open reader keeps an unlinked file's inode
+            for name in set(_manifest_files(old)) - set(_manifest_files(manifest)):
+                (p / name).unlink(missing_ok=True)
+
+
+def _open_snapshot(p: Path):
+    """(manifest, open files by role) of the store at p: every file the
+    manifest names, opened before any is read.  A save that replaced the
+    manifest and deleted its files in between gives FileNotFoundError; the
+    caller reads the manifest again."""
+    manifest = json.loads((p / MANIFEST).read_text(encoding="utf-8"))
+    opened = {}
+    try:
+        for role, name in manifest["files"].items():
+            opened[role] = open(p / name, "rb" if role == "vectors" else "r",
+                                encoding=None if role == "vectors" else "utf-8")
+        if "centroids" in manifest.get("ivf", {}):
+            opened["centroids"] = open(p / manifest["ivf"]["centroids"], "rb")
+    except FileNotFoundError:
+        for f in opened.values():
+            f.close()
+        raise
+    return manifest, opened
 
 
 def load_index(path: str | Path, **overrides) -> FlatIndex:
     """Open a saved flat or IVF store; `overrides` are keyword arguments of
     its index class (device, dtype, block_n, nprobe, ...)."""
     p = Path(path)
-    manifest = json.loads((p / MANIFEST).read_text(encoding="utf-8"))
+    for attempt in range(3):
+        try:
+            manifest, opened = _open_snapshot(p)
+            break
+        except FileNotFoundError:
+            if attempt == 2:
+                raise
+    try:
+        return _load_opened(manifest, opened, overrides)
+    finally:
+        for f in opened.values():
+            f.close()
+
+
+def _load_opened(manifest: dict, opened: dict, overrides: dict) -> FlatIndex:
     count = manifest["count"]
     dim = manifest["dim"]
     # read-only memmap: the index adopts it zero-copy, so opening a
     # 100M-row store costs no read of the vector file; the first mutation
-    # migrates rows to a writable (RAM or disk) backing
-    vectors = np.memmap(p / manifest["files"]["vectors"], dtype=np.float32,
+    # migrates rows to a writable (RAM or disk) backing.  The map outlives
+    # the file object and keeps the file's inode after a later save.
+    vectors = np.memmap(opened["vectors"], dtype=np.float32,
                         mode="r", shape=(count, dim)) if count else \
         np.zeros((0, dim), np.float32)
-    ids = iter_store_ids(p / manifest["files"]["ids"])
+    ids = iter_store_ids(opened["ids"])
     ivf_cfg = manifest.get("ivf", {})
     if manifest["kind"] == "ivf":
         overrides.setdefault("nlist", ivf_cfg.get("nlist", 0))
@@ -149,18 +216,16 @@ def load_index(path: str | Path, **overrides) -> FlatIndex:
         # stream the jsonl pair line by line — the doc/meta rows flow into
         # the index's row store in batches (RAM bounded even at 100M rows
         # with docmeta_backing="disk")
-        with open(p / manifest["files"]["meta"], encoding="utf-8") as fm, \
-                open(p / manifest["files"]["docs"], encoding="utf-8") as fd:
-            for mline, dline in zip(fm, fd):
-                if not mline.strip():
-                    continue
-                yield json.loads(dline), json.loads(mline)
+        for mline, dline in zip(opened["meta"], opened["docs"]):
+            if not mline.strip():
+                continue
+            yield json.loads(dline), json.loads(mline)
 
     if count:
         idx._bulk_adopt_rows(vectors, ids, _doc_meta_iter(), count=count)
     if manifest["kind"] == "ivf" and "centroids" in ivf_cfg:
         shape = tuple(ivf_cfg["centroids_shape"])
         idx._cached_centroids = np.fromfile(
-            p / ivf_cfg["centroids"], dtype=np.float32).reshape(shape)
+            opened["centroids"], dtype=np.float32).reshape(shape)
         idx._centroids_trained_n = int(ivf_cfg.get("trained_n", count))
     return idx

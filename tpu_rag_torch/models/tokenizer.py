@@ -5,8 +5,9 @@ sentence-transformers (SURVEY.md §2.4).  Here tokenization is host-side and
 first-party, with three interchangeable implementations:
 
 - WordPieceTokenizer: greedy longest-match WordPiece over a vocab.txt
-  (BERT-compatible), in pure Python.  The JAX package's C++ fast path
-  (tpu_rag/native/wordpiece.cc) is not carried over yet.
+  (BERT-compatible).  Uses the C++ fast path (native/wordpiece.cc, built
+  with g++ at first use) when it builds, pure Python otherwise; `backend`
+  says which, and a fall back logs why, once a process.
 - HashTokenizer: deterministic vocab-free fallback for environments with no
   vocab file (e.g. this image): words and CJK characters hash into a fixed
   id space.  Index and query use the same mapping, so retrieval is
@@ -20,6 +21,7 @@ shape, so the encoder runs a few fixed sequence buckets.
 from __future__ import annotations
 
 import hashlib
+import logging
 import unicodedata
 from pathlib import Path
 
@@ -95,7 +97,8 @@ class WordPieceTokenizer:
     name = "wordpiece"
 
     def __init__(self, vocab_path: str | Path, max_word_chars: int = 100) -> None:
-        lines = Path(vocab_path).read_text(encoding="utf-8").splitlines()
+        text = Path(vocab_path).read_text(encoding="utf-8")
+        lines = text.splitlines()
         self.vocab = {tok: i for i, tok in enumerate(lines)}
         self.vocab_size = len(lines)
         self.max_word_chars = max_word_chars
@@ -103,8 +106,12 @@ class WordPieceTokenizer:
         self.cls_id = self.vocab.get("[CLS]", CLS_ID)
         self.sep_id = self.vocab.get("[SEP]", SEP_ID)
         self.pad_id = self.vocab.get("[PAD]", PAD_ID)
+        self._native = _load_native(vocab_path, text, lines, self)
+        self.backend = "python" if self._native is None else "native"
 
     def tokenize_ids(self, text: str) -> list[int]:
+        if self._native is not None:
+            return self._native.tokenize_ids(text)
         ids: list[int] = []
         for word in pretokenize(text):
             if len(word) > self.max_word_chars:
@@ -132,6 +139,34 @@ class WordPieceTokenizer:
                 start = end
             ids.extend([self.unk_id] if bad else pieces)
         return ids
+
+
+_fallbacks_logged: set[str] = set()
+
+
+def _load_native(vocab_path, text: str, lines: list[str], tok: WordPieceTokenizer):
+    """The C++ WordPiece over vocab_path (native/binding.py), or None where
+    it would not give the Python path's ids or does not build or load; the
+    reason is logged once a process."""
+    if tok.max_word_chars != 100:
+        reason = f"max_word_chars {tok.max_word_chars} (the C++ path cuts at 100)"
+    elif len(tok.vocab) != len(lines):
+        reason = "duplicate vocab lines (Python keeps the last id, C++ the first)"
+    elif [ln[:-1] if ln.endswith("\r") else ln
+          for ln in text.split("\n")][:len(lines)] != lines:
+        reason = "a line break in the vocab that only str.splitlines() splits on"
+    else:
+        from tpu_rag_torch.native.binding import NativeWordPiece
+
+        try:
+            return NativeWordPiece(str(vocab_path))
+        except (OSError, RuntimeError) as e:
+            reason = str(e) or type(e).__name__
+    if reason not in _fallbacks_logged:
+        _fallbacks_logged.add(reason)
+        logging.getLogger("tpu_rag_torch").warning(
+            "native WordPiece not used (%s); tokenizing in Python", reason)
+    return None
 
 
 class HFTokenizerAdapter:

@@ -175,17 +175,25 @@ def _pipe_smem(elt: int, d: int, qc: int, k: int, mode: str, stages: int,
             + _PIPE_STAGES_MAX * 8)
 
 
+def _pipe_fit(elt: int, d: int, qc: int, k: int, mode: str, rows: int) -> int:
+    """Ring stages of `rows` rows that fit beside the rest (pipe_fit)."""
+    fixed = _pipe_smem(elt, d, qc, k, mode, 0, rows)
+    stage = _pipe_smem(elt, d, qc, k, mode, 1, rows) - fixed
+    return min(_PIPE_STAGES_MAX, max(0, _SMEM_MAX - fixed) // stage)
+
+
 def _pipe_rows(elt: int, d: int, qc: int, k: int, mode: str) -> int:
     """Rows of one ring stage (pipe_rows): 128, one m16 tile a warp, for a
     chunk of 8 queries where the stages that fit beside the lists keep
     64 KB of rows in flight; else 64, the 8 warps splitting the queries in
-    two halves."""
+    two halves; 32 (two warps multiply) for a chunk of 8 where two 64-row
+    stages do not fit beside the lists (bf16 at d 768 above k 252)."""
     if qc != 8:
         return 64
-    fixed = _pipe_smem(elt, d, qc, k, mode, 0, 128)
-    stage = _pipe_smem(elt, d, qc, k, mode, 1, 128) - fixed
-    stages = min(_PIPE_STAGES_MAX, max(0, _SMEM_MAX - fixed) // stage)
-    return 128 if stages >= 2 and (stages - 1) * 128 * d * elt >= 65536 else 64
+    stages = _pipe_fit(elt, d, qc, k, mode, 128)
+    if stages >= 2 and (stages - 1) * 128 * d * elt >= 65536:
+        return 128
+    return 64 if _pipe_fit(elt, d, qc, k, mode, 64) >= 2 else 32
 
 
 def _f32_smem(d: int, qc: int, k: int, mode: str) -> int:
