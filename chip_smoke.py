@@ -36,7 +36,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
            through scripts/rehearse_host_ivf.py (build, exact truth, nprobe
            sweep), batches of 8, save and mmap load;
   train    train_semantic at full width (MiniLM-L6, batch 512, T 128 / 48,
-           bf16), cut to 300 steps over make_corpus's 20,000 docstrings of
+           bf16), cut to 1,000 steps over make_corpus's 20,000 docstrings of
            the installed packages (built beside the kernel build): every
            step timed by CUDA events, one profiled; the loss must fall and
            #5 must not launch in training (it has no backward: a call under
@@ -44,7 +44,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
            the labeled eval (trained recall@10 at least seeded + 0.05; its
            embeds launch #5), the card's embeddings against the CPU's f32
            forward of the same checkpoint (cosine >= 0.99), then served
-           over HTTP (EMBEDDING_WEIGHTS, TOKENIZER_PATH): 1,000 held-out
+           over HTTP (EMBEDDING_WEIGHTS, TOKENIZER_PATH): 500 held-out
            /docs/save, 32 /search at k 10, #1 and #5 launched;
   scripts  the offline tools in process: build_index + query_local over
            examples/docs, eval_recall --synthetic 1,000,000 (bf16, int8,
@@ -58,13 +58,15 @@ Phases, each printing one JSON line (any failure exits non-zero):
            embeds 20,000 documents, 1,000,000 x 768 rows served through the
            index API and HTTP against f32 exact, bench_http's load.
   rerank_train  train_reranker at MiniLM-L6 width over the train phase's
-           corpus and bi-encoder (batch 256 pairs, T 160, bf16), cut to 400
-           steps with val evals and two mining rounds: every step timed by
-           CUDA events, one profiled; the loss must fall and no kernel may
-           launch in training; the held-out lift through the serving
-           CrossEncoder (#5 at B 256, T 160; trained recall@10 at least
-           seeded + 0.05), the checkpoint loaded without a spec on the card
-           against the CPU (RERANK_LOGIT_TOL), then the trained pair served
+           corpus and bi-encoder (batch 256 pairs, T 160, bf16, 1,500 steps
+           at lr 1e-4) with a val eval and two mining rounds: every step
+           timed by CUDA events, one profiled; the loss must fall and no
+           kernel may launch in training; the held-out lift through the
+           serving CrossEncoder (#5 at B 256, T 160; trained recall@10 at
+           least seeded + 0.05), the checkpoint loaded without a spec on the
+           card against the CPU (RERANK_LOGIT_TOL) and its logits on the
+           probe pairs spread (RERANK_LOGIT_STD_MIN, own body above a
+           neighbour's on average), then the trained pair served
            with RERANK_MODE=ensemble over the train phase's store: 32
            /search with rerank, every reply reranked, #1 and #5 launched;
   (rerank_train and scripts read what train writes: run them with it.)
@@ -401,19 +403,20 @@ def phase_kernels() -> list[dict]:
     # ---- #5 attention: B 64, H 12, D 32, bf16, ragged masks, at the
     # encoder's document buckets T 128, 256 and 512, the cross-encoder's
     # shape (20 rerank candidates -> batch 32, T 256), the trained
-    # reranker's eval (B 256 at T 160: a ragged last 64-key chunk), and the
-    # f32 kernel (prove_checkpoint's f32 encoder) at B 64, T 256; then
+    # reranker's eval (B 256 at T 160: a ragged last 64-key chunk); then
     # head dim 64 (bge-base: 768 wide, 12 heads): mha_tc_kernel<64> at
-    # T 128 (rehearse_scale's documents) and 512 (the largest T), and
-    # mha_f32_kernel<64> at T 256
+    # T 128 (rehearse_scale's documents) and 512 (the largest T); and the
+    # f32 kernel (prove_checkpoint's f32 encoder), D 32 and 64, at B 64, T
+    # 256, 512 and 160 (a ragged last chunk)
     for t in (256, 128, 512):
         rows.append(_attention_row(g, 64, t, 12, 32))
     rows.append(_attention_row(g, 32, 256, 12, 32))
     rows.append(_attention_row(g, 256, 160, 12, 32))
-    rows.append(_attention_row(g, 64, 256, 12, 32, torch.float32))
     for t in (128, 512):
         rows.append(_attention_row(g, 64, t, 12, 64))
-    rows.append(_attention_row(g, 64, 256, 12, 64, torch.float32))
+    for hd in (32, 64):
+        for t in (256, 512, 160):
+            rows.append(_attention_row(g, 64, t, 12, hd, torch.float32))
     rows += _probe_kernel_rows(g)
     rows += _probe_kernel_rows(g, d=768, dtypes=(torch.int8,))
     rows += _probe_float_rows(g)
@@ -425,10 +428,17 @@ def phase_kernels() -> list[dict]:
     return rows
 
 
+# #5 against its plain version: bf16 within 2e-2 (P is cast to bf16 before
+# it is normalised); f32 within 1e-4 as well (the same f32 arithmetic in
+# another order: a 64-key online softmax in the log2 domain)
+ATT_TOL, ATT_TOL_F32 = 2e-2, 1e-4
+
+
 def _attention_row(g, b: int, t: int, h: int, hd: int, dtype=None) -> dict:
-    """#5 against its plain version (in f32, tolerance 2e-2) with a full
-    row, a one-token row and an all-pad row; times beside SDPA's in the
-    same dtype (bf16 by default: mha_tc_kernel; f32: mha_f32_kernel)."""
+    """#5 against its plain version (in f32, ATT_TOL; f32 inputs ATT_TOL_F32
+    too) with a full row, a one-token row and an all-pad row; times beside
+    SDPA's in the same dtype (bf16 by default: mha_tc_kernel; f32:
+    mha_f32_kernel)."""
     import torch
     import torch.nn.functional as F
 
@@ -447,17 +457,19 @@ def _attention_row(g, b: int, t: int, h: int, hd: int, dtype=None) -> dict:
     torch.cuda.synchronize()
     err = float((out.float() - ref).abs().max())
     pad_err = float((out[2].float() - v[2].float().mean(dim=0, keepdim=True)).abs().max())
-    if not (err <= 2e-2 and pad_err <= 2e-2):
-        raise AssertionError(f"attention T={t} {dtype} disagrees with its plain version: "
-                             f"{err}, all-pad row {pad_err}")
+    f32 = dtype == torch.float32
+    tol = min(ATT_TOL, ATT_TOL_F32) if f32 else ATT_TOL
+    if not (err <= tol and pad_err <= tol):
+        raise AssertionError(f"attention T={t} D={hd} {dtype} disagrees with its plain "
+                             f"version: {err}, all-pad row {pad_err} (tolerance {tol})")
     bool_mask = (mask > 0)[:, None, None, :]
     qh, kh, vh = (z.permute(0, 2, 1, 3) for z in (q, k_, v))
-    f32 = dtype == torch.float32
     nbytes = 4 * b * t * h * hd * q.element_size() + b * t * 4
     b_ms, b_by = bound(nbytes, 4.0 * b * h * t * t * hd, "f32" if f32 else "bf16")
     return {"name": f"fused_mha[{'f32' if f32 else 'bf16'},B={b},T={t},H={h},D={hd}]",
             "route": "cuda", "source": "tpu_rag_torch/csrc/attention.cu",
-            "replaces": "tpu_rag/ops/attention.py:41", "counter": "mha",
+            "replaces": "tpu_rag/ops/attention.py:41",
+            "counter": "mha_f32" if f32 else "mha_bf16", "tolerance": tol,
             "max_abs_err": err, "all_pad_row_err": pad_err,
             "ms": cuda_ms(lambda: att._fused_mha_cuda(q, k_, v, mask)),
             "device_ms": kernel_ms(lambda: att._fused_mha_cuda(q, k_, v, mask),
@@ -562,11 +574,13 @@ PLAN_KS = (1, 2, 5, 10, 20, 40, 64, 80, 127, 128, 129, 160, 256, 512, 640, 1000,
 def _plan_sweep(smem_of, sms: int) -> dict:
     """Every scan plan (bf16/int8 x exact/packed/bucketed x q 1-80 x the
     test's depths) and every IVF probe plan (#6 at q 1/3, k 1/40/128; #7 at
-    q 8/64/80) at d 384 and 768 held against the kernels' own byte counts
-    (tr_scan_smem_bytes, tr_probe_smem_bytes); a scan plan that does not
-    fit raises ValueError in _scan_plan and is counted, not launched."""
+    q 8/64/80, on f32 lists at q 4-256) at d 384 and 768, and #5's f32
+    block, held against the kernels' own byte counts (tr_scan_smem_bytes,
+    tr_probe_smem_bytes, tr_mha_smem_bytes); a scan plan that does not fit
+    raises ValueError in _scan_plan and is counted, not launched."""
     import torch
 
+    from tpu_rag_torch.ops import attention as att
     from tpu_rag_torch.ops import ivf_probe as ip
     from tpu_rag_torch.ops import topk as tk
 
@@ -598,6 +612,19 @@ def _plan_sweep(smem_of, sms: int) -> dict:
                 if got != plan.smem:
                     raise AssertionError(f"bucket plan {plan} at d {d}: kernel {got}")
                 out["probe_plans"] += 1
+        for nq in (4, 8, 16, 17, 33, 64, 80, 128, 256):     # #7 on f32 lists
+            plan = ip._bucket_plan(IVF_NLIST, IVF_CAP // 128, nq, d, torch.float32, sms)
+            got = ip._smem_bytes(1, tk._DTYPE_CODE[torch.float32], d, plan.qc, 0, plan.stages)
+            if got != plan.smem or got > tk._SMEM_MAX:
+                raise AssertionError(f"f32 bucket plan {plan} at d {d}: kernel {got}")
+            out["probe_plans"] += 1
+    out["attention_f32_smem"] = {}
+    for hd in (32, 64):                                     # #5 in f32
+        got = att._smem_bytes(torch.float32, hd, 512)
+        if got != att._f32_smem(hd) or got > tk._SMEM_MAX:
+            raise AssertionError(f"mha_f32_kernel<{hd}>: kernel {got} bytes, the mirror "
+                                 f"{att._f32_smem(hd)}")
+        out["attention_f32_smem"][hd] = got
     return out
 
 
@@ -724,7 +751,7 @@ def _probe_kernel_rows(g, d: int = 384, dtypes=None) -> list[dict]:
         rows.append({"name": f"ivf_probe_per_list[{dt},q={nq},nprobe={nprobe},cap={cap},"
                              f"d={d},k={k_eff}]", "route": "cuda",
                      "source": "tpu_rag_torch/csrc/ivf_probe.cu",
-                     "replaces": "tpu_rag/ops/ivf_probe.py:41", "counter": "per_list",
+                     "replaces": "tpu_rag/ops/ivf_probe.py:41", "counter": "per_list_bf16_int8",
                      "plan": ip._list_plan(nq, nprobe, cap, d, dtype, k_eff, sms)._asdict(),
                      "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
                      "plain_ms": cuda_ms(lambda: ip._probe_list_plain(*args), iters=5),
@@ -770,7 +797,7 @@ def _probe_kernel_rows(g, d: int = 384, dtypes=None) -> list[dict]:
         rows.append({"name": f"ivf_probe_batched[int8,q={nq},nprobe={nprobe},cap={cap},"
                              f"d={d},m={m},union={nu}]", "route": "cuda",
                      "source": "tpu_rag_torch/csrc/ivf_probe.cu",
-                     "replaces": "tpu_rag/ops/ivf_probe.py:237", "counter": "batched",
+                     "replaces": "tpu_rag/ops/ivf_probe.py:237", "counter": "batched_bf16_int8",
                      "plan": ip._bucket_plan(uniq.shape[0], cap // 128, nq, d, torch.int8,
                                              sms)._asdict(),
                      "max_abs_err": err, "ms": ms,
@@ -1008,12 +1035,39 @@ def _probe_float_checks(g) -> dict:
     return out
 
 
+def _bucket_id_check(k_sc, k_id, p_sc, p_id, q, vec, uniq, tol: float) -> dict:
+    """#7's winners against its plain version's: equal -inf slots, finite
+    scores within tol, and equal slots but in ties: where the slots differ,
+    their scores, summed again in f64, lie within tol of each other."""
+    import torch
+
+    fin = torch.isfinite(p_sc)
+    if not torch.equal(torch.isfinite(k_sc), fin):
+        raise AssertionError("batched probe: -inf slots differ from the plain version")
+    err = float((k_sc[fin] - p_sc[fin]).abs().max()) if fin.any() else 0.0
+    if err > tol:
+        raise AssertionError(f"batched probe: score error {err}")
+    diff = ((k_id != p_id) & fin).nonzero()
+    if len(diff):
+        u, qi = diff[:, 0], diff[:, 1]
+        lst = uniq.long()[u]
+        qd = q.double()[qi]
+        s_k = (vec[lst, k_id[u, qi, diff[:, 2]].long()].double() * qd).sum(dim=1)
+        s_p = (vec[lst, p_id[u, qi, diff[:, 2]].long()].double() * qd).sum(dim=1)
+        worst = float((s_k - s_p).abs().max())
+        if worst > tol:
+            raise AssertionError(f"batched probe: {len(diff)} slots differ, not in ties "
+                                 f"(scores {worst} apart)")
+    return {"max_abs_err": err, "id_mismatches_in_ties": int(len(diff))}
+
+
 def _probe_float_rows(g) -> list[dict]:
     """Rows for #6 and #7 on f32 lists (probe_list_kernel and
     batched_bucket_kernel, the f32 forms of IVFIndex(dtype="float32")) at
-    _probe_float_checks's geometry, every list ~90% live: #6 at three
-    queries, #7 at 80 (two query chunks), each against its plain version
-    (scores within 1e-4, ids but in ties) and timed beside it and the
+    _probe_float_checks's geometry, every list ~90% live and one probed list
+    wholly PAD: #6 at three queries; #7 at 8 and 80 queries (two query
+    chunks), d 384 and 768; each against its plain version (scores within
+    1e-4, equal -inf slots, ids but in ties) and timed beside it and the
     gather + bmm + topk composite."""
     import torch
 
@@ -1021,96 +1075,132 @@ def _probe_float_rows(g) -> list[dict]:
     from tpu_rag_torch.ops.topk import PAD_TAG
 
     dev = torch.device("cuda")
-    nlist, cap, d, nprobe, k_eff, m, tol = 256, 1024, 384, 16, 40, 2, 1e-4
-    vec = torch.randn((nlist, cap, d), generator=g, device=dev)
-    vec = vec / vec.norm(dim=2, keepdim=True)
-    scale = torch.ones((nlist, cap), device=dev)
-    ns = torch.randint(0, 4, (nlist, cap), generator=g, device=dev, dtype=torch.int32)
-    ns[:, -100:] = PAD_TAG
-    canon = torch.randint(0, 2, (nlist, cap), generator=g, device=dev, dtype=torch.int32)
-    centroids = torch.randn((nlist, d), generator=g, device=dev)
+    nlist, cap, nprobe, k_eff, m, tol = 256, 1024, 16, 40, 2, 1e-4
     rows = []
-    for nq in (3, 80):
-        q = torch.randn((nq, d), generator=g, device=dev)
-        q = q / q.norm(dim=1, keepdim=True)
-        lists = ip._top_lists(q, centroids, nprobe)
-        flat = lists.reshape(-1)
-        if nq == 3:                                                   # ---- #6
-            args = (q, lists, vec, scale, ns, canon, -1, -1, k_eff)
-            kern, plain, what = ip._probe_list_cuda, ip._probe_list_plain, "per_list"
-            chk = _id_check(*(t.view(-1, k_eff) for t in kern(*args)),
-                            *(t.view(-1, k_eff) for t in plain(*args)), tol)
-            err = chk["max_abs_err"]
+    for d, cases in ((384, (3, 8, 80)), (768, (8, 80))):
+        vec = torch.randn((nlist, cap, d), generator=g, device=dev)
+        vec = vec / vec.norm(dim=2, keepdim=True)
+        scale = torch.ones((nlist, cap), device=dev)
+        ns = torch.randint(0, 4, (nlist, cap), generator=g, device=dev, dtype=torch.int32)
+        ns[:, -100:] = PAD_TAG
+        canon = torch.randint(0, 2, (nlist, cap), generator=g, device=dev, dtype=torch.int32)
+        centroids = torch.randn((nlist, d), generator=g, device=dev)
+        for nq in cases:
+            q = torch.randn((nq, d), generator=g, device=dev)
+            q = q / q.norm(dim=1, keepdim=True)
+            lists = ip._top_lists(q, centroids, nprobe)
+            flat = lists.reshape(-1)
+            ns_q = ns.clone()
+            ns_q[int(lists[0, 0])] = PAD_TAG                  # a probed list wholly PAD
+            if nq == 3:                                               # ---- #6
+                args = (q, lists, vec, scale, ns_q, canon, -1, -1, k_eff)
+                kern, plain, what = ip._probe_list_cuda, ip._probe_list_plain, "per_list_f32"
+                chk = _id_check(*(t.view(-1, k_eff) for t in kern(*args)),
+                                *(t.view(-1, k_eff) for t in plain(*args)), tol)
 
-            def library(flat=flat, q=q):
-                s = torch.bmm(vec[flat], q.repeat_interleave(nprobe, 0)[:, :, None])[..., 0]
-                s = torch.where(ns[flat] != PAD_TAG, s, -math.inf)
-                return torch.topk(s, k_eff, dim=1)
+                def library(flat=flat, q=q, ns=ns_q):
+                    s = torch.bmm(vec[flat], q.repeat_interleave(nprobe, 0)[:, :, None])[..., 0]
+                    s = torch.where(ns[flat] != PAD_TAG, s, -math.inf)
+                    return torch.topk(s, k_eff, dim=1)
 
-            n_lists, live = _probed(lists, ns)
-            pairs = int((ns[flat] != PAD_TAG).sum())
-            nbytes = (n_lists * cap * 4 + live * d * 4 + nq * d * 4 + lists.numel() * 4
-                      + nq * nprobe * k_eff * 8)
-            b_ms, b_by = bound(nbytes, 2.0 * pairs * d, "f32")
-            name = f"ivf_probe_per_list[f32,q={nq},nprobe={nprobe},cap={cap},d={d},k={k_eff}]"
-            replaces, kname = "tpu_rag/ops/ivf_probe.py:41", "probe_list_kernel"
-        else:                                                         # ---- #7
-            uniq, n_uniq, _ = ip._dedup(lists, nlist)
-            args = (q, uniq, n_uniq, vec, scale, ns, canon, -1, -1, m)
-            kern, plain, what = ip._probe_batched_cuda, ip._probe_batched_plain, "batched"
-            (k_sc, k_id), (p_sc, p_id) = kern(*args), plain(*args)
-            fin = torch.isfinite(p_sc)
-            if not torch.equal(torch.isfinite(k_sc), fin):
-                raise AssertionError("batched probe f32: -inf slots differ from the plain version")
-            err = float((k_sc[fin] - p_sc[fin]).abs().max())
-            if err > tol:
-                raise AssertionError(f"batched probe f32: score error {err}")
-            nu = int(n_uniq)
-            lst = uniq[:nu].long()
+                n_lists, live = _probed(lists, ns_q)
+                pairs = int((ns_q[flat] != PAD_TAG).sum())
+                nbytes = (n_lists * cap * 4 + live * d * 4 + nq * d * 4 + lists.numel() * 4
+                          + nq * nprobe * k_eff * 8)
+                b_ms, b_by = bound(nbytes, 2.0 * pairs * d, "f32")
+                name = f"ivf_probe_per_list[f32,q={nq},nprobe={nprobe},cap={cap},d={d},k={k_eff}]"
+                replaces, kname = "tpu_rag/ops/ivf_probe.py:41", "probe_list_kernel"
+                plan = None
+            else:                                                     # ---- #7
+                uniq, n_uniq, _ = ip._dedup(lists, nlist)
+                args = (q, uniq, n_uniq, vec, scale, ns_q, canon, -1, -1, m)
+                kern, plain, what = ip._probe_batched_cuda, ip._probe_batched_plain, "batched_f32"
+                chk = _bucket_id_check(*kern(*args), *plain(*args), q, vec, uniq, tol)
+                nu = int(n_uniq)
+                lst = uniq[:nu].long()
 
-            def library(lst=lst, q=q, nq=nq):
-                s = torch.bmm(vec[lst], q.T.expand(len(lst), d, nq))
-                s = torch.where((ns[lst] != PAD_TAG)[..., None], s, -math.inf)
-                s = s.transpose(1, 2).reshape(len(lst), nq, cap // 128, 128)
-                return torch.topk(s, m, dim=3)
+                def library(lst=lst, q=q, nq=nq, ns=ns_q, d=d):
+                    s = torch.bmm(vec[lst], q.T.expand(len(lst), d, nq))
+                    s = torch.where((ns[lst] != PAD_TAG)[..., None], s, -math.inf)
+                    s = s.transpose(1, 2).reshape(len(lst), nq, cap // 128, 128)
+                    return torch.topk(s, m, dim=3)
 
-            _, live = _probed(lst, ns)
-            nbytes = nu * cap * 4 + live * d * 4 + nq * d * 4 + nu * 4 + nu * nq * m * (cap // 128) * 8
-            b_ms, b_by = bound(nbytes, 2.0 * live * d * nq, "f32")
-            name = f"ivf_probe_batched[f32,q={nq},nprobe={nprobe},cap={cap},d={d},m={m},union={nu}]"
-            replaces, kname = "tpu_rag/ops/ivf_probe.py:237", "batched_bucket_kernel"
-        torch.cuda.synchronize()
-        dev_ms = kernel_ms(lambda: kern(*args), kname)
-        rows.append({"name": name, "route": "cuda", "source": "tpu_rag_torch/csrc/ivf_probe.cu",
-                     "replaces": replaces, "counter": what, "max_abs_err": err,
-                     "ms": cuda_ms(lambda: kern(*args)), "device_ms": dev_ms,
-                     "plain_ms": cuda_ms(lambda: plain(*args), iters=5),
-                     "library_ms": cuda_ms(library, iters=5),
-                     "library": "composite: list gather + torch.bmm + torch.topk",
-                     "bound_ms": b_ms, "bound_by": b_by, "pct_of_bound": 100.0 * b_ms / dev_ms})
-    del vec, scale, ns, canon
-    torch.cuda.empty_cache()
+                _, live = _probed(lst, ns_q)
+                nbytes = (nu * cap * 4 + live * d * 4 + nq * d * 4 + nu * 4
+                          + nu * nq * m * (cap // 128) * 8)
+                b_ms, b_by = bound(nbytes, 2.0 * live * d * nq, "f32")
+                name = (f"ivf_probe_batched[f32,q={nq},nprobe={nprobe},cap={cap},d={d},m={m},"
+                        f"union={nu}]")
+                replaces, kname = "tpu_rag/ops/ivf_probe.py:237", "batched_bucket_kernel"
+                plan = ip._bucket_plan(uniq.shape[0], cap // 128, nq, d, torch.float32,
+                                       torch.cuda.get_device_properties(dev)
+                                       .multi_processor_count)._asdict()
+            torch.cuda.synchronize()
+            dev_ms = kernel_ms(lambda: kern(*args), kname)
+            rows.append({"name": name, "route": "cuda",
+                         "source": "tpu_rag_torch/csrc/ivf_probe.cu", "replaces": replaces,
+                         "counter": what, **chk, "plan": plan,
+                         "ms": cuda_ms(lambda: kern(*args)), "device_ms": dev_ms,
+                         "plain_ms": cuda_ms(lambda: plain(*args), iters=5),
+                         "library_ms": cuda_ms(library, iters=5),
+                         "library": "composite: list gather + torch.bmm + torch.topk",
+                         "bound_ms": b_ms, "bound_by": b_by,
+                         "pct_of_bound": 100.0 * b_ms / dev_ms})
+        del vec, scale, ns, canon
+        torch.cuda.empty_cache()
     return rows
 
 
+def _threads(idents=None) -> list[dict]:
+    """The live Python threads (those whose ident is not in `idents`): name,
+    daemon flag, the function it was started on and the one it runs now."""
+    frames = sys._current_frames()
+    out = []
+    for t in threading.enumerate():
+        if idents is not None and t.ident in idents:
+            continue
+        f, target = frames.get(t.ident), getattr(t, "_target", None)
+        out.append({"name": t.name, "daemon": t.daemon,
+                    "target": getattr(target, "__qualname__", None),
+                    "running": f"{Path(f.f_code.co_filename).name}:{f.f_code.co_name}"
+                               if f is not None else None})
+    return out
+
+
 def _counters():
+    """name -> (wrapper, attribute): each wrapper's count of its launches,
+    and of those of its f32 kernel (#5 mha_f32_kernel, #6
+    probe_list_kernel, #7 batched_bucket_kernel)."""
     from tpu_rag_torch.ops import attention as att
     from tpu_rag_torch.ops import ivf_probe as ip
     from tpu_rag_torch.ops import topk as tk
 
-    return {"exact": tk._exact_scan_cuda, "packed": tk._packed_scan_cuda,
-            "bucketed": tk._bucketed_scan_cuda, "floor": tk._read_sum_cuda,
-            "mha": att._fused_mha_cuda, "per_list": ip._probe_list_cuda,
-            "batched": ip._probe_batched_cuda}
+    return {"exact": (tk._exact_scan_cuda, "launches"),
+            "packed": (tk._packed_scan_cuda, "launches"),
+            "bucketed": (tk._bucketed_scan_cuda, "launches"),
+            "floor": (tk._read_sum_cuda, "launches"),
+            "mha": (att._fused_mha_cuda, "launches"),
+            "mha_f32": (att._fused_mha_cuda, "f32_launches"),
+            "per_list": (ip._probe_list_cuda, "launches"),
+            "per_list_f32": (ip._probe_list_cuda, "f32_launches"),
+            "batched": (ip._probe_batched_cuda, "launches"),
+            "batched_f32": (ip._probe_batched_cuda, "f32_launches")}
 
 
 def _reset_counters() -> None:
-    for fn in _counters().values():
-        fn.launches = 0
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)
 
 
 def _read_counters() -> dict[str, int]:
-    return {name: fn.launches for name, fn in _counters().items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in _counters().items()}
+
+
+# the kernels line's counter of each kernel: a wrapper's launches less
+# those of its f32 kernel are its bf16/int8 kernel's
+_SPLIT_COUNTERS = {"mha_bf16": ("mha", "mha_f32"),
+                   "per_list_bf16_int8": ("per_list", "per_list_f32"),
+                   "batched_bf16_int8": ("batched", "batched_f32")}
 
 
 def _unit_rows(n: int, d: int, seed: int):
@@ -1175,7 +1265,7 @@ def _served(cfg):
     app = create_app(cfg)
     engine = app.state["engine"]
     server = HTTPServer(app, cfg.host, cfg.port, executor_workers=cfg.http_executor_workers)
-    thread = threading.Thread(target=server.run, daemon=True)
+    thread = threading.Thread(target=server.run, daemon=True, name=f"http-server-{cfg.port}")
     _reset_counters()
     thread.start()
     try:
@@ -1191,8 +1281,11 @@ def _served(cfg):
         yield app, engine, health
     finally:
         server.stop()
-        thread.join(timeout=30)
+        thread.join(timeout=60)
         engine.shutdown()
+        if thread.is_alive():
+            raise AssertionError(f"the HTTP server thread on port {cfg.port} outlived "
+                                 f"its phase")
 
 
 def _count_persists(engine) -> list[float]:
@@ -1872,16 +1965,83 @@ def phase_ivf(work: Path) -> dict:
             raise AssertionError(f"{route}: kernel and plain recall differ: {kernel} {plain}")
     if kernel["q1"]["recall_at_10"] < 0.9 or kernel["q64"]["recall_at_10"] < 0.85:
         raise AssertionError(f"IVF recall@10 below its floor: {kernel}")
+    del app, engine, index
+    torch.cuda.empty_cache()
+    f32_lists = _ivf_f32_routes()
+    counts = {name: counts[name] + f32_lists["launches"][name] for name in counts}
     out = {"phase": "ivf", "rows": n, "corpus_gen_s": gen_s, "build_s_kmeans_lists": build_s,
            "store_save_s": save_s, "geometry": geometry,
            "first_search_s_from_store": first_search_s, "doc_saves": save_times,
            "http_search_seq": seq, "http_search_burst8": bursts, "windows": windows,
            "routes_kernel": kernel, "routes_plain": plain,
-           "snapshot": snapshot, "launches_http": http_counts, "launches": counts}
+           "snapshot": snapshot, "launches_http": http_counts, "launches": counts,
+           "f32_lists": f32_lists}
     emit(out)
-    del app, engine, index
-    torch.cuda.empty_cache()
     return counts
+
+
+# IVFIndex(dtype="float32") (INDEX_KIND=ivf with INDEX_DTYPE=float32): the
+# f32 lists' probes (#6 probe_list_kernel for 1-3 queries, #7
+# batched_bucket_kernel for 4 and more) through IVFIndex.search, over
+# 262,144 rows of the ivf phase's generator in 256 lists (cap factor 2.0),
+# nprobe 16
+IVF_F32_ROWS, IVF_F32_NLIST, IVF_F32_NPROBE = 262_144, 256, 16
+
+
+def _ivf_f32_routes() -> dict:
+    """Single queries (#6) and a batch of 64 (#7) on f32 lists through
+    IVFIndex.search, recall@10 against f32 exact, the kernels' routes
+    against their plain versions' (recall within 0.01)."""
+    import numpy as np
+    import torch
+
+    from tpu_rag_torch.index.ivf import IVFIndex
+
+    n, d, nq, k = IVF_F32_ROWS, 384, 64, 10
+    x, q, _ = _ivf_corpus(n, d, nq, SEED + 5)
+    truth = torch.topk(torch.from_numpy(q).cuda() @ torch.from_numpy(x).cuda().T, k,
+                       dim=1).indices.cpu().numpy()
+    index = IVFIndex(d, dtype="float32", nlist=IVF_F32_NLIST, nprobe=IVF_F32_NPROBE,
+                     list_cap_factor=2.0, device="cuda")
+    index._bulk_adopt_rows(x, (f"f32-{i}" for i in range(n)), (("", {}) for _ in range(n)),
+                           count=n)
+    snap = index.device_snapshot()
+    geometry = {"dtype": str(snap["vec_lists"].dtype), "nlist": snap["nlist"],
+                "cap": int(snap["vec_lists"].shape[1]), "overflow_rows": len(snap["ov_rows"])}
+    if snap["vec_lists"].dtype != torch.float32 or geometry["cap"] % 128:
+        raise AssertionError(f"unexpected f32 IVF geometry {geometry}")
+
+    def recall(id_lists):
+        return float(np.mean([len({int(i[4:]) for i in ids} & set(t.tolist())) / k
+                              for ids, t in zip(id_lists, truth)]))
+
+    def routes() -> dict:
+        one = []
+        for i in range(8):
+            one.append(index.search(q[i:i + 1], k).ids[0])
+            assert index.last_probe_route == "per_list"
+        batch = index.search(q, k).ids
+        assert index.last_probe_route == "batched"
+        return {"q1_recall_at_10": recall(one), "q64_recall_at_10": recall(batch)}
+
+    _reset_counters()
+    kernel = routes()
+    counts = _read_counters()
+    with _plain_probes():
+        plain = routes()
+    if _read_counters() != counts:
+        raise AssertionError("the plain f32 run launched a probe kernel")
+    if counts["per_list_f32"] < 1 or counts["batched_f32"] < 1:
+        raise AssertionError(f"the f32 IVF routes did not launch #6 and #7: {counts}")
+    for r in ("q1_recall_at_10", "q64_recall_at_10"):
+        if abs(kernel[r] - plain[r]) > 0.01:
+            raise AssertionError(f"f32 lists {r}: kernel {kernel[r]}, plain {plain[r]}")
+    del index, snap
+    torch.cuda.empty_cache()
+    return {"rows": n, "geometry": geometry, "nprobe": IVF_F32_NPROBE,
+            "kernel": {r: kernel[r] for r in ("q1_recall_at_10", "q64_recall_at_10")},
+            "plain": {r: plain[r] for r in ("q1_recall_at_10", "q64_recall_at_10")},
+            "launches": counts}
 
 
 # scripts/rehearse_host_ivf.py's geometry (nprobe 64, cap factor 2.0, chunks
@@ -1971,13 +2131,19 @@ def phase_host_ivf(work: Path, n: int = HIVF_ROWS, nlist: int = HIVF_NLIST,
 
 
 # train_semantic.py's geometry at full width (MiniLM-L6, batch 512, seq 128,
-# q 48, lr 4e-4, tau 0.05) with two cuts: 300 steps, warmup 30 (its defaults
-# 3000 and 200), over make_corpus's default 20,000 docs of the installed
-# site-packages and stdlib.  The checkpoint is served with 1,000 held-out
-# documents saved one by one: each save rewrites the store, so 1,970 took
-# 127-194 s of the script's time limit
-TRAIN_STEPS, TRAIN_WARMUP, TRAIN_MAX_DOCS = 300, 30, 20_000
-TRAIN_SAVE_DOCS, TRAIN_QUERIES, TRAIN_PROBE_ROWS = 1000, 32, 64
+# q 48, lr 4e-4, tau 0.05) with two cuts: 1,000 steps, warmup 66 (its
+# defaults 3000 and 200, the same ratio), over make_corpus's default 20,000
+# docs of the installed site-packages and stdlib.  1,000 rather than 300
+# steps: over a 300-step bi-encoder the reranker trained below ranks the
+# held-out candidates little better than its seeded start (+0.026-0.052
+# recall@10 after 1,200-1,500 steps), over a 1,000-step one by +0.10
+# (rerank_sweep.py, PERF.md).  The checkpoint is served with 250
+# held-out documents saved one by one: each save rewrites the store, so
+# 1,970 took 127-194 s of the script's time limit, and 500 took 22-71 s
+# beside the longer cuts above.  The eval's BM25 (SQLite FTS5, ~55-65 s on
+# one core) runs beside the training loop
+TRAIN_STEPS, TRAIN_WARMUP, TRAIN_MAX_DOCS = 1000, 66, 20_000
+TRAIN_SAVE_DOCS, TRAIN_QUERIES, TRAIN_PROBE_ROWS = 250, 32, 64
 # the card's bf16 embeddings against the CPU's f32 forward of the same
 # checkpoint: the least per-row cosine, set before any chip run
 TRAIN_EMBED_COS_MIN = 0.99
@@ -2227,6 +2393,16 @@ def phase_train(work: Path, corpus_job: _CorpusJob) -> dict:
     vocab_path, ckpt = str(out / "vocab.txt"), str(out / "ckpt")
     docs = ts.load_corpus(args.corpus)
     train_docs, holdout = ts.split_holdout(docs, args.holdout_frac)
+
+    def bm25_run():
+        t = time.perf_counter()
+        return ts.eval_bm25(docs, holdout), time.perf_counter() - t
+
+    # the eval's BM25 needs no encoder: it runs on a thread of its own
+    # (SQLite leaves the interpreter lock) while the card trains
+    pool = ThreadPoolExecutor(1, thread_name_prefix="bm25")
+    bm25_job = pool.submit(bm25_run)
+    pool.shutdown(wait=False)                # its thread ends with the job
     t0 = time.perf_counter()
     vocab = ts.build_vocab(docs, args, vocab_path)
     vocab_s = time.perf_counter() - t0
@@ -2279,9 +2455,12 @@ def phase_train(work: Path, corpus_job: _CorpusJob) -> dict:
     del trainer, q, kv
     torch.cuda.empty_cache()
 
+    t0 = time.perf_counter()
+    bm25, bm25_s = bm25_job.result()
+    bm25_wait_s = time.perf_counter() - t0
     _reset_counters()
     t0 = time.perf_counter()
-    results = ts.evaluate(args, spec, docs, holdout, vocab_path, ckpt, cuda)
+    results = ts.evaluate(args, spec, docs, holdout, vocab_path, ckpt, cuda, bm25=bm25)
     eval_s = time.perf_counter() - t0
     eval_counts = _read_counters()
     ts.write_report(args, spec, docs, holdout, results, ckpt, vocab_path)
@@ -2346,7 +2525,8 @@ def phase_train(work: Path, corpus_job: _CorpusJob) -> dict:
                             "top10_device_ms": [[k[:120], v] for k, v in top]},
           "loss_first": losses[0], "loss_last": losses[-1], "loss_first20_mean": first,
           "loss_last20_mean": last, "training_launches": train_counts,
-          "grad_guard": guard, "eval": {"seconds": eval_s, "rows": results,
+          "grad_guard": guard, "eval": {"seconds": eval_s, "bm25_s": bm25_s,
+                                        "bm25_wait_s": bm25_wait_s, "rows": results,
                                         "launches": eval_counts},
           "embed_cos_min_card_vs_cpu": cos, "embed_cos_tolerance": TRAIN_EMBED_COS_MIN,
           "serve": serve})
@@ -2354,13 +2534,21 @@ def phase_train(work: Path, corpus_job: _CorpusJob) -> dict:
 
 
 # rerank_train: train_reranker's defaults at MiniLM-L6 width (batch 256 pairs
-# = 64 groups of 1 + 3, T 160, lr 3e-4, hard-k 8, cand-k 20, bf16) over the
-# train phase's corpus, vocab and bi-encoder; cut to 400 of 1,500 steps
-# (warmup 40 of 150), with val evals every 100 steps and two mining rounds
-# of 1,000 queries so that best-val keeping and re-mining run
-RERANK_STEPS, RERANK_WARMUP, RERANK_EVAL_EVERY = 400, 40, 100
+# = 64 groups of 1 + 3, T 160, 1,500 steps, warmup 150, hard-k 8, cand-k 20,
+# bf16) over the train phase's corpus, vocab and bi-encoder, at lr 1e-4 (of
+# 3e-4: at 3e-4 the CE's logits went constant in 3 of 4 sweep runs), with
+# two mining rounds of 1,000 queries (of 1 and 8,000) and one val eval, at
+# step 1,000 (the default is none), so that best-val keeping and re-mining
+# run.  Evals every 100 steps picked by an ensemble recall saturated at the
+# bi-encoder's (±0.005 from step to step) and restored steps 100-700 of a
+# CE still learning (PERF.md)
+RERANK_STEPS, RERANK_WARMUP, RERANK_LR, RERANK_EVAL_EVERY = 1500, 150, 1e-4, 1000
 RERANK_MINE_ROUNDS, RERANK_MINE_QUERIES = 2, 1000
 RERANK_PROBE_PAIRS, RERANK_QUERIES = 64, 32
+# the trained CE's logit std over the probe pairs: constant logits read
+# <= 0.002 (bf16 rounding), CEs kept from before they learned 0.09-0.8,
+# learned ones 3.4-8.0 (rerank_sweep.py, PERF.md)
+RERANK_LOGIT_STD_MIN = 0.5
 
 
 def _rank_step_flops(module, batch: int, t: int) -> float:
@@ -2421,11 +2609,15 @@ def phase_rerank_train(work: Path, corpus: Path) -> dict:
     from tpu_rag_torch.models.tokenizer import load_tokenizer
     from tpu_rag_torch.scripts import train_reranker as tr
 
+    # the Python threads alive as the phase starts (a busy one slows the
+    # host's work here: tokenizing, batching, the eval's merges)
+    threads_at_start = _threads()
     cuda = torch.device("cuda")
     semantic, out = work / "semantic", work / "reranker"
     args = tr.parse_args(["--corpus", str(corpus), "--biencoder", str(semantic), "--out",
                           str(out), "--steps", str(RERANK_STEPS), "--warmup",
-                          str(RERANK_WARMUP), "--eval-every", str(RERANK_EVAL_EVERY),
+                          str(RERANK_WARMUP), "--lr", str(RERANK_LR),
+                          "--eval-every", str(RERANK_EVAL_EVERY),
                           "--mine-rounds", str(RERANK_MINE_ROUNDS), "--mine-queries",
                           str(RERANK_MINE_QUERIES), "--device", "cuda"])
     out.mkdir()
@@ -2506,11 +2698,8 @@ def phase_rerank_train(work: Path, corpus: Path) -> dict:
     torch.cuda.empty_cache()
 
     # the card (bf16) against the CPU (f32) on the checkpoint loaded without
-    # a spec: each held-out query with its own body and a hard candidate
-    probe = data.holdout[:RERANK_PROBE_PAIRS // 2]
-    pairs = [(d["query"], data.bodies[data.id_pos[d["id"]]]) for d in probe]
-    pairs += [(d["query"], data.bodies[(data.id_pos[d["id"]] + 1) % len(data.bodies)])
-              for d in probe]
+    # a spec: each held-out query with its own body and a neighbour's
+    pairs = tr.probe_pairs(data, RERANK_PROBE_PAIRS)
     ces = {dev: CrossEncoder(weights_path=ckpt, tokenizer_path=vocab_path, seq_len=256,
                              device=dev) for dev in ("cuda", "cpu")}
     if ces["cuda"].spec != spec or ces["cpu"].spec != spec or ces["cuda"].seq_len != 160:
@@ -2520,6 +2709,11 @@ def phase_rerank_train(work: Path, corpus: Path) -> dict:
     tol = RERANK_LOGIT_TOL * max(1.0, float(np.abs(cpu).max()))
     if not diff <= tol:
         raise AssertionError(f"card logits {diff} from the CPU f32 forward (tolerance {tol})")
+    spread = tr.logit_spread(card)
+    if not (spread["card_logit_std"] > RERANK_LOGIT_STD_MIN
+            and spread["own_body_minus_neighbour_mean"] > 0):
+        raise AssertionError(f"the trained reranker scores the probe pairs alike: {spread} "
+                             f"(std floor {RERANK_LOGIT_STD_MIN})")
     del ces
     torch.cuda.empty_cache()
 
@@ -2534,6 +2728,7 @@ def phase_rerank_train(work: Path, corpus: Path) -> dict:
     top = sorted(prof["by_kernel_ms"].items(), key=lambda kv: -kv[1])[:10]
     emit({"phase": "rerank_train",
           "cuts": {"steps": f"{RERANK_STEPS} of 1500 (warmup {RERANK_WARMUP} of 150)",
+                   "lr": f"{RERANK_LR} (default 3e-4)",
                    "eval_every": f"{RERANK_EVAL_EVERY} (default 0: off)",
                    "mine": f"--mine-rounds {RERANK_MINE_ROUNDS} --mine-queries "
                            f"{RERANK_MINE_QUERIES} (defaults 1, 8000)",
@@ -2571,9 +2766,8 @@ def phase_rerank_train(work: Path, corpus: Path) -> dict:
           # the spread of the trained CE's logits over the probe pairs: ~0
           # where training collapsed to constant logits (loss at ln 4)
           "logits_card_vs_cpu": {"pairs": len(pairs), "max_abs_diff": diff, "tolerance": tol,
-                                 "card_logit_std": float(card.std()),
-                                 "own_body_minus_neighbour_mean": float(
-                                     (card[:len(probe)] - card[len(probe):]).mean())},
+                                 **spread, "card_logit_std_min": RERANK_LOGIT_STD_MIN},
+          "threads_at_start": threads_at_start,
           "report_serving": report["serving"], "serve": serve})
     return {name: mine_counts[name] + eval_counts[name] + serve["launches"][name]
             for name in eval_counts}
@@ -2584,19 +2778,22 @@ def _dtypes_of(module, name: str):
     """Wrap module.<name> (a kernel wrapper) for the block: yields the list
     of the dtypes of its second argument (the rows, or k for #5) at each
     call.  The wrapper counts its launches on the module's name, so the
-    stand-in carries the count and hands it back."""
+    stand-in carries the counts and hands them back."""
     fn, seen = getattr(module, name), []
 
     def recorded(*a, **k):
         seen.append(a[1].dtype)
         return fn(*a, **k)
 
-    recorded.launches = fn.launches
+    counts = [a for a in ("launches", "f32_launches") if hasattr(fn, a)]
+    for a in counts:
+        setattr(recorded, a, getattr(fn, a))
     setattr(module, name, recorded)
     try:
         yield seen
     finally:
-        fn.launches = recorded.launches
+        for a in counts:
+            setattr(fn, a, getattr(recorded, a))
         setattr(module, name, fn)
 
 
@@ -2853,9 +3050,10 @@ def main() -> int:
                 "scripts": lambda _work: phase_scripts(trained, hnsw),
                 "rehearse": lambda work: phase_rehearse(work, corpus.result()[0]),
                 "rerank_train": lambda _work: phase_rerank_train(trained, corpus.path)}
-        seconds, backends = {}, {}
+        seconds, backends, threads_left = {}, {}, {}
         for name, run in runs.items():
             if name in phases:
+                before = {t.ident for t in threading.enumerate()}
                 t0 = time.perf_counter()
                 with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{name}_",
                                                  dir=REPO / "build") as work, \
@@ -2864,9 +3062,14 @@ def main() -> int:
                         launches[kern] = launches.get(kern, 0) + count
                 seconds[name] = time.perf_counter() - t0
                 backends[name] = sorted(set(built))
+                threads_left[name] = _threads(before)  # started and left running
                 if set(built) - {"native"}:
                     raise AssertionError(f"the {name} phase tokenized in Python: {built}")
-    emit({"phase_seconds": seconds, "wordpiece_backends": backends})
+    emit({"phase_seconds": seconds, "wordpiece_backends": backends,
+          "threads_left": threads_left})
+    for name, (whole, f32) in _SPLIT_COUNTERS.items():
+        if whole in launches:
+            launches[name] = launches[whole] - launches.get(f32, 0)
     for r in rows:
         r["launches"] = launches.get(r.pop("counter"))
     emit({"kernels": rows})

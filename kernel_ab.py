@@ -2,7 +2,7 @@
 """A/B timing of the port's scan (#1 #2 #3), attention (#5) and IVF probe
 (#6 #7) kernels between checkouts of this repository, on one GPU.
 
-    python3 kernel_ab.py [--profile] PARENT_DIR . . PARENT_DIR
+    python3 kernel_ab.py [--profile] [--f32] PARENT_DIR . . PARENT_DIR
 
 Each argument is the root of a checkout: its tpu_rag_torch/ is imported in
 a subprocess of its own and builds its kernels into its own build/.  The
@@ -19,6 +19,10 @@ every run (seeded on the card), as in chip_smoke.py.
 With --profile each shape also gets its device time per kernel and its
 wall time, per call (torch.profiler over 5 calls): where a wrapper's time
 goes between its kernels, the library calls around them and the host.
+With --f32 only the f32 kernels run: #5 in f32 (B 64, H 12, D 32 and 64,
+T 160, 256 and 512) and #7 on f32 lists (cap 1024, nprobe 16, m 2; q 8
+and 80 at d 384 and 768).  With --bucket only #7 runs: on int8 and bf16
+lists seeded as above (q 8 and 64) and on --f32's f32 lists.
 """
 
 from __future__ import annotations
@@ -99,7 +103,91 @@ def _both(fn, profile: bool) -> dict:
     return out
 
 
-def worker(root: Path, profile: bool) -> dict:
+def f32_worker(profile: bool) -> dict:
+    """#5 in f32 and #7 on f32 lists, on data seeded the same in every
+    checkout."""
+    import torch
+
+    from tpu_rag_torch.ops import attention as att
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    out = {}
+    for hd in (32, 64):
+        for t in (160, 256, 512):
+            q, k_, v = (torch.randn((64, t, 12, hd), generator=g, device=dev) for _ in range(3))
+            lens = torch.randint(1, t + 1, (64,), generator=g, device=dev)
+            mask = (torch.arange(t, device=dev)[None, :] < lens[:, None]).to(torch.int32)
+            out[f"fused_mha[f32,B=64,T={t},H=12,D={hd}]"] = _both(
+                lambda: att._fused_mha_cuda(q, k_, v, mask), profile)
+            del q, k_, v
+    return {**out, **_f32_bucket_rows(g, profile)}
+
+
+def _f32_bucket_rows(g, profile: bool) -> dict:
+    """#7 on f32 lists: cap 1024, nprobe 16, m 2, q 8 and 80, d 384 and 768."""
+    import torch
+
+    from tpu_rag_torch.ops import ivf_probe as ip
+    from tpu_rag_torch.ops.topk import PAD_TAG
+
+    dev, out = g.device, {}
+    nlist, cap, nprobe = 256, 1024, 16
+    for d in (384, 768):
+        vec = torch.randn((nlist, cap, d), generator=g, device=dev)
+        vec /= vec.norm(dim=2, keepdim=True)
+        scale = torch.ones((nlist, cap), device=dev)
+        ns = torch.randint(0, 4, (nlist, cap), generator=g, device=dev, dtype=torch.int32)
+        ns[:, -100:] = PAD_TAG
+        centroids = torch.randn((nlist, d), generator=g, device=dev)
+        for nq in (8, 80):
+            q = torch.randn((nq, d), generator=g, device=dev)
+            q /= q.norm(dim=1, keepdim=True)
+            uniq, n_uniq, _ = ip._dedup(ip._top_lists(q, centroids, nprobe), nlist)
+            args = (q, uniq, n_uniq, vec, scale, ns, ns, -1, -1, 2)
+            out[f"ivf_probe_batched[f32,q={nq},d={d},union={int(n_uniq)}]"] = _both(
+                lambda: ip._probe_batched_cuda(*args), profile)
+        del vec, scale, ns
+        torch.cuda.empty_cache()
+    return out
+
+
+def bucket_worker(profile: bool) -> dict:
+    """#7 alone: int8 and bf16 lists as worker() seeds them, f32 lists as
+    f32_worker() does."""
+    import torch
+
+    import chip_smoke
+    from tpu_rag_torch.ops import ivf_probe as ip
+    from tpu_rag_torch.ops.quant import quantize_int8_rows
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    nlist, cap, d = chip_smoke.IVF_NLIST, chip_smoke.IVF_CAP, 384
+    vec = torch.randint(-127, 128, (nlist, cap, d), generator=g, device=dev, dtype=torch.int8)
+    scale = torch.rand((nlist, cap), generator=g, device=dev) * 1e-3 + 1e-3
+    tags = torch.randint(0, 4, (nlist, cap), generator=g, device=dev, dtype=torch.int32)
+    centroids = torch.randn((nlist, d), generator=g, device=dev)
+    out = {}
+    for dtype in ("int8", "bf16"):
+        lists = vec if dtype == "int8" else vec.to(torch.bfloat16).mul_(1e-3)
+        for nq in (8, 64):
+            qf = torch.randn((nq, d), generator=g, device=dev)
+            q_in = (quantize_int8_rows(qf)[0] if dtype == "int8"
+                    else (qf / qf.norm(dim=1, keepdim=True)).to(torch.bfloat16))
+            uniq, n_uniq, _ = ip._dedup(ip._top_lists(qf, centroids, chip_smoke.IVF_NPROBE),
+                                        nlist)
+            args = (q_in, uniq, n_uniq, lists, scale if dtype == "int8" else torch.ones_like(
+                scale), tags, tags, -1, -1, 2)
+            out[f"ivf_probe_batched[{dtype},q={nq},union={int(n_uniq)}]"] = _both(
+                lambda: ip._probe_batched_cuda(*args), profile)
+        del lists
+    del vec, scale, tags
+    torch.cuda.empty_cache()
+    return {**out, **_f32_bucket_rows(g, profile)}
+
+
+def worker(root: Path, profile: bool, f32: bool = False, bucket: bool = False) -> dict:
     import torch
 
     sys.path.insert(0, str(root))
@@ -109,6 +197,10 @@ def worker(root: Path, profile: bool) -> dict:
 
     if not Path(tk.__file__).resolve().is_relative_to(root):
         raise RuntimeError(f"imported {tk.__file__}, not the checkout at {root}")
+    if f32:
+        return f32_worker(profile)
+    if bucket:
+        return bucket_worker(profile)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED)
     n, d = 1_000_000, 384
@@ -186,10 +278,11 @@ def worker(root: Path, profile: bool) -> dict:
 
 def main() -> int:
     args = sys.argv[1:]
-    profile = "--profile" in args
-    args = [a for a in args if a != "--profile"]
+    profile, f32, bucket = "--profile" in args, "--f32" in args, "--bucket" in args
+    flags = [a for a in ("--profile", "--f32", "--bucket") if a in args]
+    args = [a for a in args if a not in flags]
     if len(args) == 2 and args[0] == "--worker":
-        print(json.dumps(worker(Path(args[1]).resolve(), profile)), flush=True)
+        print(json.dumps(worker(Path(args[1]).resolve(), profile, f32, bucket)), flush=True)
         return 0
     roots = [Path(a).resolve() for a in args]
     if not roots:
@@ -198,8 +291,7 @@ def main() -> int:
     runs = []
     for i, root in enumerate(roots):
         proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--worker",
-                               str(root)] + (["--profile"] if profile else []),
-                              capture_output=True, text=True, cwd=root)
+                               str(root)] + flags, capture_output=True, text=True, cwd=root)
         if proc.returncode != 0:
             print(proc.stdout + proc.stderr, file=sys.stderr)
             return proc.returncode

@@ -37,10 +37,6 @@ def test_live_items_covered_once_in_contiguous_ranges(dtype, nq):
     nb = 31                                                   # cap 3968
     for u_max in (1, 7, 466, 2048):
         plan = ip._bucket_plan(u_max, nb, nq, 384, dtype, SMS)
-        if dtype == torch.float32:
-            # each list's buckets split into runs of `items`
-            assert (plan.blocks - 1) * plan.items < nb <= plan.blocks * plan.items
-            continue
         for n_uniq in sorted({1, u_max // 2 + 1, u_max - 1, u_max} - {0}):
             ranges = ip._bucket_ranges(n_uniq * nb, plan.blocks)
             assert len(ranges) == plan.blocks
@@ -51,7 +47,10 @@ def test_live_items_covered_once_in_contiguous_ranges(dtype, nq):
             lens = [e - b for b, e in ranges]
             assert max(lens) - min(lens) <= 1                 # balanced on the device
         chunks = -(-nq // plan.qc)
-        assert plan.blocks * chunks <= SMS or plan.blocks == 1
+        if dtype == torch.float32:
+            assert plan.blocks == SMS             # a wave for each query chunk
+        else:
+            assert plan.blocks * chunks <= SMS or plan.blocks == 1
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
@@ -115,7 +114,8 @@ def test_f32_plans_fit():
     for d in D_ALL:
         for nq in (1, 8, 16, 33, 64, 80):
             plan = ip._bucket_plan(2048, 31, nq, d, torch.float32, SMS)
-            assert plan.qc % 16 == 0 and plan.stages == 0 and plan.smem <= 232_448
+            assert plan.qc in (16, 32, 64) and 2 <= plan.stages <= ip._BUCKET_STAGES_MAX
+            assert plan.smem == ip._f32_bucket_smem(d, plan.qc, plan.stages) <= 232_448
 
 
 def test_plan_rejects_what_cannot_fit():

@@ -33,9 +33,29 @@
 //     is divided by the row sum once at the end.  P is cast before it is
 //     normalised, where the TPU kernel normalises first: the two differ by
 //     bf16 rounding of the probabilities.
-// f32 inputs (never on the card's encoder path) keep the first version:
-// one thread per query row, K/V chunks of 32 in shared memory, CUDA-core
-// FMAs, no TF32.
+// f32 (prove_checkpoint's encoder; the reference computes in f32, so no
+// TF32): Q.K^T and P.V on the CUDA cores with f32 rounding.  The work is
+// 4 B H T^2 D FLOPs against ~4 B T H D x 4 bytes, so the FMA pipes (67
+// TFLOP/s), not the bytes, bound it.  mha_f32_kernel<D>:
+//   - one block of 256 threads per (b, h, 128-query tile): at T <= 128 one
+//     tile a head; the tile's Q rows stay in shared memory;
+//   - K and V stream through a ring of three 64-key chunks, copied by
+//     16-byte cp.async two chunks ahead of the math, so the copy of the
+//     next chunks overlaps this one's products (two barriers a chunk);
+//   - S = Q.K^T in register micro-tiles: thread (ty, tx) = (tid / 8,
+//     tid % 8) owns rows 4 ty .. 4 ty + 3 and keys tx + 8 j (j < 8); Q and
+//     K rows are read as float4 along d from rows padded by 16 bytes, so
+//     the eight lanes of a quarter warp read one Q row (a broadcast) and
+//     eight consecutive K rows (eight distinct 16-byte bank groups): each
+//     float4 feeds 4-8 FMAs;
+//   - an online softmax in the log2 domain: each row's 64 scores of a chunk
+//     lie on the 8 lanes of one quarter warp, whose max and sum are reduced
+//     by three xor shuffles; -1e30 for masked keys, -inf past T;
+//   - P goes to a small transposed staging tile (P^T[key][row], rows
+//     padded by 16 bytes) and O += P.V in the same micro-tiling: rows 4 ty
+//     .. 4 ty + 3 by columns 4 tx + 32 c, a float4 of P^T and D / 32
+//     float4s of V a key; keys past T are cut by the chunk's bound.  O is
+//     divided by the row sum once at the end.  No T cap: K and V stream.
 
 #include <cuda_bf16.h>
 #include <math.h>
@@ -225,92 +245,227 @@ int launch_tc(const void* q, const void* k, const void* v, const void* mask, voi
 }
 
 // ---------------------------------------------------------------- f32
-constexpr int kQRows = 128;  // query rows (threads) per block
-constexpr int kKeys = 32;    // keys per shared-memory chunk
+constexpr int kF32Threads = 256;
+constexpr int kF32Rows = 128;  // query rows of a block
+constexpr int kF32Keys = 64;   // keys of a ring chunk
+constexpr int kF32Stages = 3;  // ring chunks
+
+// Shared-memory layout of mha_f32_kernel<D> in floats (mirrored by
+// ops/attention.py's _f32_smem): the Q tile, the K and V rings (rows of D
+// + 4 floats), P^T (rows of kF32Rows + 4), the ring's key flags.
+struct F32Smem { int ld, lp, q, k, v, p, flags, total; };
+
+__host__ __device__ inline F32Smem f32_smem(int D) {
+  F32Smem o;
+  o.ld = D + 4;
+  o.lp = kF32Rows + 4;
+  o.q = 0;
+  o.k = o.q + kF32Rows * o.ld;
+  o.v = o.k + kF32Stages * kF32Keys * o.ld;
+  o.p = o.v + kF32Stages * kF32Keys * o.ld;
+  o.flags = o.p + kF32Keys * o.lp;
+  o.total = o.flags + kF32Stages * kF32Keys;
+  return o;
+}
 
 template <int D>
-__global__ void __launch_bounds__(kQRows)
+__global__ void __launch_bounds__(kF32Threads)
 mha_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, const int* __restrict__ mask,
-               float* __restrict__ o, int T_, int H, float scale) {
-  __shared__ float Ks[kKeys][D];
-  __shared__ float Vs[kKeys][D];
-  __shared__ int Ms[kKeys];
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int t = blockIdx.x * kQRows + threadIdx.x;
-  const bool active = t < T_;
-  const size_t row_stride = size_t(H) * D;  // between consecutive tokens
-  const size_t base = (size_t(b) * T_) * row_stride + size_t(h) * D;
+               float* __restrict__ o, int T_, int H, float scale_log2) {
+  constexpr int kPieces = D / 4;  // 16-byte pieces of a head row
+  constexpr int kCols = D / 32;   // float4 columns of O a thread owns
+  extern __shared__ __align__(16) float fsm[];
+  const F32Smem lay = f32_smem(D);
+  const int LD = lay.ld, LP = lay.lp;
+  float* Qs = fsm + lay.q;
+  float* Ps = fsm + lay.p;
+  int* flags = reinterpret_cast<int*>(fsm + lay.flags);  // 1 real, 0 masked, -1 past T
 
-  float qr[D], acc[D];
-#pragma unroll
-  for (int c = 0; c < D; ++c) {
-    qr[c] = active ? q[base + t * row_stride + c] : 0.f;
-    acc[c] = 0.f;
+  const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kF32Rows;
+  const size_t rs = size_t(H) * D;  // between consecutive tokens
+  const size_t base = size_t(b) * T_ * rs + size_t(h) * D;
+  const int nchunks = (T_ + kF32Keys - 1) / kF32Keys;
+
+  // chunk c -> ring stage c % 3: K, V (zero past T) and the key flags
+  auto fetch = [&](int c) {
+    const int st = c % kF32Stages;
+    float* Ks = fsm + lay.k + st * kF32Keys * LD;
+    float* Vs = fsm + lay.v + st * kF32Keys * LD;
+    for (int i = tid; i < kF32Keys * kPieces; i += kF32Threads) {
+      const int r = i / kPieces, cc = (i % kPieces) * 4, key = c * kF32Keys + r;
+      const bool ok = key < T_;
+      const size_t off = base + size_t(ok ? key : 0) * rs + cc;
+      cp_async16(Ks + r * LD + cc, k + off, ok);
+      cp_async16(Vs + r * LD + cc, v + off, ok);
+    }
+    if (tid < kF32Keys) {
+      const int key = c * kF32Keys + tid;
+      flags[st * kF32Keys + tid] = key < T_ ? (mask[size_t(b) * T_ + key] > 0 ? 1 : 0) : -1;
+    }
+    cp_commit();
+  };
+
+  for (int i = tid; i < kF32Rows * kPieces; i += kF32Threads) {
+    const int r = i / kPieces, cc = (i % kPieces) * 4;
+    const bool ok = q0 + r < T_;
+    cp_async16(Qs + r * LD + cc, q + base + size_t(ok ? q0 + r : 0) * rs + cc, ok);
   }
-  float m = -INFINITY, l = 0.f;
+  fetch(0);  // the Q tile rides in chunk 0's group
+  if (nchunks > 1) fetch(1);
 
-  for (int k0 = 0; k0 < T_; k0 += kKeys) {
-    const int nk = min(kKeys, T_ - k0);
-    __syncthreads();
-    for (int i = threadIdx.x; i < kKeys * D; i += kQRows) {
-      const int j = i / D, c = i % D;
-      const bool in = j < nk;
-      const size_t off = base + size_t(k0 + j) * row_stride + c;
-      Ks[j][c] = in ? k[off] : 0.f;
-      Vs[j][c] = in ? v[off] : 0.f;
-    }
-    if (threadIdx.x < kKeys)
-      Ms[threadIdx.x] = threadIdx.x < nk ? mask[size_t(b) * T_ + k0 + threadIdx.x] : 0;
-    __syncthreads();
-    if (!active) continue;
+  float acc[4][kCols][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) acc[i][c][0] = acc[i][c][1] = acc[i][c][2] = acc[i][c][3] = 0.f;
+  float m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+  }
+  const float* qrow = Qs + (4 * ty) * LD;
 
-    float s[kKeys];
-    float cmax = m;
+  for (int c = 0; c < nchunks; ++c) {
+    if (c + 1 < nchunks) cp_wait<1>();  // chunk c + 1 may stay in flight
+    else cp_wait<0>();
+    __syncthreads();  // chunk c landed for all; P.V of chunk c - 1 is done
+    if (c + 2 < nchunks) fetch(c + 2);  // into the stage chunk c - 1 held
+    const int st = c % kF32Stages;
+    const float* Ks = fsm + lay.k + st * kF32Keys * LD;
+    const float* Vs = fsm + lay.v + st * kF32Keys * LD;
+    const int* fl = flags + st * kF32Keys;
+
+    // ---- S = Q . K^T: rows 4 ty + i, keys tx + 8 j
+    float s[4][8];
 #pragma unroll
-    for (int j = 0; j < kKeys; ++j) {
-      float dot = 0.f;
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int c = 0; c < D; ++c) dot = fmaf(qr[c], Ks[j][c], dot);
-      s[j] = Ms[j] > 0 ? dot * scale : kMaskValue;
-      if (j < nk) cmax = fmaxf(cmax, s[j]);
-    }
-    const float corr = expf(m - cmax);  // 0 on the first chunk (m = -inf)
-    l *= corr;
+      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+    const float* krow = Ks + tx * LD;
+#pragma unroll 4
+    for (int d = 0; d < D; d += 4) {
+      float4 a[4];
 #pragma unroll
-    for (int c = 0; c < D; ++c) acc[c] *= corr;
+      for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const float4*>(qrow + i * LD + d);
 #pragma unroll
-    for (int j = 0; j < kKeys; ++j) {
-      if (j < nk) {
-        const float p = expf(s[j] - cmax);
-        l += p;
+      for (int j = 0; j < 8; ++j) {
+        const float4 kv = *reinterpret_cast<const float4*>(krow + j * 8 * LD + d);
 #pragma unroll
-        for (int c = 0; c < D; ++c) acc[c] = fmaf(p, Vs[j][c], acc[c]);
+        for (int i = 0; i < 4; ++i) {
+          s[i][j] = fmaf(a[i].x, kv.x, s[i][j]);
+          s[i][j] = fmaf(a[i].y, kv.y, s[i][j]);
+          s[i][j] = fmaf(a[i].z, kv.z, s[i][j]);
+          s[i][j] = fmaf(a[i].w, kv.w, s[i][j]);
+        }
       }
     }
-    m = cmax;
-  }
-  if (active) {
-    const float inv = 1.f / l;
+
+    // ---- online softmax in the log2 domain over the row's 8 lanes
+    float mx[4];
 #pragma unroll
-    for (int c = 0; c < D; ++c) o[base + t * row_stride + c] = acc[c] * inv;
+    for (int i = 0; i < 4; ++i) mx[i] = m[i];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int f = fl[tx + 8 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float x = f > 0 ? s[i][j] * scale_log2 : (f == 0 ? kMaskValue : -INFINITY);
+        s[i][j] = x;
+        mx[i] = fmaxf(mx[i], x);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int off = 1; off <= 4; off <<= 1)
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], off));
+      const float corr = exp2f(m[i] - mx[i]);  // 0 on the first chunk
+      m[i] = mx[i];
+      l[i] *= corr;
+#pragma unroll
+      for (int cc = 0; cc < kCols; ++cc) {
+        acc[i][cc][0] *= corr;
+        acc[i][cc][1] *= corr;
+        acc[i][cc][2] *= corr;
+        acc[i][cc][3] *= corr;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float p[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        p[i] = exp2f(s[i][j] - m[i]);
+        l[i] += p[i];
+      }
+      *reinterpret_cast<float4*>(Ps + (tx + 8 * j) * LP + 4 * ty) =
+          make_float4(p[0], p[1], p[2], p[3]);
+    }
+    __syncthreads();  // P^T complete
+
+    // ---- O += P . V: rows 4 ty + i, columns 4 tx + 32 cc, the chunk's keys
+    const int nk = min(kF32Keys, T_ - c * kF32Keys);
+    const float* prow = Ps + 4 * ty;
+    const float* vcol = Vs + 4 * tx;
+#pragma unroll 4
+    for (int j = 0; j < nk; ++j) {
+      const float4 pv = *reinterpret_cast<const float4*>(prow + j * LP);
+      const float pa[4] = {pv.x, pv.y, pv.z, pv.w};
+#pragma unroll
+      for (int cc = 0; cc < kCols; ++cc) {
+        const float4 vv = *reinterpret_cast<const float4*>(vcol + j * LD + 32 * cc);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc[i][cc][0] = fmaf(pa[i], vv.x, acc[i][cc][0]);
+          acc[i][cc][1] = fmaf(pa[i], vv.y, acc[i][cc][1]);
+          acc[i][cc][2] = fmaf(pa[i], vv.z, acc[i][cc][2]);
+          acc[i][cc][3] = fmaf(pa[i], vv.w, acc[i][cc][3]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int off = 1; off <= 4; off <<= 1) l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+    const int r = q0 + 4 * ty + i;
+    if (r >= T_) continue;
+    const float inv = 1.f / l[i];
+#pragma unroll
+    for (int cc = 0; cc < kCols; ++cc)
+      *reinterpret_cast<float4*>(o + base + size_t(r) * rs + 4 * tx + 32 * cc) =
+          make_float4(acc[i][cc][0] * inv, acc[i][cc][1] * inv, acc[i][cc][2] * inv,
+                      acc[i][cc][3] * inv);
   }
 }
 
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, const void* mask, void* o, int B,
                int T_, int H, cudaStream_t stream) {
-  dim3 grid((T_ + kQRows - 1) / kQRows, H, B);
-  mha_f32_kernel<D><<<grid, kQRows, 0, stream>>>(
+  const int smem = f32_smem(D).total * 4;
+  if (int e = int(cudaFuncSetAttribute(mha_f32_kernel<D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem)))
+    return e;
+  dim3 grid((T_ + kF32Rows - 1) / kF32Rows, H, B);
+  mha_f32_kernel<D><<<grid, kF32Threads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const int*>(mask), static_cast<float*>(o), T_, H, 1.f / sqrtf(float(D)));
+      static_cast<const int*>(mask), static_cast<float*>(o), T_, H, kLog2e / sqrtf(float(D)));
   return int(cudaGetLastError());
 }
 
 }  // namespace
 
-// q/k/v/o (B, T, H, D) contiguous, dtype f32 or bf16; mask (B, T) int32.
-// bf16 takes T <= 512.
+// Shared-memory bytes of one block of #5 (dtype TR_F32 or TR_BF16).
+extern "C" size_t tr_mha_smem_bytes(int dtype, int D, int T_) {
+  return dtype == TR_F32 ? size_t(f32_smem(D).total) * 4 : tc_smem_bytes(D, T_);
+}
+
+// q/k/v/o (B, T, H, D) contiguous and 16-byte aligned, dtype f32 or bf16;
+// mask (B, T) int32.  bf16 takes T <= 512; f32 any T.
 extern "C" int tr_mha(const void* q, const void* k, const void* v,
                       const void* mask, void* o, int B, int T_, int H, int D,
                       int dtype, void* stream) {

@@ -90,9 +90,27 @@
 //        whose rows of a stage are all masked skips product and selection;
 //      - union slots past the live count are written -inf/-1 by the whole
 //        grid, so the host never waits for the union's size.
-//      f32 lists keep batched_bucket_kernel: one block per (union slot, run
-//      of buckets, query chunk) through scan_tile.cuh's scoring step, each
-//      warp selecting for its queries with m rounds of a warp arg-max.
+//      f32 lists (batched_bucket_kernel), the same structure with the
+//      product on the CUDA cores (the reference is f32: no TF32), where the
+//      FMA pipes (67 TFLOP/s) and not the bytes bound it from ~16 queries:
+//      - the same grid over query chunks (16, 32 or 64 queries, staged
+//        once in shared memory), but one block per SM for each chunk: the
+//        FMA pipes, not the bytes, bound a chunk, so the chunks run one
+//        wave after another rather than share the card; the warps of a
+//        chunk's empty query half skip the product;
+//      - a bucket at d floats is 4 d / 128 tensor-map boxes of 128 rows x
+//        128 bytes (16 KB; a whole f32 bucket, 192 KB at d 384, would leave
+//        no room for a second stage), so the ring's 2-8 stages each hold
+//        one box, the bucket's ns and canon riding with its first box, and
+//        the accumulators stay in registers over the bucket's boxes;
+//      - the product in register micro-tiles laid out as mma.sync's
+//        accumulators (at 64 queries a warp owns 32 rows x 32 queries, a
+//        thread 4 rows x 8 queries), each row and query read as float4
+//        along d: the swizzled box rows fall in distinct bank groups, the
+//        query rows are padded by 16 bytes; 12 float4 loads feed 128 FMAs;
+//      - at a bucket's last box the selection, the table and the fold are
+//        the bf16/int8 kernel's (warp_select, fold_rows); a warp whose rows
+//        of a bucket are all masked skips its boxes' products.
 
 #include <cooperative_groups.h>
 #include <cuda.h>
@@ -117,16 +135,15 @@ constexpr int kOneQ = 16;   // f32 #6 stages its one query as a 16-row tile
 
 struct ProbeSmem { size_t q, x, s, m, l, total; };
 
-// kind 0: #6 (one query, a k-long list); kind 1: #7 (qc queries).
-__host__ __device__ inline ProbeSmem probe_smem(int kind, int elt, int d, int qc, int k) {
-  const int rows = kind == 0 ? kOneQ : qc;
+// probe_list_kernel's layout: one query staged as a 16-row tile, a k-long list.
+__host__ __device__ inline ProbeSmem probe_smem(int d, int k) {
   ProbeSmem o;
   o.q = 0;
-  o.x = o.q + q_bytes(elt, d, rows);
-  o.s = o.x + x_bytes(elt);
-  o.m = o.s + s_bytes(rows);
+  o.x = o.q + q_bytes(4, d, kOneQ);
+  o.s = o.x + x_bytes(4);
+  o.m = o.s + s_bytes(kOneQ);
   o.l = o.m + tr_align128(size_t(kSub) * 8);
-  o.total = o.l + (kind == 0 ? size_t(k) * 8 : 0);
+  o.total = o.l + size_t(k) * 8;
   return o;
 }
 
@@ -159,7 +176,7 @@ probe_list_kernel(const float* __restrict__ q, const int* __restrict__ lists,
                   const int* __restrict__ canon, int nprobe, int cap, int d, int want_ns,
                   int want_canon, int k, float* __restrict__ out_sc, int* __restrict__ out_id) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const ProbeSmem lay = probe_smem(0, 4, d, kOneQ, k);
+  const ProbeSmem lay = probe_smem(d, k);
   float* Qs = reinterpret_cast<float*>(smem + lay.q);
   float* Xs = reinterpret_cast<float*>(smem + lay.x);
   float* S = reinterpret_cast<float*>(smem + lay.s);
@@ -193,83 +210,6 @@ probe_list_kernel(const float* __restrict__ q, const int* __restrict__ lists,
     const float s = Lsc[j];
     out_sc[size_t(qp) * k + j] = s;
     out_id[size_t(qp) * k + j] = s > -INFINITY ? Lid[j] : -1;
-  }
-}
-
-// #7 on f32 lists: one block per (union slot, run of buckets, query chunk)
-// through the scoring step, each warp selecting for its queries with m
-// rounds of a warp arg-max.
-__global__ void __launch_bounds__(kThreads)
-batched_bucket_kernel(const float* __restrict__ q, const int* __restrict__ uniq,
-                      const int* __restrict__ n_uniq, const float* __restrict__ vec,
-                      const int* __restrict__ ns, const int* __restrict__ canon, int nq,
-                      int cap, int d, int want_ns, int want_canon, int qc, int m, int bpb,
-                      float* __restrict__ out_sc, int* __restrict__ out_id) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const ProbeSmem lay = probe_smem(1, 4, d, qc, 0);
-  float* Qs = reinterpret_cast<float*>(smem + lay.q);
-  float* Xs = reinterpret_cast<float*>(smem + lay.x);
-  float* S = reinterpret_cast<float*>(smem + lay.s);
-  int* okS = reinterpret_cast<int*>(smem + lay.m);
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int u = blockIdx.x;
-  const int nb = cap / kSub, cols = m * nb;
-  const int b_begin = blockIdx.y * bpb, b_end = min(nb, b_begin + bpb);
-  const int q0 = blockIdx.z * qc, nql = min(qc, nq - q0);
-  if (b_begin >= b_end) return;
-  if (u >= *n_uniq) {  // past the union: defined, never gathered
-    const int nbb = b_end - b_begin;
-    for (int i = tid; i < nql * m * nbb; i += kThreads) {
-      const int qi = i / (m * nbb), p = (i / nbb) % m, b = b_begin + i % nbb;
-      const size_t o = (size_t(u) * nq + q0 + qi) * cols + p * nb + b;
-      out_sc[o] = -INFINITY;
-      out_id[o] = -1;
-    }
-    return;
-  }
-  const size_t base = size_t(uniq[u]) * cap;
-  stage_queries(q + size_t(q0) * d, nql, d, qc, Qs);
-  for (int b = b_begin; b < b_end; ++b) {
-    const int slot0 = b * kSub;
-    __syncthreads();  // the previous step's readers are done
-    slot_mask(ns, canon, base, slot0, cap, want_ns, want_canon, okS);
-    score_step(vec + (base + slot0) * d, kSub, d, qc, Qs, Xs, S);
-    __syncthreads();
-    for (int qi = warp; qi < nql; qi += kWarps) {
-      float v[kSub / 32];
-#pragma unroll
-      for (int h = 0; h < kSub / 32; ++h) v[h] = masked_score(S, okS, qi, h * 32 + lane);
-      const size_t o = (size_t(u) * nq + q0 + qi) * cols + b;
-      for (int p = 0; p < m; ++p) {
-        float best = -INFINITY;
-        int br = INT_MAX;
-#pragma unroll
-        for (int h = 0; h < kSub / 32; ++h) {
-          const int r = h * 32 + lane;
-          if (v[h] > best || (v[h] == best && r < br)) {
-            best = v[h];
-            br = r;
-          }
-        }
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-          const float os = __shfl_xor_sync(kFull, best, off);
-          const int orow = __shfl_xor_sync(kFull, br, off);
-          if (os > best || (os == best && orow < br)) {
-            best = os;
-            br = orow;
-          }
-        }
-        if (lane == 0) {
-          out_sc[o + size_t(p) * nb] = best;
-          out_id[o + size_t(p) * nb] = best > -INFINITY ? slot0 + br : -1;
-        }
-#pragma unroll
-        for (int h = 0; h < kSub / 32; ++h)
-          if (h * 32 + lane == br) v[h] = -INFINITY;  // knock the winner out
-      }
-    }
   }
 }
 
@@ -418,6 +358,132 @@ __device__ inline void top_of(float (&cs)[N], int (&cr)[N], float (&ls)[M], int 
   }
 }
 
+// The top M of one query's winners over kWR row tiles (tS/tR at its entry
+// of row tile 0, the row tiles `stride` apart): a merge tree.
+template <int kWR, int M>
+__device__ inline void fold_rows(const float* tS, const int* tR, int stride, float (&ls)[M],
+                                 int (&lr)[M]) {
+  float ws[kWR][M];
+  int wrr[kWR][M];
+#pragma unroll
+  for (int w = 0; w < kWR; ++w)
+#pragma unroll
+    for (int p = 0; p < M; ++p) {
+      ws[w][p] = tS[w * stride + p];
+      wrr[w][p] = tR[w * stride + p];
+    }
+#pragma unroll
+  for (int step = 1; step < kWR; step *= 2)
+#pragma unroll
+    for (int w = 0; w + step < kWR; w += 2 * step) list_merge(ws[w], wrr[w], ws[w + step], wrr[w + step]);
+#pragma unroll
+  for (int p = 0; p < M; ++p) {
+    ls[p] = ws[0][p];
+    lr[p] = wrr[0][p];
+  }
+}
+
+// A warp's top M of its rows for each of its query columns, into its part
+// of the winners' table (tS/tR: [query][kMaxM]).  sc holds the warp's
+// masked scores in mma.sync's m16n8 accumulator layout: [mi][j][2 h + e] is
+// row 16 mi + g + 8 h of the warp's rows (slot sbase + that row) and query
+// qb + 8 j + 2 t + e.
+template <int kMTW, int kNTW, int M>
+__device__ inline void warp_select(const float (&sc)[kMTW][kNTW][4], int sbase, int g, int t,
+                                   int qb, float* tS, int* tR) {
+  if constexpr (kMTW == 2 && kNTW == 4) {
+    // 32 rows x 32 queries a warp: a thread holds 8 query columns c = 2j +
+    // e of 4 rows g + 8k (k = h + 2 mi).  Three xor-shuffle stages
+    // transpose those 8 x 8 packets over the 8 lanes of other g, so lane g
+    // holds column g of all 32 rows (v[g'][k] = row g' + 8k); it keeps the
+    // column's top M as four chains in slot order, merged.
+    float v[8][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) v[2 * j + e][h + 2 * mi] = sc[mi][j][2 * h + e];
+#pragma unroll
+    for (int b = 0; b < 3; ++b) {
+      const bool up = (g >> b) & 1;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        if (c & (1 << b)) continue;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float recv =
+              __shfl_xor_sync(kFull, up ? v[c][k] : v[c | (1 << b)][k], 4 << b);
+          if (up) v[c][k] = recv;
+          else v[c | (1 << b)][k] = recv;
+        }
+      }
+    }
+    float ls[4][M];
+    int lsr[4][M];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+#pragma unroll
+      for (int p = 0; p < M; ++p) {
+        ls[k][p] = -INFINITY;
+        lsr[k][p] = INT_MAX;
+      }
+#pragma unroll
+      for (int gg = 0; gg < 8; ++gg) list_insert_later(ls[k], lsr[k], v[gg][k], sbase + gg + 8 * k);
+    }
+    list_merge(ls[0], lsr[0], ls[1], lsr[1]);
+    list_merge(ls[2], lsr[2], ls[3], lsr[3]);
+    list_merge(ls[0], lsr[0], ls[2], lsr[2]);
+    const int qi = qb + (g >> 1) * 8 + 2 * t + (g & 1);
+#pragma unroll
+    for (int p = 0; p < M; ++p) {
+      tS[qi * kMaxM + p] = ls[0][p];
+      tR[qi * kMaxM + p] = lsr[0][p];
+    }
+  } else {
+    // per query column: the sorted top M of this thread's rows, merged
+    // over the 8 lanes of other rows g
+#pragma unroll
+    for (int j = 0; j < kNTW; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float cs[2 * kMTW];
+        int cr[2 * kMTW];
+#pragma unroll
+        for (int mi = 0; mi < kMTW; ++mi)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            cs[2 * mi + h] = sc[mi][j][2 * h + e];
+            cr[2 * mi + h] = sbase + mi * 16 + g + 8 * h;
+          }
+        float ls[M];
+        int lsr[M];
+        top_of(cs, cr, ls, lsr);
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {
+          float os[M];
+          int osr[M];
+#pragma unroll
+          for (int p = 0; p < M; ++p) {
+            os[p] = __shfl_xor_sync(kFull, ls[p], off);
+            osr[p] = __shfl_xor_sync(kFull, lsr[p], off);
+          }
+          list_merge(ls, lsr, os, osr);
+        }
+        if (g == 0) {
+          const int qi = qb + j * 8 + 2 * t + e;
+#pragma unroll
+          for (int p = 0; p < M; ++p) {
+            tS[qi * kMaxM + p] = ls[p];
+            tR[qi * kMaxM + p] = lsr[p];
+          }
+        }
+      }
+  }
+}
+
 template <typename T, int NT, int kRows, int M>
 __global__ void __launch_bounds__(kBucketThreads, 1)
 pipe_bucket_kernel(const T* __restrict__ q, const int* __restrict__ uniq,
@@ -556,20 +622,10 @@ pipe_bucket_kernel(const T* __restrict__ q, const int* __restrict__ uniq,
     run_r[p] = INT_MAX;
   }
   auto fold = [&](int tile) {
-    float ws[kWR][M];
-    int wrr[kWR][M];
+    float ws[M];
+    int wrr[M];
     const int base = ((tile & 1) * kWR * qc + mqc) * kMaxM;
-#pragma unroll
-    for (int w = 0; w < kWR; ++w)
-#pragma unroll
-      for (int p = 0; p < M; ++p) {
-        ws[w][p] = tabS[base + w * qc * kMaxM + p];
-        wrr[w][p] = tabR[base + w * qc * kMaxM + p];
-      }
-#pragma unroll
-    for (int step = 1; step < kWR; step *= 2)
-#pragma unroll
-      for (int w = 0; w + step < kWR; w += 2 * step) list_merge(ws[w], wrr[w], ws[w + step], wrr[w + step]);
+    fold_rows<kWR, M>(tabS + base, tabR + base, qc * kMaxM, ws, wrr);
     if constexpr (kSPB == 1) {
       if (merger) {  // the bucket closes: slots in the list
         const long long item = ib + tile;
@@ -577,18 +633,18 @@ pipe_bucket_kernel(const T* __restrict__ q, const int* __restrict__ uniq,
         const size_t o = (size_t(item / nb) * nq + q0 + mq) * cols + b;
 #pragma unroll
         for (int p = 0; p < M; ++p) {
-          out_sc[o + size_t(p) * nb] = ws[0][p];
-          out_id[o + size_t(p) * nb] = ws[0][p] > -INFINITY ? b * kSub + wrr[0][p] : -1;
+          out_sc[o + size_t(p) * nb] = ws[p];
+          out_id[o + size_t(p) * nb] = ws[p] > -INFINITY ? b * kSub + wrr[p] : -1;
         }
       }
     } else if (tile % kSPB == 0) {  // the bucket's first half
 #pragma unroll
       for (int p = 0; p < M; ++p) {
-        run_s[p] = ws[0][p];
-        run_r[p] = wrr[0][p];
+        run_s[p] = ws[p];
+        run_r[p] = wrr[p];
       }
     } else {
-      list_merge(run_s, run_r, ws[0], wrr[0]);
+      list_merge(run_s, run_r, ws, wrr);
       if (merger) {
         const long long item = ib + tile / kSPB;
         const int b = int(item % nb);
@@ -703,102 +759,19 @@ pipe_bucket_kernel(const T* __restrict__ q, const int* __restrict__ uniq,
     // ---- selection from the accumulators into the table.  Masked rows
     // score -inf; int8 scores are float(acc) * row scale, the plain
     // version's f32 product (|acc| < 2^24, exact in f32).
-    auto score = [&](int mi, int j, int h, int e) {
-      return !ok[mi][h] ? -INFINITY
-             : kInt8   ? float(acc[mi][j][2 * h + e]) * rs[mi][h]
-                       : float(acc[mi][j][2 * h + e]);
-    };
-    if constexpr (kMTW == 2 && kNTW == 4) {
-      // 32 rows x 32 queries a warp: a thread holds 8 query columns c = 2j +
-      // e of 4 rows g + 8k (k = h + 2 mi).  Three xor-shuffle stages
-      // transpose those 8 x 8 packets over the 8 lanes of other g, so lane g
-      // holds column g of all 32 rows (v[g'][k] = row g' + 8k); it keeps the
-      // column's top M as four chains in slot order, merged.
-      float v[8][4];
+    float sc[kMTW][kNTW][4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-            for (int h = 0; h < 2; ++h) v[2 * j + e][h + 2 * mi] = score(mi, j, h, e);
-#pragma unroll
-      for (int b = 0; b < 3; ++b) {
-        const bool up = (g >> b) & 1;
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          if (c & (1 << b)) continue;
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            const float recv =
-                __shfl_xor_sync(kFull, up ? v[c][k] : v[c | (1 << b)][k], 4 << b);
-            if (up) v[c][k] = recv;
-            else v[c | (1 << b)][k] = recv;
-          }
-        }
-      }
-      float ls[4][M];
-      int lsr[4][M];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-#pragma unroll
-        for (int p = 0; p < M; ++p) {
-          ls[k][p] = -INFINITY;
-          lsr[k][p] = INT_MAX;
-        }
-#pragma unroll
-        for (int gg = 0; gg < 8; ++gg) list_insert_later(ls[k], lsr[k], v[gg][k], sbase + gg + 8 * k);
-      }
-      list_merge(ls[0], lsr[0], ls[1], lsr[1]);
-      list_merge(ls[2], lsr[2], ls[3], lsr[3]);
-      list_merge(ls[0], lsr[0], ls[2], lsr[2]);
-      const int qi = qb + (g >> 1) * 8 + 2 * t + (g & 1);
-#pragma unroll
-      for (int p = 0; p < M; ++p) {
-        tabS[tb + qi * kMaxM + p] = ls[0][p];
-        tabR[tb + qi * kMaxM + p] = lsr[0][p];
-      }
-    } else {
-      // per query column: the sorted top M of this thread's rows, merged
-      // over the 8 lanes of other rows g
+    for (int mi = 0; mi < kMTW; ++mi)
 #pragma unroll
       for (int j = 0; j < kNTW; ++j)
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float cs[2 * kMTW];
-          int cr[2 * kMTW];
+        for (int h = 0; h < 2; ++h)
 #pragma unroll
-          for (int mi = 0; mi < kMTW; ++mi)
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              cs[2 * mi + h] = score(mi, j, h, e);
-              cr[2 * mi + h] = sbase + mi * 16 + g + 8 * h;
-            }
-          float ls[M];
-          int lsr[M];
-          top_of(cs, cr, ls, lsr);
-#pragma unroll
-          for (int off = 4; off < 32; off <<= 1) {
-            float os[M];
-            int osr[M];
-#pragma unroll
-            for (int p = 0; p < M; ++p) {
-              os[p] = __shfl_xor_sync(kFull, ls[p], off);
-              osr[p] = __shfl_xor_sync(kFull, lsr[p], off);
-            }
-            list_merge(ls, lsr, os, osr);
-          }
-          if (g == 0) {
-            const int qi = qb + j * 8 + 2 * t + e;
-#pragma unroll
-            for (int p = 0; p < M; ++p) {
-              tabS[tb + qi * kMaxM + p] = ls[p];
-              tabR[tb + qi * kMaxM + p] = lsr[p];
-            }
-          }
-        }
-    }
+          for (int e = 0; e < 2; ++e)
+            sc[mi][j][2 * h + e] = !ok[mi][h] ? -INFINITY
+                                   : kInt8   ? float(acc[mi][j][2 * h + e]) * rs[mi][h]
+                                             : float(acc[mi][j][2 * h + e]);
+    warp_select<kMTW, kNTW, M>(sc, sbase, g, t, qb, tabS + tb, tabR + tb);
   }
   if (ntiles > 0) {
     __syncthreads();
@@ -853,6 +826,278 @@ int launch_bucket_qc(int qc, int rows, int m, const BucketArgs& a) {
     case 64: return TR_BUCKET(8);
   }
 #undef TR_BUCKET
+  return int(cudaErrorInvalidValue);
+}
+
+// ---- #7 on f32 lists: the pipelined bucket probe on the CUDA cores
+constexpr int kF32BoxFloats = 32;  // floats of a row in one 128-byte box
+
+// Shared-memory layout of batched_bucket_kernel (mirrored by
+// ops/ivf_probe.py's _f32_bucket_smem), from a 1024-byte aligned base
+// (1024 bytes of slack): the queries (qc rows of d floats rounded up to
+// whole boxes, plus 4: rows 16 bytes past a multiple of 128, so the four
+// queries a quarter warp reads fall in distinct bank groups), then `stages`
+// stages, each one box (128 rows x 128 bytes, the tensor map's swizzle) and
+// the bucket's ns and canon (fetched with its first box), rounded up to
+// 1024 bytes; the two tables of the warps' winners; one mbarrier per
+// possible stage.
+struct F32BucketSmem {
+  int boxes, ld;
+  size_t ring, meta, stage, tab, bar, total;
+};
+
+__host__ __device__ inline F32BucketSmem f32_bucket_smem(int d, int qc, int stages) {
+  F32BucketSmem o;
+  o.boxes = (d + kF32BoxFloats - 1) / kF32BoxFloats;
+  o.ld = o.boxes * kF32BoxFloats + 4;
+  o.ring = align1024(size_t(qc) * o.ld * 4);
+  o.meta = size_t(kSub) * 128;  // within a stage
+  o.stage = align1024(o.meta + 2 * size_t(kSub) * 4);
+  o.tab = o.ring + size_t(stages) * o.stage;
+  o.bar = o.tab + 2 * size_t(bucket_wr(qc / 8, kSub)) * qc * kMaxM * 8;
+  o.total = 1024 + o.bar + size_t(kMaxStages) * 8;
+  return o;
+}
+
+template <int NT, int M>
+__global__ void __launch_bounds__(kBucketThreads, 1)
+batched_bucket_kernel(const float* __restrict__ q, const int* __restrict__ uniq,
+                      const int* __restrict__ n_uniq, const int* __restrict__ ns,
+                      const int* __restrict__ canon, const __grid_constant__ CUtensorMap rows_map,
+                      int nq, int u_max, int cap, int d, int want_ns, int want_canon, int stages,
+                      float* __restrict__ out_sc, int* __restrict__ out_id) {
+  constexpr int qc = 8 * NT;
+  constexpr int kMTW = bucket_mtw(NT, kSub);
+  constexpr int kWR = bucket_wr(NT, kSub);
+  constexpr int kWQ = kBucketWarps / kWR < NT ? kBucketWarps / kWR : NT;
+  constexpr int kNTW = NT / kWQ;
+  static_assert(kWQ == 2 && kWR * kWQ == kBucketWarps, "two query groups of qc / 2");
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);  // swizzle unit
+  const F32BucketSmem lay = f32_bucket_smem(d, qc, stages);
+  const int ld = lay.ld, boxes = lay.boxes;
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* tabS = reinterpret_cast<float*>(smem + lay.tab);  // [2][kWR][qc][kMaxM]
+  int* tabR = reinterpret_cast<int*>(tabS + 2 * kWR * qc * kMaxM);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.bar);  // a stage landed
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = warp % kWR, qb = (warp / kWR) * 8 * kNTW;
+
+  const int q0 = blockIdx.y * qc, nql = min(qc, nq - q0);
+  const bool mma_warp = qb < nql;
+  const int nb = cap / kSub, cols = M * nb;
+  const int nu = min(*n_uniq, u_max);            // live union slots
+  const long long n_items = (long long)nu * nb;  // (slot, bucket) items
+  const long long ib = n_items * blockIdx.x / gridDim.x;
+  const long long ie = n_items * (blockIdx.x + 1) / gridDim.x;
+  const int ntiles = int(ie - ib) * boxes;       // a tile: one box of one bucket
+
+  // queries (zero past nql and past d)
+  for (int i = tid; i < qc * (ld / 4); i += kBucketThreads) {
+    const int r = i / (ld / 4), c = (i % (ld / 4)) * 4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < nql && c < d) v = *reinterpret_cast<const float4*>(q + size_t(q0 + r) * d + c);
+    *reinterpret_cast<float4*>(Qs + r * ld + c) = v;
+  }
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) mbar_init(full + s, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // tile -> stage tile % stages: the box of the bucket's rows by the tensor
+  // map, and with a bucket's first box its ns and canon by one bulk copy
+  // each; thread 0 announces the bytes on the stage's barrier
+  auto fetch = [&](int tile) {
+    if (tile >= ntiles) return;
+    const int stg = tile % stages, box = tile % boxes;
+    unsigned char* st = smem + lay.ring + size_t(stg) * lay.stage;
+    const long long item = ib + tile / boxes;
+    const size_t slot0 = size_t(__ldg(uniq + item / nb)) * cap + size_t(item % nb) * kSub;
+    if (tid == 0) {
+      mbar_arrive_expect_tx(full + stg, uint32_t(kSub * 128 + (box == 0 ? 2 * kSub * 4 : 0)));
+      fence_proxy_async();  // the stage's last readers passed the loop's barrier
+      tensor_g2s_2d(st, &rows_map, box * 128, int(slot0), full + stg);
+    } else if (box == 0 && tid < 3) {
+      fence_proxy_async();
+      bulk_g2s(st + lay.meta + (tid - 1) * kSub * 4, tid == 1 ? ns + slot0 : canon + slot0,
+               kSub * 4, full + stg);
+    }
+  };
+  for (int s = 0; s < stages - 1; ++s) fetch(s);
+
+  // union slots past the live ones: -inf/-1 over this chunk's rows, spread
+  // over the chunk's blocks (for a slot u they are one contiguous run)
+  {
+    const long long per_u = (long long)nql * cols;
+    const long long dead = (long long)(u_max - nu) * per_u;
+    for (long long i = (long long)blockIdx.x * kBucketThreads + tid; i < dead;
+         i += (long long)gridDim.x * kBucketThreads) {
+      const size_t o = (size_t(nu + i / per_u) * nq + q0) * cols + size_t(i % per_u);
+      out_sc[o] = -INFINITY;
+      out_id[o] = -1;
+    }
+  }
+
+  // the fold: query mq (lanes < NT of each warp) merges the row tiles'
+  // winners of local bucket `bk` and writes them
+  const int mq = lane * kBucketWarps + warp;
+  const bool merger = lane < NT && mq < nql;
+  const int mqc = mq < qc ? mq : qc - 1;
+  auto fold = [&](int bk) {
+    float ws[M];
+    int wrr[M];
+    const int base = ((bk & 1) * kWR * qc + mqc) * kMaxM;
+    fold_rows<kWR, M>(tabS + base, tabR + base, qc * kMaxM, ws, wrr);
+    if (merger) {
+      const long long item = ib + bk;
+      const int b = int(item % nb);
+      const size_t o = (size_t(item / nb) * nq + q0 + mq) * cols + b;
+#pragma unroll
+      for (int p = 0; p < M; ++p) {
+        out_sc[o + size_t(p) * nb] = ws[p];
+        out_id[o + size_t(p) * nb] = ws[p] > -INFINITY ? b * kSub + wrr[p] : -1;
+      }
+    }
+  };
+
+  const int r_lo = wr * 16 * kMTW;  // this warp's first row of a bucket
+  bool ok[kMTW][2];
+  bool any = false;
+  float acc[kMTW][kNTW][4];
+  for (int it = 0; it < ntiles; ++it) {
+    __syncthreads();  // stage (it - 1) % stages is free; the last bucket's table is full
+    fetch(it + stages - 1);
+    mbar_wait(full + it % stages, (it / stages) & 1);
+    const int box = it % boxes;
+    if (it > 0 && box == 0) fold(it / boxes - 1);
+    if (!mma_warp) continue;
+    const unsigned char* st = smem + lay.ring + size_t(it % stages) * lay.stage;
+    if (box == 0) {  // a new bucket: its masks, zero accumulators
+      const int* meta = reinterpret_cast<const int*>(st + lay.meta);
+      any = false;
+#pragma unroll
+      for (int mi = 0; mi < kMTW; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int lr = r_lo + mi * 16 + g + 8 * h;
+          const int tg = meta[lr], c = meta[kSub + lr];
+          ok[mi][h] = tg != kPadTag && (want_ns < 0 || tg == want_ns) &&
+                      (want_canon < 0 || c == want_canon);
+          any |= ok[mi][h];
+        }
+      any = __any_sync(kFull, any);
+#pragma unroll
+      for (int mi = 0; mi < kMTW; ++mi)
+#pragma unroll
+        for (int j = 0; j < kNTW; ++j) acc[mi][j][0] = acc[mi][j][1] = acc[mi][j][2] = acc[mi][j][3] = 0.f;
+    }
+    if (any) {
+      // ---- the box's 32 floats of rows [r_lo, r_lo + 16 kMTW) x queries
+      // [qb, qb + 8 kNTW): this thread's rows 16 mi + g + 8 h and queries
+      // 8 j + 2 t + e (mma.sync's accumulator layout, so the selection is
+      // the bf16/int8 kernel's).  Row r's 16-byte chunk c sits at r * 128 +
+      // (c ^ (r & 7)) * 16, and r & 7 = g.
+      const unsigned char* arow = st + (r_lo + g) * 128;
+      const float* qrow = Qs + (qb + 2 * t) * ld + box * kF32BoxFloats;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        float4 a[kMTW][2], bq[kNTW][2];
+#pragma unroll
+        for (int mi = 0; mi < kMTW; ++mi)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            a[mi][h] = *reinterpret_cast<const float4*>(arow + (mi * 16 + 8 * h) * 128 +
+                                                        ((c ^ g) << 4));
+#pragma unroll
+        for (int j = 0; j < kNTW; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            bq[j][e] = *reinterpret_cast<const float4*>(qrow + (8 * j + e) * ld + 4 * c);
+#pragma unroll
+        for (int mi = 0; mi < kMTW; ++mi)
+#pragma unroll
+          for (int j = 0; j < kNTW; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                float& s = acc[mi][j][2 * h + e];
+                s = fmaf(a[mi][h].x, bq[j][e].x, s);
+                s = fmaf(a[mi][h].y, bq[j][e].y, s);
+                s = fmaf(a[mi][h].z, bq[j][e].z, s);
+                s = fmaf(a[mi][h].w, bq[j][e].w, s);
+              }
+      }
+    }
+    if (box != boxes - 1) continue;
+    // ---- the bucket's last box: selection into the table
+    const int tb = (((it / boxes) & 1) * kWR + wr) * qc * kMaxM;
+    if (!any) {  // every row of this warp masked: -inf winners
+      if (g == 0) {
+#pragma unroll
+        for (int j = 0; j < kNTW; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+#pragma unroll
+            for (int p = 0; p < M; ++p) {
+              tabS[tb + (qb + j * 8 + 2 * t + e) * kMaxM + p] = -INFINITY;
+              tabR[tb + (qb + j * 8 + 2 * t + e) * kMaxM + p] = INT_MAX;
+            }
+      }
+      continue;
+    }
+    float sc[kMTW][kNTW][4];
+#pragma unroll
+    for (int mi = 0; mi < kMTW; ++mi)
+#pragma unroll
+      for (int j = 0; j < kNTW; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            sc[mi][j][2 * h + e] = ok[mi][h] ? acc[mi][j][2 * h + e] : -INFINITY;
+    warp_select<kMTW, kNTW, M>(sc, r_lo, g, t, qb, tabS + tb, tabR + tb);
+  }
+  if (ntiles > 0) {
+    __syncthreads();
+    fold(ntiles / boxes - 1);
+  }
+}
+
+template <int NT, int M>
+int launch_f32_bucket(const BucketArgs& a) {
+  const size_t smem = f32_bucket_smem(a.d, 8 * NT, a.stages).total;
+  auto kern = batched_bucket_kernel<NT, M>;
+  if (int e = int(cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       int(smem))))
+    return e;
+  dim3 grid(a.blocks, (a.nq + 8 * NT - 1) / (8 * NT));
+  kern<<<grid, kBucketThreads, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const int*>(a.uniq),
+      static_cast<const int*>(a.n_uniq), static_cast<const int*>(a.ns),
+      static_cast<const int*>(a.canon), a.rows_map, a.nq, a.u_max, a.cap, a.d, a.want_ns,
+      a.want_canon, a.stages, static_cast<float*>(a.out_sc), static_cast<int*>(a.out_id));
+  return int(cudaGetLastError());
+}
+
+int launch_f32_bucket_qc(int qc, int m, const BucketArgs& a) {
+#define TR_F32_BUCKET(NT)                                 \
+  switch (m) {                                            \
+    case 1: return launch_f32_bucket<NT, 1>(a);           \
+    case 2: return launch_f32_bucket<NT, 2>(a);           \
+    case 3: return launch_f32_bucket<NT, 3>(a);           \
+    case 4: return launch_f32_bucket<NT, 4>(a);           \
+  }                                                       \
+  break;
+  switch (qc) {
+    case 16: TR_F32_BUCKET(2)
+    case 32: TR_F32_BUCKET(4)
+    case 64: TR_F32_BUCKET(8)
+  }
+#undef TR_F32_BUCKET
   return int(cudaErrorInvalidValue);
 }
 
@@ -1199,9 +1444,9 @@ bool rows_tensor_map(CUtensorMap* map, const void* base, long long rows, int row
 
 // Shared-memory bytes of one block: kind 0, #6 (a k-long list): f32 lists
 // probe_list_kernel, bf16/int8 lists probe_split_kernel with `stages` ring
-// stages of `rows` rows; kind 1, #7 (qc queries): f32 lists
-// batched_bucket_kernel, bf16/int8 lists pipe_bucket_kernel with `stages`
-// ring stages of bucket_rows rows.
+// stages of `rows` rows; kind 1, #7 (qc queries, `stages` ring stages):
+// f32 lists batched_bucket_kernel, bf16/int8 lists pipe_bucket_kernel with
+// stages of bucket_rows rows.
 extern "C" size_t tr_probe_smem_bytes(int kind, int dtype, int d, int qc, int k, int stages,
                                       int rows) {
   if (dtype != TR_F32) {
@@ -1209,7 +1454,7 @@ extern "C" size_t tr_probe_smem_bytes(int kind, int dtype, int d, int qc, int k,
     return kind == 0 ? list_smem(elt, d, k, stages, rows).total
                      : bucket_smem(elt, d, qc, stages, bucket_rows(elt, d, qc)).total;
   }
-  return probe_smem(kind, elt_of(dtype), d, qc, k).total;
+  return kind == 0 ? probe_smem(d, k).total : f32_bucket_smem(d, qc, stages).total;
 }
 
 // #6: q (nq, d) and vec (nlist, cap, d) share `dtype`; lists (nq * nprobe)
@@ -1247,7 +1492,7 @@ extern "C" int tr_probe_list(const void* q, const void* lists, const void* vec,
     return rows == 128 ? launch_split<int8_t, 128>(a) : launch_split<int8_t, 64>(a);
   }
   if (dtype != TR_F32) return int(cudaErrorInvalidValue);
-  const size_t smem = probe_smem(0, 4, d, kOneQ, k).total;
+  const size_t smem = probe_smem(d, k).total;
   if (int e = launch_prep(probe_list_kernel, smem)) return e;
   probe_list_kernel<<<nq * nprobe, kThreads, smem, s>>>(
       static_cast<const float*>(q), static_cast<const int*>(lists),
@@ -1264,8 +1509,8 @@ extern "C" int tr_probe_list(const void* q, const void* lists, const void* vec,
 //   bf16/int8 (pipe_bucket_kernel): qc in {8, 16, 32, 64}, 2 <= stages <= 8,
 //     `blocks` blocks a chunk; q, vec, ns, canon (and scale for int8)
 //     16-byte aligned (bulk copies).
-//   f32 (batched_bucket_kernel): qc % 16 == 0, stages ignored; each list's
-//     buckets split over `blocks` blocks: grid (u_max, blocks, chunks).
+//   f32 (batched_bucket_kernel): qc in {16, 32, 64}, 2 <= stages <= 8,
+//     `blocks` blocks a chunk; q, vec, ns, canon 16-byte aligned.
 extern "C" int tr_probe_batched(const void* q, const void* uniq, const void* n_uniq,
                                 const void* vec, const void* scale, const void* ns,
                                 const void* canon, int nlist, int nq, int u_max, int cap, int d,
@@ -1276,7 +1521,6 @@ extern "C" int tr_probe_batched(const void* q, const void* uniq, const void* n_u
       d % 16 != 0 || qc <= 0 || qc > kMaxQc || m < 1 || m > kMaxM || blocks <= 0)
     return int(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  const int nb = cap / kSub;
   if (dtype == TR_BF16 || dtype == TR_I8) {
     const int elt = elt_of(dtype), rows = bucket_rows(elt, d, qc);
     if ((qc != 8 && qc != 16 && qc != 32 && qc != 64) || stages < 2 || stages > kMaxStages ||
@@ -1291,15 +1535,14 @@ extern "C" int tr_probe_batched(const void* q, const void* uniq, const void* n_u
     return dtype == TR_BF16 ? launch_bucket_qc<__nv_bfloat16>(qc, rows, m, a)
                             : launch_bucket_qc<int8_t>(qc, rows, m, a);
   }
-  if (dtype != TR_F32 || qc % 16 != 0) return int(cudaErrorInvalidValue);
-  const size_t smem = probe_smem(1, 4, d, qc, 0).total;
-  const int bpb = (nb + blocks - 1) / blocks;
-  dim3 grid(u_max, (nb + bpb - 1) / bpb, (nq + qc - 1) / qc);
-  if (int e = launch_prep(batched_bucket_kernel, smem)) return e;
-  batched_bucket_kernel<<<grid, kThreads, smem, s>>>(
-      static_cast<const float*>(q), static_cast<const int*>(uniq),
-      static_cast<const int*>(n_uniq), static_cast<const float*>(vec),
-      static_cast<const int*>(ns), static_cast<const int*>(canon), nq, cap, d, want_ns,
-      want_canon, qc, m, bpb, static_cast<float*>(out_sc), static_cast<int*>(out_id));
-  return int(cudaGetLastError());
+  if (dtype != TR_F32 || (qc != 16 && qc != 32 && qc != 64) || stages < 2 ||
+      stages > kMaxStages || !aligned16(q) ||
+      !aligned16(vec) || !aligned16(ns) || !aligned16(canon) ||
+      f32_bucket_smem(d, qc, stages).total > kSmemMax)
+    return int(cudaErrorInvalidValue);
+  BucketArgs a{q, uniq, n_uniq, vec, scale, ns, canon, {}, nq, u_max, cap, d,
+               want_ns, want_canon, stages, blocks, out_sc, out_id, s};
+  if (!rows_tensor_map(&a.rows_map, vec, (long long)nlist * cap, d * 4, kSub))
+    return int(cudaErrorInvalidValue);
+  return launch_f32_bucket_qc(qc, m, a);
 }

@@ -1,7 +1,7 @@
 // The scoring step of the f32 kernels: the f32 scan (topk.cu) and the f32
-// IVF probes (ivf_probe.cu).  A block of kThreads threads scores kSub rows
-// of a row-major f32 database against up to kMaxQc queries staged in shared
-// memory, on the CUDA cores (no TF32).  Rows are staged 128 bytes deep
+// per-list IVF probe (ivf_probe.cu's probe_list_kernel).  A block of
+// kThreads threads scores kSub rows of a row-major f32 database against up
+// to kMaxQc queries staged in shared memory, on the CUDA cores (no TF32).  Rows are staged 128 bytes deep
 // through shared memory; rows at or past `valid` read as zero.  (bf16 and
 // int8 rows go through the pipelined kernels' tensor-core products.)
 //

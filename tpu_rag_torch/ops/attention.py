@@ -9,13 +9,15 @@ drops.  Forward only: on the card a q/k/v that requires grad raises (the
 kernel has no backward; training uses the encoder's plain attention).  On a
 CUDA tensor it launches csrc/attention.cu (kernel #5: for
 bf16, Q.K^T and P.V on the tensor cores with the head's K and V in shared
-memory and an online softmax over chunks of 64 keys; f32 on CUDA cores) or
-raises; on a CPU tensor it runs the plain version below, which repeats the
-JAX kernel's arithmetic.
+memory and an online softmax over chunks of 64 keys, T <= 512; for f32,
+register micro-tiles on the CUDA cores over a cp.async ring of 64-key K/V
+chunks, one block per 128-query tile, any T) or raises; on a CPU tensor it
+runs the plain version below, which repeats the JAX kernel's arithmetic.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -25,7 +27,27 @@ from tpu_rag_torch import _build
 _MASK_VALUE = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64)
-_T_MAX = 512
+_T_MAX = 512          # bf16: the head's whole K and V sit in shared memory
+_F32_ROWS = 128       # query rows of an f32 block (kF32Rows)
+_F32_KEYS = 64        # keys of an f32 ring chunk (kF32Keys)
+_F32_STAGES = 3       # chunks in the f32 ring (kF32Stages)
+
+
+def _f32_smem(d: int) -> int:
+    """Shared-memory bytes of one mha_f32_kernel<D> block (f32_smem): the
+    Q tile and three K and three V chunks in rows of D + 4 floats, P^T in
+    rows of 128 + 4 floats, one int flag per key of the ring."""
+    ld, lp = d + 4, _F32_ROWS + 4
+    return 4 * (_F32_ROWS * ld + 2 * _F32_STAGES * _F32_KEYS * ld + _F32_KEYS * lp
+                + _F32_STAGES * _F32_KEYS)
+
+
+def _smem_bytes(dtype: torch.dtype, d: int, t: int) -> int:
+    """csrc/attention.cu's tr_mha_smem_bytes: one block's shared memory."""
+    fn = _build.load("attention").tr_mha_smem_bytes
+    fn.argtypes = [_build.I] * 3
+    fn.restype = ctypes.c_size_t
+    return int(fn(_DTYPE_CODE[dtype], d, t))
 
 
 def fused_mha_plain(q, k, v, mask):
@@ -60,9 +82,9 @@ def _fused_mha_cuda(q, k, v, mask):
             raise ValueError(f"{name} must match q: {tuple(q.shape)} {q.dtype} {q.device}")
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"fused_mha supports f32 and bf16, got {q.dtype}")
-    if d not in _HEAD_DIMS or t > _T_MAX:
-        raise ValueError(f"fused_mha supports D in {_HEAD_DIMS} and T <= {_T_MAX}, "
-                         f"got D={d}, T={t}")
+    if d not in _HEAD_DIMS or (q.dtype == torch.bfloat16 and t > _T_MAX):
+        raise ValueError(f"fused_mha supports D in {_HEAD_DIMS} and, in bf16, T <= {_T_MAX}; "
+                         f"got D={d}, T={t}, {q.dtype}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("fused_mha needs contiguous (B, T, H, D) q/k/v")
     if any(x.data_ptr() % 16 for x in (q, k, v)):
@@ -79,10 +101,13 @@ def _fused_mha_cuda(q, k, v, mask):
                  out.data_ptr(), b, t, h, d, _DTYPE_CODE[q.dtype], stream)
     _build.check(err, "tr_mha", "attention")
     _fused_mha_cuda.launches += 1
+    if q.dtype == torch.float32:
+        _fused_mha_cuda.f32_launches += 1
     return out
 
 
-_fused_mha_cuda.launches = 0
+_fused_mha_cuda.launches = 0        # every launch of #5
+_fused_mha_cuda.f32_launches = 0    # those in f32 (mha_f32_kernel)
 
 
 def fused_mha(q, k, v, mask):

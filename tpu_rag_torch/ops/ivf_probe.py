@@ -52,7 +52,7 @@ import torch
 from tpu_rag_torch import _build
 from tpu_rag_torch.ops.quant import quantize_int8_rows
 from tpu_rag_torch.ops.topk import (_DTYPE_CODE, _ELT, _SMEM_MAX, BUCKET, PAD_TAG,
-                                    _f32_smem, _round_up, _sm_count, _tag_mask,
+                                    _round_up, _sm_count, _tag_mask,
                                     _want_pair, select_topk)
 
 # Largest per-list k the per-list probe selects; above it the IVF index
@@ -159,9 +159,10 @@ class BucketPlan(NamedTuple):
     queries a block, a ring of `stages` stages of `rows` rows (128, one
     bucket, or 64), `blocks` blocks a query chunk, each walking a contiguous
     range of the live (union slot, bucket) items (_bucket_ranges) of at most
-    `items` items (at n_uniq = u_max).  f32 (batched_bucket_kernel): each
-    list's buckets split over `blocks` blocks of `items` buckets, rows 128,
-    stages 0.  `smem`: bytes of shared memory a block."""
+    `items` items (at n_uniq = u_max).  f32 (batched_bucket_kernel): `qc`
+    queries a block, a ring of `stages` one-box stages (128 rows x 32
+    floats), `blocks` blocks a query chunk walking the same ranges; rows
+    128.  `smem`: bytes of shared memory a block."""
     qc: int
     rows: int
     stages: int
@@ -210,6 +211,23 @@ def _bucket_rows(elt: int, d: int, qc: int) -> int:
     return 128 if fixed < _SMEM_MAX and (_SMEM_MAX - fixed) // stage >= 3 else 64
 
 
+_F32_BOX = 32    # f32 floats of a row in one 128-byte tensor-map box
+
+
+def _f32_bucket_smem(d: int, qc: int, stages: int) -> int:
+    """Shared-memory bytes of batched_bucket_kernel (f32_bucket_smem): 1024
+    bytes of slack to align the base, the queries (rows of d floats rounded
+    up to whole boxes plus 4), `stages` stages of one box (128 rows x 128
+    bytes) with the bucket's ns and canon, each rounded up to 1024 bytes,
+    the two tables of the warps' winners and one mbarrier per possible
+    stage."""
+    ld = _round_up(d, _F32_BOX) + 4
+    stage = _round_up(BUCKET * 128 + 2 * BUCKET * 4, 1024)
+    wr = _bucket_tiles(qc, BUCKET)[1]
+    return (1024 + _round_up(qc * ld * 4, 1024) + stages * stage
+            + 2 * wr * qc * _BUCKET_M_MAX * 8 + _BUCKET_STAGES_MAX * 8)
+
+
 def _bucket_ranges(n_items: int, blocks: int) -> list[tuple[int, int]]:
     """The item range [begin, end) of each block of a query chunk, as
     pipe_bucket_kernel computes it on the device from the live union:
@@ -224,19 +242,25 @@ def _bucket_plan(u_max: int, nb: int, nq: int, d: int, dtype: torch.dtype,
     bf16/int8: the query chunk is the power of two 8..64 that covers nq,
     halved while fewer than two ring stages fit; the ring takes as many
     stages (at most 8) of _bucket_rows rows as the rest of the 232,448 bytes
-    hold; one block per SM and query chunk.  f32: chunks of 16..64 queries
-    and each list's buckets split until ~2 blocks per SM exist."""
+    hold; one block per SM and query chunk.  f32: the same, from 16, with
+    one-box stages and one block per SM for each query chunk (the FMA pipes
+    bound a chunk: the chunks run one wave after another)."""
     chunks = lambda qc: -(-nq // qc)  # noqa: E731
     if dtype == torch.float32:
-        qc = min(64, _round_up(nq, 16))
-        while qc > 16 and _f32_smem(d, qc, 0, "bucketed") > _SMEM_MAX:
-            qc -= 16
-        smem = _f32_smem(d, qc, 0, "bucketed")
-        if smem > _SMEM_MAX:
-            raise ValueError(f"batched probe does not fit shared memory at d={d}")
-        nsplit = min(nb, max(1, -(-2 * sms // (u_max * chunks(qc)))))
-        items = -(-nb // nsplit)
-        return BucketPlan(qc, BUCKET, 0, -(-nb // items), items, smem)
+        qc = 16
+        while qc < min(nq, 64):
+            qc *= 2
+        while True:
+            fixed = _f32_bucket_smem(d, qc, 0)
+            stages = min(_BUCKET_STAGES_MAX,
+                         max(0, _SMEM_MAX - fixed) // (_f32_bucket_smem(d, qc, 1) - fixed))
+            if stages >= 2:
+                break
+            if qc == 16:
+                raise ValueError(f"batched probe does not fit shared memory at d={d}")
+            qc //= 2
+        return BucketPlan(qc, BUCKET, stages, sms, -(-u_max * nb // sms),
+                          _f32_bucket_smem(d, qc, stages))
     elt = _ELT[dtype]
     qc = 8
     while qc < min(nq, 64):
@@ -403,6 +427,8 @@ def _probe_list_cuda(q_in, lists, vec_lists, scale_lists, ns_lists, canon_lists,
                  split, rows, stages, out_sc.data_ptr(), out_id.data_ptr(), stream)
     _build.check(err, "tr_probe_list", "ivf_probe")
     _probe_list_cuda.launches += 1
+    if vec_lists.dtype == torch.float32:
+        _probe_list_cuda.f32_launches += 1
     return out_sc.view(nq, nprobe, k_eff), out_id.view(nq, nprobe, k_eff)
 
 
@@ -420,15 +446,14 @@ def _probe_batched_cuda(q_in, uniq, n_uniq, vec_lists, scale_lists, ns_lists,
     for name, t in (("uniq", uniq), ("n_uniq", n_uniq)):
         if t.device != vec_lists.device or t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError(f"{name}: expected a contiguous int32 tensor on {vec_lists.device}")
-    if vec_lists.dtype != torch.float32:
-        bulk = [("queries", q_in), ("vec_lists", vec_lists), ("ns_lists", ns_lists),
-                ("canon_lists", canon_lists)]
-        if vec_lists.dtype == torch.int8:
-            bulk.append(("scale_lists", scale_lists))
-        for name, t in bulk:
-            if t.data_ptr() % 16:
-                raise ValueError(f"{name}: the bf16/int8 batched probe copies by TMA "
-                                 f"and needs 16-byte aligned tensors")
+    bulk = [("queries", q_in), ("vec_lists", vec_lists), ("ns_lists", ns_lists),
+            ("canon_lists", canon_lists)]
+    if vec_lists.dtype == torch.int8:
+        bulk.append(("scale_lists", scale_lists))
+    for name, t in bulk:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the batched probe copies by TMA and needs "
+                             f"16-byte aligned tensors")
     plan = _bucket_plan(u_max, cap // BUCKET, nq, d, vec_lists.dtype,
                         _sm_count(vec_lists.device))
     out_sc = torch.empty((u_max, nq, m * (cap // BUCKET)), dtype=torch.float32,
@@ -444,11 +469,15 @@ def _probe_batched_cuda(q_in, uniq, n_uniq, vec_lists, scale_lists, ns_lists,
                  plan.blocks, code, out_sc.data_ptr(), out_id.data_ptr(), stream)
     _build.check(err, "tr_probe_batched", "ivf_probe")
     _probe_batched_cuda.launches += 1
+    if vec_lists.dtype == torch.float32:
+        _probe_batched_cuda.f32_launches += 1
     return out_sc, out_id
 
 
-_probe_list_cuda.launches = 0
-_probe_batched_cuda.launches = 0
+_probe_list_cuda.launches = 0           # every launch of #6
+_probe_list_cuda.f32_launches = 0       # those on f32 lists (probe_list_kernel)
+_probe_batched_cuda.launches = 0        # every launch of #7
+_probe_batched_cuda.f32_launches = 0    # those on f32 lists (batched_bucket_kernel)
 
 
 def probe_list_topk(q_in, lists, vec_lists, scale_lists, ns_lists, canon_lists,

@@ -536,6 +536,24 @@ def heldout_lift(args, data: Data, bi, demb: np.ndarray, ckpt_path: str, spec,
     return results, best_alpha, val_curve
 
 
+def probe_pairs(data: Data, n: int) -> list[tuple[str, str]]:
+    """The first n // 2 held-out queries with their own body, then the same
+    queries with the next body of the corpus."""
+    probe = data.holdout[:n // 2]
+    nb = len(data.bodies)
+    return ([(d["query"], data.bodies[data.id_pos[d["id"]]]) for d in probe]
+            + [(d["query"], data.bodies[(data.id_pos[d["id"]] + 1) % nb]) for d in probe])
+
+
+def logit_spread(logits: np.ndarray) -> dict:
+    """The spread of a reranker's logits over probe_pairs: their std, and
+    the mean of (own body - neighbour's body); both ~0 on constant logits,
+    which a collapsed reranker gives whatever the pair."""
+    half = len(logits) // 2
+    return {"card_logit_std": float(logits.std()),
+            "own_body_minus_neighbour_mean": float((logits[:half] - logits[half:]).mean())}
+
+
 def write_report(args, data: Data, results: list[dict], best_alpha: float,
                  val_curve: dict, ckpt_path: str, vocab_path: str) -> dict:
     """rerank.json and RERANK.md in --out."""

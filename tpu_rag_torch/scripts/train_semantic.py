@@ -267,8 +267,11 @@ def make_trainer(args, spec, device):
 
 
 def evaluate(args, spec, docs: list[dict], holdout: list[dict], vocab_path: str,
-             ckpt_path: str, device) -> list[dict]:
-    """The labeled eval: trained encoder, seeded encoder, BM25, RRF hybrid."""
+             ckpt_path: str, device, bm25: tuple[dict, list[list[int]]] | None = None
+             ) -> list[dict]:
+    """The labeled eval: trained encoder, seeded encoder, BM25, RRF hybrid.
+    `bm25` is eval_bm25(docs, holdout) where the caller ran it already (it
+    needs no encoder, so it can run beside training)."""
     from tpu_rag_torch.models.biencoder import BiEncoder
 
     results = []
@@ -282,7 +285,7 @@ def evaluate(args, spec, docs: list[dict], holdout: list[dict], vocab_path: str,
                            seq_len=args.seq_len, batch=128, spec=spec, device=device)
     results.append(eval_encoder(random_enc, docs, holdout, "random_weights_round1")[0])
     del random_enc
-    bm_row, bm_top = eval_bm25(docs, holdout)
+    bm_row, bm_top = bm25 if bm25 is not None else eval_bm25(docs, holdout)
     results.append(bm_row)
     results.append(eval_hybrid_rrf(docs, holdout, vec_top, bm_top))
     return results
