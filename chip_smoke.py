@@ -102,6 +102,9 @@ SEED = 0
 # card (bf16) against CPU (f32) cross-encoder logits: this share of the
 # largest CPU logit's magnitude (or of 1), set before any chip run
 RERANK_LOGIT_TOL = 0.05
+# the f32 kernels' names in a torch.profiler trace: the scan (#1-#3) and
+# the per-list probe (#6)
+F32_SCAN_KERNEL, F32_PROBE_KERNEL = "f32_scan_kernel", "probe_f32_kernel"
 
 
 def emit(obj) -> None:
@@ -144,13 +147,19 @@ def kernel_ms(fn, name: str, reps: int = 10) -> float:
 
     seen = {}
     for _ in range(3):
-        # CUPTI now and then delivers none of a window's records of the
-        # kernel: profile again rather than report no time
-        seen = _profile(fn, reps)["by_kernel_ms"]
-        ms = sum(v for key, v in seen.items() if name in key)
-        if ms > 0.0:
+        # CUPTI now and then delivers none or only some of a window's
+        # records of the kernel (a time under the kernel's bound): every
+        # call launches it equally often, so a whole window holds a
+        # multiple of `reps` launches; profile again rather than report a
+        # part of the time
+        prof = _profile(fn, reps)
+        seen = prof["by_kernel_ms"]
+        keys = [key for key in seen if name in key]
+        ms = sum(seen[key] for key in keys)
+        launches = sum(prof["by_kernel_count"][key] for key in keys)
+        if ms > 0.0 and launches % reps == 0:
             return ms
-    raise AssertionError(f"the profiler saw no device time of {name} in three windows; "
+    raise AssertionError(f"the profiler saw no whole window of {name} in three; "
                          f"it saw {sorted(seen)[:6]}")
 
 
@@ -249,9 +258,15 @@ def _corpus(g, n: int, d: int):
 
 def _scan_rows(g, n: int, d: int, cases, smem_of, sms: int, floor_of) -> tuple[list, tuple]:
     """#1 (exact) and #2 (packed) against their plain versions on n x d rows,
-    bf16 and int8, one row for each (mode, dtype, nq, k) of `cases`; returns
-    the rows and the database (bf16 rows, int8 rows, their scales, ns,
-    canon) for the rows after them."""
+    bf16, int8 and f32 (FlatIndex(dtype="float32"): no refine, so the scan
+    is the whole device path), one row for each (mode, dtype, nq, k) of
+    `cases`, with and without filters; the ties of _corpus go to the
+    lowest row.  f32 exact rows by _f32_id_check (1e-4), packed rows by
+    _packed_check (a sum in another order can round one 18-bit step the
+    other way), f32 rows also with the kernel's own device time; the
+    composite is torch.matmul (bf16, or f32 with TF32 off as main() sets
+    it) + torch.topk.  Returns the rows and the database (bf16 rows, int8
+    rows, their scales, ns, canon) for the rows after them."""
     import torch
 
     from tpu_rag_torch.ops import topk as tk
@@ -261,19 +276,22 @@ def _scan_rows(g, n: int, d: int, cases, smem_of, sms: int, floor_of) -> tuple[l
     x, ns, canon = _corpus(g, n, d)
     xb = x.to(torch.bfloat16)
     x8, s8 = quantize_int8_rows(x)
-    del x
+    if not any(dtype == "f32" for _, dtype, _, _ in cases):
+        del x
     scans = {"exact": (tk._exact_scan_cuda, tk._exact_scan_plain, "tpu_rag/ops/topk.py:96"),
              "packed": (tk._packed_scan_cuda, tk._packed_scan_plain, "tpu_rag/ops/topk.py:201")}
     rows = []
     for mode, dtype, nq, k in cases:
         kernel, plain, replaces = scans[mode]
-        packed = mode == "packed"
+        packed, f32 = mode == "packed", dtype == "f32"
         qf = torch.randn((nq, d), generator=g, device=dev)
         qf[0] = xb[11].float()
         if nq > 1:
             qf[1] = xb[5000].float()
         if dtype == "bf16":
             xx, sc, q_in, qs, elt = xb, None, qf.to(torch.bfloat16), None, 2
+        elif f32:
+            xx, sc, q_in, qs, elt = x, None, qf, None, 4
         else:
             q_in, qs = quantize_int8_rows(qf)
             xx, sc, elt = x8, s8, 1
@@ -287,22 +305,26 @@ def _scan_rows(g, n: int, d: int, cases, smem_of, sms: int, floor_of) -> tuple[l
             if dtype == "int8" and not (torch.equal(k_id, p_id) and torch.equal(k_sc, p_sc)):
                 raise AssertionError("packed int8 scan: ids or scores differ from the plain version")
             _packed_check(*kernel(*fargs), *plain(*fargs))
+        elif f32:
+            chk = _f32_id_check(k_sc, k_id, p_sc, p_id, q_in, xx, 1e-4)
+            _f32_id_check(*kernel(*fargs), *plain(*fargs), q_in, xx, 1e-4)
         else:
             chk = _id_check(k_sc, k_id, p_sc, p_id, 1e-4)
             _id_check(*kernel(*fargs), *plain(*fargs), 1e-4)
         plan = tk._scan_plan(n, d, nq, k, xx.dtype, sms, mode)
         smem_of(xx.dtype, plan, k, mode, d)
         if k_id[0, 0].item() != 11:
-            raise AssertionError(f"{mode} scan: the tie must go to the lowest row")
+            raise AssertionError(f"{dtype} {mode} scan: the tie must go to the lowest row")
         if nq > 1:
             if 5000 // plan.block_rows == (n - 5000) // plan.block_rows:
                 raise AssertionError(f"rows 5000 and {n - 5000} share a block: {plan}")
             if k_id[1, 0].item() != 5000:
-                raise AssertionError(f"{mode} scan: a tie across two blocks must go to "
-                                     f"the lowest row, got {k_id[1, :2].tolist()}")
+                raise AssertionError(f"{dtype} {mode} scan: a tie across two blocks must go "
+                                     f"to the lowest row, got {k_id[1, :2].tolist()}")
 
-        def library(q_in=q_in, xx=xx, sc=sc, qs=qs, k=k, packed=packed):
-            s = torch.matmul(q_in.to(torch.bfloat16), xx.to(torch.bfloat16).T).float()
+        def library(q_in=q_in, xx=xx, sc=sc, qs=qs, k=k, packed=packed, f32=f32):
+            s = (torch.matmul(q_in, xx.T) if f32
+                 else torch.matmul(q_in.to(torch.bfloat16), xx.to(torch.bfloat16).T).float())
             if sc is not None:
                 s = s * qs[:, None] * sc[None, :]
             s = torch.where((ns != tk.PAD_TAG)[None, :], s, -math.inf)
@@ -314,12 +336,15 @@ def _scan_rows(g, n: int, d: int, cases, smem_of, sms: int, floor_of) -> tuple[l
         floor = floor_of(xx)
         row = {"name": f"{mode}_scan[{dtype},n={n},d={d},q={nq},k={k}]", "route": "cuda",
                "plan": plan._asdict(),
-               "source": "tpu_rag_torch/csrc/topk.cu", "replaces": replaces, "counter": mode,
-               "max_abs_err": chk["max_abs_err"], "ms": ms,
+               "source": "tpu_rag_torch/csrc/topk.cu", "replaces": replaces,
+               "counter": f"{mode}_f32" if f32 else f"{mode}_bf16_int8", **chk, "ms": ms,
                "plain_ms": cuda_ms(lambda: plain(*args), iters=5),
                "library_ms": cuda_ms(library, iters=5),
                "bound_ms": b_ms, "bound_by": b_by,
                "floor_ms": floor, "pct_of_floor": 100.0 * floor / ms}
+        if f32:
+            row["device_ms"] = kernel_ms(lambda: kernel(*args), F32_SCAN_KERNEL)
+            row["pct_of_bound"] = 100.0 * b_ms / row["device_ms"]
         if packed:
             row["exact_ms_same_shape"] = cuda_ms(lambda: tk._exact_scan_cuda(*args))
             row["library"] = "composite: torch.matmul + round18 + torch.topk"
@@ -351,13 +376,17 @@ def phase_kernels() -> list[dict]:
     # ---- #1 exact scan: 1M x 384, bf16 (q 8, 64; k_scan 20) and int8 (q 64;
     # 4k = 40; q 8, k_scan 1024: a rerank of 256 candidates on int8); #2
     # packed scan at the same rows, bf16 (q 8, k_scan 64 = packed_k_scan(10))
-    # and int8 (q 64, k_scan 80 = packed_k_scan(20))
+    # and int8 (q 64, k_scan 80 = packed_k_scan(20)); f32 rows
+    # (FlatIndex(dtype="float32")): exact at q 1, 8 and 64 (k 20), packed at
+    # q 8 (k 64)
     n = 1_000_000
     rows, (xb, x8, s8, ns, canon) = _scan_rows(
         g, n, 384, (("exact", "bf16", 8, 20), ("exact", "bf16", 1, 20),
                     ("exact", "bf16", 64, 20), ("exact", "int8", 64, 40),
                     ("exact", "int8", 8, 1024), ("packed", "bf16", 8, 64),
-                    ("packed", "int8", 64, 80)), smem_of, sms, floor_of)
+                    ("packed", "int8", 64, 80), ("exact", "f32", 1, 20),
+                    ("exact", "f32", 8, 20), ("exact", "f32", 64, 20),
+                    ("packed", "f32", 8, 64)), smem_of, sms, floor_of)
     # ---- #3 bucketed scan on the same 1M x 384 bf16 rows, q 32: eval_recall's
     # `bucketed` config (FlatIndex(search_mode="bucketed") over a bf16 store)
     rows.append(_bucketed_row(g, xb, None, ns, canon, 32, 20, smem_of, sms, floor_of(xb)))
@@ -381,10 +410,11 @@ def phase_kernels() -> list[dict]:
     # and 64, bf16 (k_scan 20: k 10, bf16 refine 2x, the rehearsal's path)
     # and int8 (k_scan 40: int8 refine 4x); #1 and #2 bf16 at q 8, k_scan
     # 512 (RERANK_CANDIDATES 256 refined 2x; packed_k_scan(128)): 32-row
-    # stages; #3 bucketed int8 at 2M x 768
+    # stages; #1 f32 at q 8 (k 20); #3 bucketed int8 at 2M x 768
     n = 1_000_000
     cases = tuple(("exact", dt, nq, k) for dt, k in (("bf16", 20), ("int8", 40))
-                  for nq in (1, 8, 64)) + (("exact", "bf16", 8, 512), ("packed", "bf16", 8, 512))
+                  for nq in (1, 8, 64)) + (("exact", "bf16", 8, 512), ("packed", "bf16", 8, 512),
+                                           ("exact", "f32", 8, 20))
     wide, (xb, x8, s8, ns, canon) = _scan_rows(g, n, 768, cases, smem_of, sms, floor_of)
     rows += wide
     rows.append(_floor_row(xb, "bf16", floor_of(xb)))
@@ -397,6 +427,15 @@ def phase_kernels() -> list[dict]:
     del x
     rows.append(_bucketed_row(g, x8, s8, ns, canon, 64, 40, smem_of, sms, floor_of(x8)))
     del x8, s8, ns, canon
+    floors.clear()
+    torch.cuda.empty_cache()
+
+    # ---- #3 bucketed on f32 rows (FlatIndex(dtype="float32") from 2M
+    # rows): 2M x 384, q 64 (3.07 GB)
+    n = 2_000_000
+    x, ns, canon = _corpus(g, n, 384)
+    rows.append(_bucketed_row(g, x, None, ns, canon, 64, 20, smem_of, sms, floor_of(x)))
+    del x, ns, canon
     floors.clear()
     torch.cuda.empty_cache()
 
@@ -482,12 +521,13 @@ def _attention_row(g, b: int, t: int, h: int, hd: int, dtype=None) -> dict:
 
 def _bucketed_row(g, x, scale, ns, canon, nq: int, k: int, smem_of, sms: int,
                   floor: float) -> dict:
-    """#3 against its plain version on the rows x (int8 with `scale`, or
-    bf16): the top k the wrapper keeps by _id_check (1e-4), and each
+    """#3 against its plain version on the rows x (int8 with `scale`, bf16
+    or f32): the top k the wrapper keeps by _id_check (1e-4), and each
     bucket's winner the plain one's, exactly for int8 (integer sums) and,
-    for bf16 (sums in another order), but where the two rows' plain scores
-    lie within 1e-4 of each other; times beside the matmul + bucket max
-    composite and the read floor of x."""
+    for bf16 and f32 (sums in another order), but where the two rows'
+    scores, summed again in f64, lie within 1e-4 of each other; times
+    beside the matmul + bucket max composite and the read floor of x.  f32
+    rows also report the kernel's own device time (torch.profiler)."""
     import torch
 
     from tpu_rag_torch.ops import topk as tk
@@ -495,9 +535,9 @@ def _bucketed_row(g, x, scale, ns, canon, nq: int, k: int, smem_of, sms: int,
 
     n, d = x.shape
     qf = torch.randn((nq, d), generator=g, device=x.device)
-    int8 = x.dtype == torch.int8
+    int8, f32 = x.dtype == torch.int8, x.dtype == torch.float32
     q, qs = quantize_int8_rows(qf) if int8 else (qf.to(x.dtype), None)
-    kind, elt = ("int8", 1) if int8 else ("bf16", 2)
+    kind, elt = ("int8", 1) if int8 else ("f32", 4) if f32 else ("bf16", 2)
     bargs = (q, x, scale, ns, canon, -1, -1)
     plan = tk._scan_plan(n, d, nq, 0, x.dtype, sms, "bucketed")
     smem_of(x.dtype, plan, 0, "bucketed", d)
@@ -514,17 +554,18 @@ def _bucketed_row(g, x, scale, ns, canon, nq: int, k: int, smem_of, sms: int,
         raise AssertionError(f"bucketed int8 scan: {len(differ)} bucket winners differ "
                              f"from the plain version")
     for qi, bi in differ:
-        row = int(k_id[qi, bi])
-        s_row = float(q[qi].float() @ x[row].float())
-        if abs(s_row - float(p_sc[qi, bi])) > 1e-4:
+        row, prow = int(k_id[qi, bi]), int(p_id[qi, bi])
+        s_row = float(q[qi].double() @ x[row].double())
+        s_plain = float(q[qi].double() @ x[prow].double())
+        if abs(s_row - s_plain) > 1e-4:
             raise AssertionError(f"bucketed {kind} scan: bucket {bi} of query {qi} took row "
-                                 f"{row} ({s_row}) over {int(p_id[qi, bi])} "
-                                 f"({float(p_sc[qi, bi])})")
+                                 f"{row} ({s_row}) over {prow} ({s_plain})")
 
     nb = -(-n // tk.BUCKET)
 
     def library():
-        s = torch.matmul(q.to(torch.bfloat16), x.to(torch.bfloat16).T).float()
+        s = (torch.matmul(q, x.T) if f32
+             else torch.matmul(q.to(torch.bfloat16), x.to(torch.bfloat16).T).float())
         if int8:
             s = s * scale[None, :]
         s = torch.where((ns != tk.PAD_TAG)[None, :], s, -math.inf)
@@ -534,15 +575,47 @@ def _bucketed_row(g, x, scale, ns, canon, nq: int, k: int, smem_of, sms: int,
     nbytes = n * d * elt + n * 8 + (n * 4 if int8 else 0) + nq * d * elt + nq * nb * 8
     b_ms, b_by = bound(nbytes, 2.0 * n * d * nq, kind)
     ms = cuda_ms(lambda: tk._bucketed_scan_cuda(*bargs))
-    return {"name": f"bucketed_scan[{kind},n={n},d={d},q={nq}]", "route": "cuda",
-            "source": "tpu_rag_torch/csrc/topk.cu",
-            "replaces": "tpu_rag/ops/topk.py:284", "counter": "bucketed",
-            "plan": plan._asdict(), "max_abs_err": chk["max_abs_err"],
-            "winners_differing_in_ties": len(differ), "ms": ms,
-            "plain_ms": cuda_ms(lambda: tk._bucketed_scan_plain(*bargs), iters=5),
-            "library_ms": cuda_ms(library, iters=5),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "floor_ms": floor, "pct_of_floor": 100.0 * floor / ms}
+    row = {"name": f"bucketed_scan[{kind},n={n},d={d},q={nq}]", "route": "cuda",
+           "source": "tpu_rag_torch/csrc/topk.cu",
+           "replaces": "tpu_rag/ops/topk.py:284",
+           "counter": "bucketed_f32" if f32 else "bucketed_bf16_int8",
+           "plan": plan._asdict(), "max_abs_err": chk["max_abs_err"],
+           "winners_differing_in_ties": len(differ), "ms": ms,
+           "plain_ms": cuda_ms(lambda: tk._bucketed_scan_plain(*bargs), iters=5),
+           "library_ms": cuda_ms(library, iters=5),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "floor_ms": floor, "pct_of_floor": 100.0 * floor / ms}
+    if f32:
+        row["device_ms"] = kernel_ms(lambda: tk._bucketed_scan_cuda(*bargs), F32_SCAN_KERNEL)
+        row["pct_of_bound"] = 100.0 * b_ms / row["device_ms"]
+        row["library"] = "composite: torch.matmul (f32, no TF32) + 128-row max + torch.topk"
+    return row
+
+
+def _f32_id_check(k_sc, k_id, p_sc, p_id, q, x, tol: float) -> dict:
+    """An f32 scan's top k against its plain version's: equal -inf slots,
+    finite scores within tol (the sums run in another order), and equal
+    rows but in ties: where the rows differ, their scores summed again in
+    f64 lie within tol of each other."""
+    import torch
+
+    fin = torch.isfinite(p_sc)
+    if not torch.equal(torch.isfinite(k_sc), fin):
+        raise AssertionError("f32 scan: kernel and plain disagree on which slots are -inf")
+    err = float((k_sc[fin] - p_sc[fin]).abs().max()) if fin.any() else 0.0
+    if err > tol:
+        raise AssertionError(f"f32 scan: score error {err}")
+    diff = ((k_id != p_id) & fin).nonzero()
+    if len(diff):
+        qi, j = diff[:, 0], diff[:, 1]
+        qd = q.double()[qi]
+        s_k = (x[k_id[qi, j].long()].double() * qd).sum(dim=1)
+        s_p = (x[p_id[qi, j].long()].double() * qd).sum(dim=1)
+        worst = float((s_k - s_p).abs().max())
+        if worst > tol:
+            raise AssertionError(f"f32 scan: {len(diff)} rows differ, not in ties "
+                                 f"(scores {worst} apart)")
+    return {"max_abs_err": err, "id_mismatches_in_ties": int(len(diff))}
 
 
 def _smem_check():
@@ -572,10 +645,10 @@ PLAN_KS = (1, 2, 5, 10, 20, 40, 64, 80, 127, 128, 129, 160, 256, 512, 640, 1000,
 
 
 def _plan_sweep(smem_of, sms: int) -> dict:
-    """Every scan plan (bf16/int8 x exact/packed/bucketed x q 1-80 x the
-    test's depths) and every IVF probe plan (#6 at q 1/3, k 1/40/128; #7 at
-    q 8/64/80, on f32 lists at q 4-256) at d 384 and 768, and #5's f32
-    block, held against the kernels' own byte counts (tr_scan_smem_bytes,
+    """Every scan plan (bf16/int8/f32 x exact/packed/bucketed x q 1-80 x the
+    test's depths) and every IVF probe plan (#6 at q 1/3, k 1/40/128, f32
+    lists too; #7 at q 8/64/80, on f32 lists at q 4-256) at d 384 and 768,
+    and #5's f32 block, held against the kernels' own byte counts (tr_scan_smem_bytes,
     tr_probe_smem_bytes, tr_mha_smem_bytes); a scan plan that does not fit
     raises ValueError in _scan_plan and is counted, not launched."""
     import torch
@@ -586,7 +659,7 @@ def _plan_sweep(smem_of, sms: int) -> dict:
 
     out = {"scan_plans": 0, "scan_refused": [], "probe_plans": 0}
     for d in (384, 768):
-        for dtype in (torch.bfloat16, torch.int8):
+        for dtype in (torch.bfloat16, torch.int8, torch.float32):
             for mode in ("exact", "packed", "bucketed"):
                 for nq in (1, 2, 8, 9, 16, 32, 33, 64, 80):
                     for k in (PLAN_KS if mode != "bucketed" else (0,)):
@@ -606,7 +679,7 @@ def _plan_sweep(smem_of, sms: int) -> dict:
                     if got != plan.smem:
                         raise AssertionError(f"list plan {plan} at d {d}: kernel {got}")
                     out["probe_plans"] += 1
-            for nq in (8, 64, 80):
+            for nq in ((8, 64, 80) if dtype != torch.float32 else ()):
                 plan = ip._bucket_plan(IVF_NLIST, IVF_CAP // 128, nq, d, dtype, sms)
                 got = ip._smem_bytes(1, tk._DTYPE_CODE[dtype], d, plan.qc, 0, plan.stages)
                 if got != plan.smem:
@@ -819,9 +892,12 @@ def _list_checks(g) -> dict:
     (cap 1000, not a multiple of 128, nprobe 16: clusters of 8 blocks).
     Each geometry puts an exact tie across the first boundary of the plan's
     ranges (list 3, probed first by query 0, which is one of the two rows)
-    and makes list 5, probed first by query 1, all PAD.  int8: ids and
-    scores torch.equal; bf16: _id_check at 1e-4.  Also holds each plan
-    against the kernel's tr_probe_smem_bytes."""
+    and makes list 5, probed first by query 1, all PAD (f32 plans split
+    each list only as far as one wave of blocks allows: at three queries
+    the tie lies inside one range).  int8: ids and scores torch.equal;
+    bf16 and f32 (the int8 values scaled: exact, so the tie stays one):
+    _id_check at 1e-4.  Also holds each plan against the kernel's
+    tr_probe_smem_bytes."""
     import torch
 
     from tpu_rag_torch.ops import ivf_probe as ip
@@ -831,7 +907,7 @@ def _list_checks(g) -> dict:
     dev = torch.device("cuda")
     d, tol = 384, 1e-4
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    out = {}
+    out, f32_straddles = {}, 0
     for nlist, cap, nprobe in ((IVF_NLIST, IVF_CAP, IVF_NPROBE), (256, 1000, 16)):
         vec = torch.randint(-127, 128, (nlist, cap, d), generator=g, device=dev,
                             dtype=torch.int8)
@@ -848,15 +924,15 @@ def _list_checks(g) -> dict:
         ns[5] = PAD_TAG                                       # every slot PAD
         ns = ns.contiguous()
         centroids = torch.randn((nlist, d), generator=g, device=dev)
-        for dtype in (torch.int8, torch.bfloat16):
+        for dtype in (torch.int8, torch.bfloat16, torch.float32):
             if dtype == torch.int8:
                 lv, sv = vec, scale
             else:
-                lv, sv = vec.to(torch.bfloat16).mul_(1e-3), torch.ones_like(scale)
+                lv, sv = vec.to(dtype).mul_(1e-3), torch.ones_like(scale)
             qf = torch.randn((3, d), generator=g, device=dev)
             qf[0] = lv[3, tie[0]].float()                     # the tie leads list 3
             q_in = (quantize_int8_rows(qf)[0] if dtype == torch.int8
-                    else (qf / qf.norm(dim=1, keepdim=True)).to(torch.bfloat16))
+                    else (qf / qf.norm(dim=1, keepdim=True)).to(dtype))
             lists = ip._top_lists(qf, centroids, nprobe)
             lists[0, 0], lists[1, 0] = 3, 5
             err, id_diff = 0.0, 0
@@ -868,8 +944,10 @@ def _list_checks(g) -> dict:
                         raise AssertionError(f"list plan {plan} says {plan.smem} bytes, "
                                              f"the kernel {got}")
                     ranges = ip._list_ranges(cap, plan.split)
-                    if plan.split < 2 or not tie[0] < ranges[1][0] <= tie[1]:
+                    straddles = plan.split >= 2 and tie[0] < ranges[1][0] <= tie[1]
+                    if not straddles and dtype != torch.float32:
                         raise AssertionError(f"the tie {tie} does not straddle {ranges[:2]}")
+                    f32_straddles += straddles and dtype == torch.float32
                     for wants in ((-1, -1), (2, 1)):
                         args = (q_in[:nq], lists[:nq], lv, sv, ns, canon, *wants, k)
                         k_sc, k_id = ip._probe_list_cuda(*args)
@@ -893,11 +971,13 @@ def _list_checks(g) -> dict:
                             raise AssertionError(f"{what}: the all-PAD list is not -inf/-1")
             name = f"ivf_probe_per_list[{str(dtype)[6:]},cap={cap},nprobe={nprobe},q=1/3,k=1/40/128]"
             out[name] = err
-            if dtype == torch.bfloat16:
+            if dtype != torch.int8:
                 out[name + "_most_id_mismatches"] = id_diff
             del lv
         del vec, scale, ns, canon
         torch.cuda.empty_cache()
+    if f32_straddles < 2:      # f32 plans split to one wave: at q 1 the tie straddles
+        raise AssertionError(f"the tie straddled f32 ranges in {f32_straddles} plans")
     return out
 
 
@@ -1062,13 +1142,13 @@ def _bucket_id_check(k_sc, k_id, p_sc, p_id, q, vec, uniq, tol: float) -> dict:
 
 
 def _probe_float_rows(g) -> list[dict]:
-    """Rows for #6 and #7 on f32 lists (probe_list_kernel and
+    """Rows for #6 and #7 on f32 lists (probe_f32_kernel and
     batched_bucket_kernel, the f32 forms of IVFIndex(dtype="float32")) at
     _probe_float_checks's geometry, every list ~90% live and one probed list
-    wholly PAD: #6 at three queries; #7 at 8 and 80 queries (two query
-    chunks), d 384 and 768; each against its plain version (scores within
-    1e-4, equal -inf slots, ids but in ties) and timed beside it and the
-    gather + bmm + topk composite."""
+    wholly PAD: #6 at one and three queries, #7 at 8 and 80 queries (two
+    query chunks), d 384 and 768; each against its plain version (scores
+    within 1e-4, equal -inf slots, ids but in ties) and timed beside it and
+    the gather + bmm + topk composite."""
     import torch
 
     from tpu_rag_torch.ops import ivf_probe as ip
@@ -1077,7 +1157,8 @@ def _probe_float_rows(g) -> list[dict]:
     dev = torch.device("cuda")
     nlist, cap, nprobe, k_eff, m, tol = 256, 1024, 16, 40, 2, 1e-4
     rows = []
-    for d, cases in ((384, (3, 8, 80)), (768, (8, 80))):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for d, cases in ((384, (1, 3, 8, 80)), (768, (1, 3, 8, 80))):
         vec = torch.randn((nlist, cap, d), generator=g, device=dev)
         vec = vec / vec.norm(dim=2, keepdim=True)
         scale = torch.ones((nlist, cap), device=dev)
@@ -1092,7 +1173,7 @@ def _probe_float_rows(g) -> list[dict]:
             flat = lists.reshape(-1)
             ns_q = ns.clone()
             ns_q[int(lists[0, 0])] = PAD_TAG                  # a probed list wholly PAD
-            if nq == 3:                                               # ---- #6
+            if nq <= 3:                                               # ---- #6
                 args = (q, lists, vec, scale, ns_q, canon, -1, -1, k_eff)
                 kern, plain, what = ip._probe_list_cuda, ip._probe_list_plain, "per_list_f32"
                 chk = _id_check(*(t.view(-1, k_eff) for t in kern(*args)),
@@ -1109,8 +1190,8 @@ def _probe_float_rows(g) -> list[dict]:
                           + nq * nprobe * k_eff * 8)
                 b_ms, b_by = bound(nbytes, 2.0 * pairs * d, "f32")
                 name = f"ivf_probe_per_list[f32,q={nq},nprobe={nprobe},cap={cap},d={d},k={k_eff}]"
-                replaces, kname = "tpu_rag/ops/ivf_probe.py:41", "probe_list_kernel"
-                plan = None
+                replaces, kname = "tpu_rag/ops/ivf_probe.py:41", F32_PROBE_KERNEL
+                plan = ip._list_plan(nq, nprobe, cap, d, torch.float32, k_eff, sms)._asdict()
             else:                                                     # ---- #7
                 uniq, n_uniq, _ = ip._dedup(lists, nlist)
                 args = (q, uniq, n_uniq, vec, scale, ns_q, canon, -1, -1, m)
@@ -1133,8 +1214,7 @@ def _probe_float_rows(g) -> list[dict]:
                         f"union={nu}]")
                 replaces, kname = "tpu_rag/ops/ivf_probe.py:237", "batched_bucket_kernel"
                 plan = ip._bucket_plan(uniq.shape[0], cap // 128, nq, d, torch.float32,
-                                       torch.cuda.get_device_properties(dev)
-                                       .multi_processor_count)._asdict()
+                                       sms)._asdict()
             torch.cuda.synchronize()
             dev_ms = kernel_ms(lambda: kern(*args), kname)
             rows.append({"name": name, "route": "cuda",
@@ -1169,15 +1249,18 @@ def _threads(idents=None) -> list[dict]:
 
 def _counters():
     """name -> (wrapper, attribute): each wrapper's count of its launches,
-    and of those of its f32 kernel (#5 mha_f32_kernel, #6
-    probe_list_kernel, #7 batched_bucket_kernel)."""
+    and of those of its f32 kernel (#1 #2 #3 on f32 rows, #5
+    mha_f32_kernel, #6 and #7 on f32 lists)."""
     from tpu_rag_torch.ops import attention as att
     from tpu_rag_torch.ops import ivf_probe as ip
     from tpu_rag_torch.ops import topk as tk
 
     return {"exact": (tk._exact_scan_cuda, "launches"),
+            "exact_f32": (tk._exact_scan_cuda, "f32_launches"),
             "packed": (tk._packed_scan_cuda, "launches"),
+            "packed_f32": (tk._packed_scan_cuda, "f32_launches"),
             "bucketed": (tk._bucketed_scan_cuda, "launches"),
+            "bucketed_f32": (tk._bucketed_scan_cuda, "f32_launches"),
             "floor": (tk._read_sum_cuda, "launches"),
             "mha": (att._fused_mha_cuda, "launches"),
             "mha_f32": (att._fused_mha_cuda, "f32_launches"),
@@ -1198,7 +1281,10 @@ def _read_counters() -> dict[str, int]:
 
 # the kernels line's counter of each kernel: a wrapper's launches less
 # those of its f32 kernel are its bf16/int8 kernel's
-_SPLIT_COUNTERS = {"mha_bf16": ("mha", "mha_f32"),
+_SPLIT_COUNTERS = {"exact_bf16_int8": ("exact", "exact_f32"),
+                   "packed_bf16_int8": ("packed", "packed_f32"),
+                   "bucketed_bf16_int8": ("bucketed", "bucketed_f32"),
+                   "mha_bf16": ("mha", "mha_f32"),
                    "per_list_bf16_int8": ("per_list", "per_list_f32"),
                    "batched_bf16_int8": ("batched", "batched_f32")}
 
@@ -1782,6 +1868,22 @@ def _plain_probes():
         ip.probe_list_topk, ip.probe_batched_buckets = saved
 
 
+@contextlib.contextmanager
+def _plain_scans():
+    """Route the flat scans (#1 #2 #3) through their plain versions (on the
+    same CUDA tensors) for a comparison run; the kernels' counters do not
+    move."""
+    from tpu_rag_torch.ops import topk as tk
+
+    saved = tk.exact_scan, tk.packed_scan, tk.bucketed_scan
+    tk.exact_scan, tk.packed_scan, tk.bucketed_scan = (
+        tk._exact_scan_plain, tk._packed_scan_plain, tk._bucketed_scan_plain)
+    try:
+        yield
+    finally:
+        tk.exact_scan, tk.packed_scan, tk.bucketed_scan = saved
+
+
 def _manifest_count(store_dir: Path) -> int:
     """The row count of a store's manifest (written whole, last, by a save;
     read again if a read caught it half written)."""
@@ -1968,14 +2070,16 @@ def phase_ivf(work: Path) -> dict:
     del app, engine, index
     torch.cuda.empty_cache()
     f32_lists = _ivf_f32_routes()
-    counts = {name: counts[name] + f32_lists["launches"][name] for name in counts}
+    flat_f32 = _flat_f32_route()
+    counts = {name: counts[name] + f32_lists["launches"][name] + flat_f32["launches"][name]
+              for name in counts}
     out = {"phase": "ivf", "rows": n, "corpus_gen_s": gen_s, "build_s_kmeans_lists": build_s,
            "store_save_s": save_s, "geometry": geometry,
            "first_search_s_from_store": first_search_s, "doc_saves": save_times,
            "http_search_seq": seq, "http_search_burst8": bursts, "windows": windows,
            "routes_kernel": kernel, "routes_plain": plain,
            "snapshot": snapshot, "launches_http": http_counts, "launches": counts,
-           "f32_lists": f32_lists}
+           "f32_lists": f32_lists, "flat_f32": flat_f32}
     emit(out)
     return counts
 
@@ -2042,6 +2146,89 @@ def _ivf_f32_routes() -> dict:
             "kernel": {r: kernel[r] for r in ("q1_recall_at_10", "q64_recall_at_10")},
             "plain": {r: plain[r] for r in ("q1_recall_at_10", "q64_recall_at_10")},
             "launches": counts}
+
+
+def _flat_f32_route(device: str = "cuda") -> dict:
+    """FlatIndex(dtype="float32") (INDEX_DTYPE=float32, exact below 2M
+    rows: #1 on f32 rows is its whole device path) over the f32 IVF route's
+    262,144 rows: 8 single queries and a batch of 64 through
+    FlatIndex.search.  recall@10 against exact truth must be 1.0 but in
+    ties, and the ids the plain scans' route returns, but in ties (a tie:
+    two rows whose f64 scores lie within 1e-5).  Then the batch again with
+    INDEX_SEARCH_MODE=packed (#2, refined from the f32 master: recall 1.0
+    but in ties too) and bucketed (#3, the mode FlatIndex takes from 2M
+    rows: recall@10 >= 0.95), each launching its f32 kernel."""
+    import numpy as np
+    import torch
+
+    from tpu_rag_torch.index.flat import FlatIndex
+
+    n, d, nq, k, tol = IVF_F32_ROWS, 384, 64, 10, 1e-5
+    x, q, _ = _ivf_corpus(n, d, nq, SEED + 5)
+    xd = torch.from_numpy(x).to(device).double()
+    scores = torch.from_numpy(q).to(device).double() @ xd.T      # (nq, n) f64
+    del xd
+    truth = torch.topk(scores, k, dim=1)
+    index = FlatIndex(d, dtype="float32", device=device)
+    index._bulk_adopt_rows(x, (f"f32-{i}" for i in range(n)), (("", {}) for _ in range(n)),
+                           count=n)
+    snap = index.device_snapshot()
+    if snap["vectors"].dtype != torch.float32 or index.effective_search_mode(n) != "exact":
+        raise AssertionError(f"unexpected f32 flat store: {snap['vectors'].dtype}, "
+                             f"{index.effective_search_mode(n)}")
+
+    def route() -> np.ndarray:
+        one = [index.search(q[i:i + 1], k).ids[0] for i in range(8)]
+        return np.asarray([[int(i[4:]) for i in ids] for ids in one + index.search(q, k).ids])
+
+    qrows = list(range(8)) + list(range(nq))       # the query of each result row
+
+    def tied(qi: int, a: int, b: int) -> bool:
+        return abs(float(scores[qi, a]) - float(scores[qi, b])) <= tol
+
+    _reset_counters()
+    kernel = route()
+    counts = _read_counters()
+    with _plain_scans():
+        plain = route()
+    if _read_counters() != counts:
+        raise AssertionError("the plain f32 flat run launched a scan kernel")
+    if counts["exact_f32"] < 1 or counts["exact"] != counts["exact_f32"]:
+        raise AssertionError(f"the f32 flat route did not run on the f32 scan: {counts}")
+    out = {}
+    for name, got in (("kernel", kernel), ("plain", plain)):
+        hits, unexplained = 0, 0
+        for r, qi in enumerate(qrows):
+            want = truth.indices[qi].tolist()
+            hits += len(set(got[r]) & set(want))
+            kth = float(truth.values[qi, k - 1])
+            unexplained += sum(1 for i in set(want) - set(got[r].tolist())
+                               if float(scores[qi, i]) - kth > tol)
+        out[name] = {"recall_at_10": hits / (len(qrows) * k), "misses_not_in_ties": unexplained}
+        if unexplained:
+            raise AssertionError(f"f32 flat {name} route: {unexplained} misses outside ties")
+    differ = [(r, j) for r, j in zip(*np.nonzero(kernel != plain))]
+    if any(not tied(qrows[r], kernel[r, j], plain[r, j]) for r, j in differ):
+        raise AssertionError("f32 flat route: the kernel's ids differ from the plain route's "
+                             "outside ties")
+    for mode, floor in (("packed", 1.0), ("bucketed", 0.95)):
+        index.search_mode = mode
+        before = _read_counters()[f"{mode}_f32"]
+        got = [[int(i[4:]) for i in ids] for ids in index.search(q, k).ids]
+        if _read_counters()[f"{mode}_f32"] <= before:
+            raise AssertionError(f"the f32 flat {mode} search did not launch its f32 scan")
+        hits = sum(len(set(g_) & set(truth.indices[qi].tolist())) for qi, g_ in enumerate(got))
+        missed = sum(1 for qi, g_ in enumerate(got) for i in set(truth.indices[qi].tolist())
+                     - set(g_) if float(scores[qi, i]) - float(truth.values[qi, k - 1]) > tol)
+        out[mode] = {"recall_at_10": hits / (nq * k), "misses_not_in_ties": missed}
+        if (missed if floor == 1.0 else out[mode]["recall_at_10"] < floor):
+            raise AssertionError(f"f32 flat {mode} route: {out[mode]}")
+    del index, snap, scores
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return {"rows": n, "mode": "exact", "queries": "8 x q 1, 1 x q 64; q 64 packed, bucketed",
+            **out, "ids_differing_from_plain_in_ties": len(differ),
+            "launches": _read_counters()}
 
 
 # scripts/rehearse_host_ivf.py's geometry (nprobe 64, cap factor 2.0, chunks
@@ -3036,10 +3223,15 @@ def main() -> int:
             # corpus, the bi-encoder and the served store carry over
             trained = Path(stack.enter_context(tempfile.TemporaryDirectory(
                 prefix="chip_smoke_train_", dir=REPO / "build")))
+        seconds, backends, threads_left = {}, {}, {}
         if "build" in phases:
+            t0 = time.perf_counter()
             phase_build()
+            seconds["build"] = time.perf_counter() - t0
         if "kernels" in phases:
+            t0 = time.perf_counter()
             rows = phase_kernels()
+            seconds["kernels"] = time.perf_counter() - t0
         # each phase drives its part of the path with the counters zeroed
         # first; a kernel's launches are the sum over the phases that ran
         # rerank_train last: the phases that need only train's work run
@@ -3050,7 +3242,6 @@ def main() -> int:
                 "scripts": lambda _work: phase_scripts(trained, hnsw),
                 "rehearse": lambda work: phase_rehearse(work, corpus.result()[0]),
                 "rerank_train": lambda _work: phase_rerank_train(trained, corpus.path)}
-        seconds, backends, threads_left = {}, {}, {}
         for name, run in runs.items():
             if name in phases:
                 before = {t.ident for t in threading.enumerate()}

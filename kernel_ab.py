@@ -2,7 +2,7 @@
 """A/B timing of the port's scan (#1 #2 #3), attention (#5) and IVF probe
 (#6 #7) kernels between checkouts of this repository, on one GPU.
 
-    python3 kernel_ab.py [--profile] [--f32] PARENT_DIR . . PARENT_DIR
+    python3 kernel_ab.py [--profile] [--f32 | --bucket | --list] PARENT_DIR . . PARENT_DIR
 
 Each argument is the root of a checkout: its tpu_rag_torch/ is imported in
 a subprocess of its own and builds its kernels into its own build/.  The
@@ -10,7 +10,8 @@ runs go in the order given, so "parent, change, change, parent" puts both
 sides in one call on one card.  Each run prints one JSON line: per shape,
 the median ms of one wrapper call at a time (CUDA events around the call,
 as chip_smoke.py times its kernels line) and the device's ms (10 calls back
-to back); the last line holds each shape's values in run order.  #6 and
+to back); the last line holds each shape's values in run order and the
+card's name and power limit (nvidia-smi).  #6 and
 #7 come once from the checkout's own chip_smoke.py (its kernels line's
 `ms`) and once with both times on lists seeded the same for every
 checkout: #6 at one and three queries on int8 lists and at one on bf16
@@ -19,10 +20,15 @@ every run (seeded on the card), as in chip_smoke.py.
 With --profile each shape also gets its device time per kernel and its
 wall time, per call (torch.profiler over 5 calls): where a wrapper's time
 goes between its kernels, the library calls around them and the host.
-With --f32 only the f32 kernels run: #5 in f32 (B 64, H 12, D 32 and 64,
-T 160, 256 and 512) and #7 on f32 lists (cap 1024, nprobe 16, m 2; q 8
-and 80 at d 384 and 768).  With --bucket only #7 runs: on int8 and bf16
-lists seeded as above (q 8 and 64) and on --f32's f32 lists.
+With --f32 only the f32 kernels run: the f32 scans (#1 exact at 1M x 384,
+q 1, 8 and 64, k 20, and at 1M x 768, q 8; #2 packed, q 8, k 64; #3
+bucketed at 2M x 384, q 64), #5 in f32 (B 64, H 12, D 32 and 64, T 160,
+256 and 512), #6 on f32 lists (cap 1024, nprobe 16, k 40; q 1 and 3 at d
+384 and 768) and #7 on f32 lists (cap 1024, nprobe 16, m 2; q 8 and 80 at
+d 384 and 768).  With --bucket only #7 runs: on int8 and bf16 lists seeded
+as above (q 8 and 64) and on --f32's f32 lists.  With --list only #6 runs:
+on int8 and bf16 lists seeded as above (q 1 and 3) and on --f32's f32
+lists.
 """
 
 from __future__ import annotations
@@ -61,7 +67,7 @@ def _profile(fn, reps: int = 5, warmup: bool = True) -> dict:
     """torch.profiler over `reps` calls of fn after one warm-up call (none
     with warmup=False, for a training step whose call must not repeat): the
     wall time, each kernel's device time and each record_function range's
-    device span, per call (ms).  chip_smoke.py's kernel times and its serve
+    device span, per call (ms), and each kernel's launches in the window.  chip_smoke.py's kernel times and its serve
     window's and training steps' breakdowns come from here too."""
     import time
 
@@ -78,7 +84,7 @@ def _profile(fn, reps: int = 5, warmup: bool = True) -> dict:
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / reps
-    by_kernel, spans = {}, {}
+    by_kernel, counts, spans = {}, {}, {}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue                      # host ops; their kernels are listed
@@ -88,10 +94,13 @@ def _profile(fn, reps: int = 5, warmup: bool = True) -> dict:
             # a record_function range (e.g. Optimizer.step) shows on the
             # device as the span of its kernels, gaps included: kept apart,
             # or device_ms would count its kernels twice
-            out = spans if getattr(e, "is_user_annotation", False) else by_kernel
-            out[e.key] = us / reps / 1e3
+            if getattr(e, "is_user_annotation", False):
+                spans[e.key] = us / reps / 1e3
+            else:
+                by_kernel[e.key] = us / reps / 1e3
+                counts[e.key] = e.count
     return {"wall_ms": wall * 1e3, "device_ms": sum(by_kernel.values()),
-            "by_kernel_ms": by_kernel, "spans_ms": spans}
+            "by_kernel_ms": by_kernel, "by_kernel_count": counts, "spans_ms": spans}
 
 
 def _both(fn, profile: bool) -> dict:
@@ -103,16 +112,80 @@ def _both(fn, profile: bool) -> dict:
     return out
 
 
+F32_SCANS = ((384, "exact", 1, 20), (384, "exact", 8, 20), (384, "exact", 64, 20),
+             (384, "packed", 8, 64), (768, "exact", 8, 20))
+
+
+def _f32_scan_rows(g, profile: bool) -> dict:
+    """The f32 scans: F32_SCANS over 1M rows, #3 bucketed over 2M x 384."""
+    import torch
+
+    from tpu_rag_torch.ops import topk as tk
+
+    dev, out = g.device, {}
+    kernels = {"exact": tk._exact_scan_cuda, "packed": tk._packed_scan_cuda}
+    for d in (384, 768):
+        x = torch.randn((1_000_000, d), generator=g, device=dev)
+        x /= x.norm(dim=1, keepdim=True)
+        ns = torch.randint(0, 4, (x.shape[0],), generator=g, device=dev, dtype=torch.int32)
+        ns[-1000:] = tk.PAD_TAG
+        for dd, mode, nq, k in F32_SCANS:
+            if dd != d:
+                continue
+            q = torch.randn((nq, d), generator=g, device=dev)
+            args = (q, x, None, ns, ns, None, -1, -1, k)
+            out[f"{mode}_scan[f32,n=1M,d={d},q={nq},k={k}]"] = _both(
+                lambda: kernels[mode](*args), profile)
+        del x, ns
+        torch.cuda.empty_cache()
+    x = torch.randn((2_000_000, 384), generator=g, device=dev)
+    x /= x.norm(dim=1, keepdim=True)
+    ns = torch.zeros((x.shape[0],), device=dev, dtype=torch.int32)
+    q = torch.randn((64, 384), generator=g, device=dev)
+    out["bucketed_scan[f32,n=2M,d=384,q=64]"] = _both(
+        lambda: tk._bucketed_scan_cuda(q, x, None, ns, ns, -1, -1), profile)
+    del x, ns
+    torch.cuda.empty_cache()
+    return out
+
+
+def _f32_list_rows(g, profile: bool) -> dict:
+    """#6 on f32 lists: cap 1024, nprobe 16, k 40, q 1 and 3, d 384 and 768."""
+    import torch
+
+    from tpu_rag_torch.ops import ivf_probe as ip
+    from tpu_rag_torch.ops.topk import PAD_TAG
+
+    dev, out = g.device, {}
+    nlist, cap, nprobe = 256, 1024, 16
+    for d in (384, 768):
+        vec = torch.randn((nlist, cap, d), generator=g, device=dev)
+        vec /= vec.norm(dim=2, keepdim=True)
+        scale = torch.ones((nlist, cap), device=dev)
+        ns = torch.randint(0, 4, (nlist, cap), generator=g, device=dev, dtype=torch.int32)
+        ns[:, -100:] = PAD_TAG
+        centroids = torch.randn((nlist, d), generator=g, device=dev)
+        for nq in (1, 3):
+            q = torch.randn((nq, d), generator=g, device=dev)
+            q /= q.norm(dim=1, keepdim=True)
+            args = (q, ip._top_lists(q, centroids, nprobe), vec, scale, ns, ns, -1, -1, 40)
+            out[f"ivf_probe_per_list[f32,q={nq},d={d}]"] = _both(
+                lambda: ip._probe_list_cuda(*args), profile)
+        del vec, scale, ns
+        torch.cuda.empty_cache()
+    return out
+
+
 def f32_worker(profile: bool) -> dict:
-    """#5 in f32 and #7 on f32 lists, on data seeded the same in every
-    checkout."""
+    """The f32 scans, #5 in f32, #6 and #7 on f32 lists, on data seeded the
+    same in every checkout."""
     import torch
 
     from tpu_rag_torch.ops import attention as att
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED)
-    out = {}
+    out = _f32_scan_rows(g, profile)
     for hd in (32, 64):
         for t in (160, 256, 512):
             q, k_, v = (torch.randn((64, t, 12, hd), generator=g, device=dev) for _ in range(3))
@@ -121,7 +194,7 @@ def f32_worker(profile: bool) -> dict:
             out[f"fused_mha[f32,B=64,T={t},H=12,D={hd}]"] = _both(
                 lambda: att._fused_mha_cuda(q, k_, v, mask), profile)
             del q, k_, v
-    return {**out, **_f32_bucket_rows(g, profile)}
+    return {**out, **_f32_list_rows(g, profile), **_f32_bucket_rows(g, profile)}
 
 
 def _f32_bucket_rows(g, profile: bool) -> dict:
@@ -187,7 +260,42 @@ def bucket_worker(profile: bool) -> dict:
     return {**out, **_f32_bucket_rows(g, profile)}
 
 
-def worker(root: Path, profile: bool, f32: bool = False, bucket: bool = False) -> dict:
+def list_worker(profile: bool) -> dict:
+    """#6 alone: int8 and bf16 lists as worker() seeds them, f32 lists as
+    f32_worker() does."""
+    import torch
+
+    import chip_smoke
+    from tpu_rag_torch.ops import ivf_probe as ip
+    from tpu_rag_torch.ops.quant import quantize_int8_rows
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    nlist, cap, d = chip_smoke.IVF_NLIST, chip_smoke.IVF_CAP, 384
+    vec = torch.randint(-127, 128, (nlist, cap, d), generator=g, device=dev, dtype=torch.int8)
+    scale = torch.rand((nlist, cap), generator=g, device=dev) * 1e-3 + 1e-3
+    tags = torch.randint(0, 4, (nlist, cap), generator=g, device=dev, dtype=torch.int32)
+    centroids = torch.randn((nlist, d), generator=g, device=dev)
+    out = {}
+    for dtype in ("int8", "bf16"):
+        lists_v = vec if dtype == "int8" else vec.to(torch.bfloat16).mul_(1e-3)
+        for nq in (1, 3):
+            qf = torch.randn((nq, d), generator=g, device=dev)
+            q_in = (quantize_int8_rows(qf)[0] if dtype == "int8"
+                    else (qf / qf.norm(dim=1, keepdim=True)).to(torch.bfloat16))
+            args = (q_in, ip._top_lists(qf, centroids, chip_smoke.IVF_NPROBE), lists_v,
+                    scale if dtype == "int8" else torch.ones_like(scale), tags, tags, -1, -1,
+                    chip_smoke.IVF_KSCAN)
+            out[f"ivf_probe_per_list[{dtype},q={nq}]"] = _both(
+                lambda: ip._probe_list_cuda(*args), profile)
+        del lists_v
+    del vec, scale, tags
+    torch.cuda.empty_cache()
+    return {**out, **_f32_list_rows(g, profile)}
+
+
+def worker(root: Path, profile: bool, f32: bool = False, bucket: bool = False,
+           lists: bool = False) -> dict:
     import torch
 
     sys.path.insert(0, str(root))
@@ -201,6 +309,8 @@ def worker(root: Path, profile: bool, f32: bool = False, bucket: bool = False) -
         return f32_worker(profile)
     if bucket:
         return bucket_worker(profile)
+    if lists:
+        return list_worker(profile)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED)
     n, d = 1_000_000, 384
@@ -278,11 +388,13 @@ def worker(root: Path, profile: bool, f32: bool = False, bucket: bool = False) -
 
 def main() -> int:
     args = sys.argv[1:]
-    profile, f32, bucket = "--profile" in args, "--f32" in args, "--bucket" in args
-    flags = [a for a in ("--profile", "--f32", "--bucket") if a in args]
+    profile, f32, bucket, lists = ("--profile" in args, "--f32" in args, "--bucket" in args,
+                                   "--list" in args)
+    flags = [a for a in ("--profile", "--f32", "--bucket", "--list") if a in args]
     args = [a for a in args if a not in flags]
     if len(args) == 2 and args[0] == "--worker":
-        print(json.dumps(worker(Path(args[1]).resolve(), profile, f32, bucket)), flush=True)
+        print(json.dumps(worker(Path(args[1]).resolve(), profile, f32, bucket, lists)),
+              flush=True)
         return 0
     roots = [Path(a).resolve() for a in args]
     if not roots:
@@ -303,7 +415,10 @@ def main() -> int:
     names = list(dict.fromkeys(name for r in runs for name in r))
     summary = {name: {key: [r.get(name, {}).get(key) for r in runs] for key in ("ms", "device_ms")}
                for name in names}
-    print(json.dumps({"runs": [str(r) for r in roots], "by_shape": summary}), flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    print(json.dumps({"runs": [str(r) for r in roots], "card": smi, "by_shape": summary}),
+          flush=True)
     return 0
 
 

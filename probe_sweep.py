@@ -4,8 +4,9 @@ and by the share of masked (PAD) slots, beside the read floor of the same
 lists; and the per-list probe (#6) under its launch plan and the plans
 around it.
 
-    python3 probe_sweep.py            # both
-    python3 probe_sweep.py --list     # #6 only
+    python3 probe_sweep.py                # both
+    python3 probe_sweep.py --list         # #6 only
+    python3 probe_sweep.py --list --f32   # #6 on f32 lists only
 
 On the ivf phase's geometry of chip_smoke.py (2048 int8 lists of cap 3968,
 d 384, nprobe 64, m 2; seeded random lists), for 8, 32 and 64 queries:
@@ -18,7 +19,11 @@ _list_plan picks and others (split 1-4; 128- or 64-row stages, as many as
 fit one, two or three resident blocks), beside the read floor of the
 probed lists.  Device time: 10 calls back to back between CUDA events,
 median of 5; for #6 the kernel's own time (torch.profiler, chip_smoke's
-kernel_ms), since its wrapper's host time exceeds it.  Prints one JSON line
+kernel_ms), since its wrapper's host time exceeds it.  #6 on f32 lists
+(--f32; chip_smoke.py's f32 geometry: 256 lists of cap 1024, ~90% live,
+nprobe 16, k 40, d 384 and 768) at 1 and 3 queries: the plan _list_plan
+picks and split 1, 2, 4 and 8 with as many one-box stages as one, two or
+three resident blocks leave.  Prints one JSON line
 per shape, the card's name and power limit, then all results as one JSON
 object.  Without a CUDA device it exits non-zero.
 """
@@ -57,6 +62,9 @@ def main() -> int:
     all_pad = torch.full_like(tags, tk.PAD_TAG)
     centroids = torch.randn((nlist, d), generator=g, device=dev)
     out = {}
+    if "--list" in sys.argv[1:] and "--f32" in sys.argv[1:]:
+        del vec, scale, tags, tail_pad, all_pad
+        return _f32_list_sweep(cs, ip, g)
     if "--list" in sys.argv[1:]:
         return _list_sweep(cs, ip, tk, quantize_int8_rows, vec, scale, tags, centroids, g)
     for nq in (8, 32, 64):
@@ -126,6 +134,57 @@ def _list_sweep(cs, ip, tk, quantize_int8_rows, vec, scale, tags, centroids, g) 
             del flat
             out[name] = {"plans": res, "read_floor_ms": floor}
             print(json.dumps({name + "_read_floor_ms": floor}), flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def _f32_list_sweep(cs, ip, g) -> int:
+    import torch
+
+    from tpu_rag_torch.ops.topk import PAD_TAG
+
+    dev = g.device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    nlist, cap, nprobe, k = 256, 1024, 16, 40
+    list_plan = ip._list_plan
+    out = {}
+    for d in (384, 768):
+        vec = torch.randn((nlist, cap, d), generator=g, device=dev)
+        vec /= vec.norm(dim=2, keepdim=True)
+        ones = torch.ones((nlist, cap), device=dev)
+        ns = torch.randint(0, 4, (nlist, cap), generator=g, device=dev, dtype=torch.int32)
+        ns[:, -100:] = PAD_TAG
+        centroids = torch.randn((nlist, d), generator=g, device=dev)
+        fixed = ip._f32_list_smem(d, k, 0)
+        stage = ip._f32_list_smem(d, k, 1) - fixed
+        for nq in (1, 3):
+            q = torch.randn((nq, d), generator=g, device=dev)
+            q /= q.norm(dim=1, keepdim=True)
+            args = (q, ip._top_lists(q, centroids, nprobe), vec, ones, ns, ns, -1, -1, k)
+            default = list_plan(nq, nprobe, cap, d, torch.float32, k, sms)
+            plans = {default}
+            for split in (1, 2, 4, 8):
+                for per_sm in (1, 2, 3):
+                    budget = min(232_448, 233_472 // per_sm - 1024)
+                    stages = min(8, max(0, budget - fixed) // stage)
+                    if stages >= 2:
+                        plans.add(ip.ListPlan(split, 128, stages, nq * nprobe * split, per_sm,
+                                              fixed + stages * stage))
+            name = f"per_list[f32,q={nq},d={d}]"
+            res = []
+            for plan in sorted(plans):
+                ip._list_plan = lambda *_, plan=plan: plan     # the wrapper launches `plan`
+                try:
+                    ms = cs.kernel_ms(lambda: ip._probe_list_cuda(*args), "probe_f32_kernel")
+                finally:
+                    ip._list_plan = list_plan
+                res.append({"plan": plan._asdict(), "device_ms": ms, "default": plan == default})
+                print(json.dumps({name: res[-1]}), flush=True)
+            out[name] = {"plans": res}
+        del vec, ones, ns
+        torch.cuda.empty_cache()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
     print(json.dumps(out), flush=True)

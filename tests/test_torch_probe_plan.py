@@ -246,10 +246,13 @@ def test_list_ranges_cover_each_list_once_in_slot_order(cap):
             assert plan.blocks == nq * nprobe * plan.split
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8, torch.float32])
 @pytest.mark.parametrize("d", LIST_D_ALL)
 def test_every_list_plan_fits(dtype, d):
-    elt = 1 if dtype == torch.int8 else 2
+    elt = {torch.int8: 1, torch.bfloat16: 2, torch.float32: 4}[dtype]
+    f32 = dtype == torch.float32
+    smem_of = ((lambda k, stages, rows: ip._f32_list_smem(d, k, stages)) if f32
+               else (lambda k, stages, rows: ip._list_smem(elt, d, k, stages, rows)))
     for k in LIST_K_ALL:
         for nq in (1, 2, 3):
             for nprobe in (8, 64):
@@ -258,16 +261,24 @@ def test_every_list_plan_fits(dtype, d):
                 assert plan.per_sm * (plan.smem + 1024) <= 233_472    # resident together
                 assert plan.per_sm * 288 <= 2048                      # by threads too
                 assert plan.rows in (64, 128) and 2 <= plan.stages <= 8
-                assert plan.smem == ip._list_smem(elt, d, k, plan.stages, plan.rows)
-                # the same bytes as the layout written out
-                stage = -(-(-(-d * elt // 128) * plan.rows * 128 + 12 * plan.rows) // 1024) * 1024
+                assert not f32 or plan.rows == 128                    # one-box stages
+                assert plan.smem == smem_of(k, plan.stages, plan.rows)
+                # the same bytes as the layout written out: f32 stages are
+                # one 128-row box (its tags are read from device memory),
+                # the query a whole number of boxes
                 r128 = lambda x: -(-x // 128) * 128  # noqa: E731
-                assert plan.smem == (1024 + plan.stages * stage + r128(-(-d * elt // 32) * 32)
+                if f32:
+                    stage, query = 128 * 128, r128(-(-d // 32) * 128)
+                else:
+                    stage = -(-(-(-d * elt // 128) * plan.rows * 128 + 12 * plan.rows)
+                              // 1024) * 1024
+                    query = r128(-(-d * elt // 32) * 32)
+                assert plan.smem == (1024 + plan.stages * stage + query
                                      + r128(64 * k) + r128(8 * k) + 128 + 64 + 128)
                 # one more stage would not fit the block's share of the SM
                 share = min(232_448, 233_472 // plan.per_sm - 1024)
-                assert plan.stages == 8 or plan.smem + (plan.smem - ip._list_smem(
-                    elt, d, k, plan.stages - 1, plan.rows)) > share
+                assert plan.stages == 8 or plan.smem + (plan.smem - smem_of(
+                    k, plan.stages - 1, plan.rows)) > share
 
 
 def test_one_query_fills_the_card():
@@ -329,11 +340,14 @@ def _place(parts: list[list[tuple[float, int]]], k: int) -> list[tuple[float, in
 
 
 def _split_emulation(args, want_ns: int, want_canon: int, k: int, split: int, rows: int):
-    """Kernel #6 as probe_split_kernel computes it, in Python: per range of
-    the plan, each warp's top k of its 16-row tiles (in the order (score
-    desc, slot asc)), placed into the block's top k, placed into the list's."""
+    """Kernel #6 as probe_split_kernel (probe_f32_kernel on f32 lists, whose
+    tiles are 128 rows) computes it, in Python: per range of the plan, each
+    warp's top k of its 16-row tiles (in the order (score desc, slot asc)),
+    placed into the block's top k, placed into the list's."""
     q, lists, x, scale, ns, canon = args
     cap = x.shape[1]
+    if x.dtype == torch.float32:
+        rows = BUCKET
     s = torch.einsum("qd,qpcd->qpc", q.float(), x[lists].float())
     if x.dtype == torch.int8:
         s = s * scale[lists]
@@ -363,7 +377,7 @@ def _split_emulation(args, want_ns: int, want_canon: int, k: int, split: int, ro
     return out_sc, out_id
 
 
-@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("cap,split,rows", [(1000, 8, 128), (1000, 3, 64), (384, 2, 128),
                                             (384, 1, 64)])
 @pytest.mark.parametrize("wants", [(-1, -1), (1, 0)], ids=["nofilter", "filtered"])

@@ -38,12 +38,37 @@ def test_blocks_cover_rows_once_in_order(dtype, mode, n):
             plan.block_rows == tk.BUCKET
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+def _check_f32_plan(plan, d: int, nq: int, k: int, mode: str) -> None:
+    """An f32 plan (f32_scan_kernel): the chunk is 1 for one query, else the
+    power of two 8..64 that covers nq unless two stages did not fit beside
+    the larger chunk; as many one-box stages as fit (at most 8)."""
+    assert plan.qc in (1, 8, 16, 32, 64)
+    assert 2 <= plan.stages <= tk._PIPE_STAGES_MAX and plan.smem <= tk._SMEM_MAX
+    assert plan.smem == tk._f32_scan_smem(d, plan.qc, k, mode, plan.stages)
+    assert plan.stages == tk._PIPE_STAGES_MAX or tk._f32_scan_smem(
+        d, plan.qc, k, mode, plan.stages + 1) > tk._SMEM_MAX
+    want = 1 if nq == 1 else min(64, max(8, 1 << (nq - 1).bit_length()))
+    assert plan.qc == want or (plan.qc < want and tk._f32_scan_smem(
+        d, 2 * plan.qc, k, mode, 2) > tk._SMEM_MAX)
+    # the layout written out: slack, one-box stages, query rows of whole
+    # 32-float boxes + 4, lists + candidate scratch + masks + merge maps or
+    # the bucket tables, two mbarriers a stage
+    a128 = lambda x: -(-x // 128) * 128  # noqa: E731
+    ld = -(-d // 32) * 32 + 4
+    tail = (a128(plan.qc * k * 8) + a128(128 * (plan.qc + 1) * 4) + a128(plan.qc * 16)
+            + 1024 if mode != "bucketed" else a128(2 * (4 if plan.qc >= 16 else 8) * plan.qc * 8))
+    assert plan.smem == 1024 + plan.stages * 16384 + a128(plan.qc * ld * 4) + tail + 128
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8, torch.float32])
 @pytest.mark.parametrize("mode", ["exact", "packed"])
 def test_every_plan_fits_shared_memory(dtype, mode):
     for k in KS:
         for nq in range(1, 65):
             plan = tk._scan_plan(1_000_000, 384, nq, k, dtype, SMS, mode)
+            if dtype == torch.float32:
+                _check_f32_plan(plan, 384, nq, k, mode)
+                continue
             assert plan.qc in (8, 16, 32, 64)
             assert 2 <= plan.stages <= tk._PIPE_STAGES_MAX
             assert plan.smem <= tk._SMEM_MAX
@@ -57,32 +82,45 @@ def test_every_plan_fits_shared_memory(dtype, mode):
                 elt, 384, 2 * plan.qc, k, mode, 2, 64) > tk._SMEM_MAX)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8, torch.float32])
 def test_bucketed_plans_fit_and_fill_the_ring(dtype):
     for nq in range(1, 129):
         plan = tk._scan_plan(2_000_000, 384, nq, 0, dtype, SMS, "bucketed")
         assert plan.smem <= tk._SMEM_MAX
-        rows = tk._pipe_rows(tk._ELT[dtype], 384, plan.qc, 0, "bucketed")
-        assert (plan.stages - 1) * rows * 384 * tk._ELT[dtype] >= 64 * 1024
+        if dtype == torch.float32:
+            _check_f32_plan(plan, 384, nq, 0, "bucketed")
+            stage = 128 * 128                                # one box
+        else:
+            stage = tk._pipe_rows(tk._ELT[dtype], 384, plan.qc, 0, "bucketed") * 384 * tk._ELT[dtype]
+        assert (plan.stages - 1) * stage >= 64 * 1024
 
 
-def test_f32_plans_fit_shared_memory():
-    for k in KS:
-        for nq in (1, 8, 16, 33, 64):
-            plan = tk._scan_plan(1_000_000, 384, nq, k, torch.float32, SMS, "exact")
-            assert plan.qc % 16 == 0 and plan.stages == 0
-            assert plan.smem <= tk._SMEM_MAX
+def test_f32_query_chunk_is_not_padded_past_nq():
+    """The f32 kernel's FMAs scale with its chunk: one query is a chunk of
+    1 (box_one_query), 2-8 queries a chunk of 8, and no chunk is more than
+    twice the queries it holds."""
+    for mode, k in (("exact", 20), ("packed", 64), ("bucketed", 0), ("exact", 1024)):
+        for d in (384, 768):
+            for nq in range(1, 129):
+                plan = tk._scan_plan(1_000_000, d, nq, k, torch.float32, SMS, mode)
+                assert plan.qc == 1 if nq == 1 else plan.qc >= 8
+                assert plan.qc < 2 * nq or plan.qc == 8
+                if nq <= 64:
+                    assert plan.qc <= max(8, 1 << (nq - 1).bit_length())
 
 
 def test_ring_keeps_loads_in_flight_at_main_path_shapes():
     """At the main path's shapes at least 64 KB of the ring is in flight
-    (all stages but the one being multiplied)."""
+    (all stages but the one being multiplied); f32 stages are one box, and
+    bytes bound the f32 scan at 1-8 queries."""
     for dtype, nq, k in ((torch.bfloat16, 1, 20), (torch.bfloat16, 8, 20),
                          (torch.bfloat16, 64, 20), (torch.int8, 64, 40),
                          (torch.int8, 8, 1024), (torch.bfloat16, 8, 64),
-                         (torch.int8, 64, 80)):
+                         (torch.int8, 64, 80), (torch.float32, 1, 20),
+                         (torch.float32, 8, 20), (torch.float32, 8, 64)):
         plan = tk._scan_plan(1_000_000, 384, nq, k, dtype, SMS, "exact")
-        tile = tk._pipe_rows(tk._ELT[dtype], 384, plan.qc, k, "exact") * 384 * tk._ELT[dtype]
+        tile = (128 * 128 if dtype == torch.float32 else
+                tk._pipe_rows(tk._ELT[dtype], 384, plan.qc, k, "exact") * 384 * tk._ELT[dtype])
         assert (plan.stages - 1) * tile >= 64 * 1024 or plan.stages == tk._PIPE_STAGES_MAX
 
 
@@ -91,15 +129,20 @@ def test_plan_rejects_what_cannot_fit():
         tk._scan_plan(1000, 8192, 8, 1024, torch.bfloat16, SMS, "exact")
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8, torch.float32])
 def test_seed_rows_only_where_the_work_pays(dtype):
-    assert tk._seed_rows(1_000_000, 8, 20, dtype) == 0            # nq * k < 512
-    assert tk._seed_rows(1_000_000, 64, 20, torch.float32) == 0   # f32 keeps scan_kernel
-    assert tk._seed_rows(100_000, 64, 40, dtype) == 0             # n < 8 x the sample
+    """The rule depends on the shapes alone: every scan kernel, f32's too,
+    takes the seed; the seeding scan and the full one both have a plan."""
+    assert tk._seed_rows(1_000_000, 8, 20) == 0              # nq * k < 512
+    assert tk._seed_rows(100_000, 64, 40) == 0               # n < 8 x the sample
+    assert tk._seed_rows(1_000_000, 64, 20) == 32_768        # the f32 flat route's q 64
     for nq, k in ((64, 20), (8, 64), (8, 1024), (64, 1024)):
-        rows = tk._seed_rows(4_000_000, nq, k, dtype)
+        rows = tk._seed_rows(4_000_000, nq, k)
         assert rows >= max(32_768, 32 * k) and rows % tk.BUCKET == 0
         assert 8 * rows <= 4_000_000
+        for n in (rows, 4_000_000):
+            plan = tk._scan_plan(n, 384, nq, k, dtype, SMS, "exact")
+            assert plan.blocks * plan.block_rows >= n
 
 
 @pytest.mark.parametrize("mode", ["exact", "packed"])
@@ -142,17 +185,22 @@ def test_d768_blocks_cover_rows_once_in_order(dtype, mode, n):
         assert plan.blocks * -(-nq // plan.qc) <= SMS or plan.block_rows == tk.BUCKET
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8, torch.float32])
 @pytest.mark.parametrize("mode", ["exact", "packed", "bucketed"])
 def test_d768_every_plan_fits_shared_memory(dtype, mode):
     """At d 768 a 128-row bf16 stage is 198,656 bytes: a plan falls back to
     64-row stages, and for a chunk of 8 queries whose lists leave no room
     for two of those (bf16 above k 252) to 32-row stages; every depth up to
-    K_MAX fits, with the kernel's own arithmetic (_pipe_smem)."""
+    K_MAX fits, with the kernel's own arithmetic (_pipe_smem; f32:
+    _f32_scan_smem, whose 64-query chunk halves at d 768)."""
     elt = tk._ELT[dtype]
     for k in (KS if mode != "bucketed" else (0,)):
         for nq in (1, 2, 7, 8, 9, 16, 31, 32, 33, 63, 64, 80, 128):
             plan = tk._scan_plan(1_000_000, 768, nq, k, dtype, SMS, mode)
+            if dtype == torch.float32:
+                _check_f32_plan(plan, 768, min(nq, 64), k, mode)
+                assert plan.qc <= 32                   # 64 query rows: 197,632 bytes
+                continue
             rows = tk._pipe_rows(elt, 768, plan.qc, k, mode)
             assert 2 <= plan.stages <= tk._PIPE_STAGES_MAX and plan.smem <= tk._SMEM_MAX
             assert plan.smem == tk._pipe_smem(elt, 768, plan.qc, k, mode, plan.stages, rows)

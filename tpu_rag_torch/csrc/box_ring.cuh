@@ -1,0 +1,156 @@
+// The ring of 128-byte row boxes that the TMA kernels read, and the f32
+// products over it shared by the three f32 kernels: the f32 scan (#1 #2 #3
+// on f32 rows, topk.cu's f32_scan_kernel), the f32 per-list probe (#6,
+// ivf_probe.cu's probe_f32_kernel) and the f32 batched probe (#7,
+// ivf_probe.cu's batched_bucket_kernel).
+//
+// A box is 128 rows x 128 bytes of a row-major matrix read through a 2-D
+// tensor map (the TMA unit computes the addresses and reports the bytes on
+// an mbarrier), stored with the 128-byte swizzle: the 16-byte chunk c of
+// box row r sits at r * 128 + (c ^ (r & 7)) * 16, so the eight rows a
+// quarter warp reads at one chunk fall in eight distinct bank groups.  An
+// f32 row of d floats is ceil(d / 32) boxes deep; columns past d read as
+// zero.  The f32 kernels keep one box a ring stage (16 KB; a whole 128-row
+// f32 tile is 192 KB at d 384) and their partial sums in registers over a
+// row tile's boxes.
+//
+// Two products over one box, both on the CUDA cores in f32 (the reference
+// is f32: no TF32):
+//   box_tile       register micro-tiles in mma.sync's m16n8 accumulator
+//                  layout: a thread's rows 16 mi + g + 8 h and queries
+//                  8 j + 2 t + e, each row and query read as a float4 per
+//                  chunk (12 float4 loads feed 128 FMAs at 4 x 8);
+//   box_one_query  one query, whose slice of the box each lane reads once:
+//                  lane (g, t) sums chunks 2t and 2t + 1 of rows g and
+//                  g + 8, every row float4 read once by one lane (so the
+//                  box is read once, not 8 times as a column of an n8
+//                  tile would), and sum_quarters completes a row's sum
+//                  over the four lanes t after the tile's last box.
+#pragma once
+
+#include <cuda.h>
+#include <dlfcn.h>
+
+#include "mma_sm90.cuh"
+#include "select.cuh"
+
+namespace tr_box {
+
+using tr_tile::kFull;
+
+constexpr int kBoxFloats = 32;            // f32 floats of a row in one box
+constexpr int kBoxRows = 128;             // rows of a box: one bucket
+constexpr int kBoxBytes = kBoxRows * 128; // 16 KB, a multiple of the 1024-byte swizzle unit
+
+__host__ __device__ inline int f32_boxes(int d) { return (d + kBoxFloats - 1) / kBoxFloats; }
+
+// Row stride (floats) of f32 queries staged in shared memory: d rounded up
+// to whole boxes, plus 4, so rows sit 16 bytes past a multiple of 128 and
+// the four queries a quarter warp reads (2t + e) fall in distinct bank
+// groups.
+__host__ __device__ inline int f32_query_ld(int d) { return f32_boxes(d) * kBoxFloats + 4; }
+
+__host__ __device__ inline size_t align1024(size_t x) { return (x + 1023) & ~size_t(1023); }
+
+// acc[mi][j][2 h + e] += the box's 32 floats of row r_lo + 16 mi + g + 8 h
+// (of the box at st) times those of query 8 j + 2 t + e, whose row starts
+// at qrow + (8 j + e) * ld (qrow: this thread's first query, at the box's
+// first float).  r_lo is a multiple of 8, so the row's swizzle is g.
+template <int kMTW, int kNTW>
+__device__ inline void box_tile(float (&acc)[kMTW][kNTW][4], const unsigned char* st, int r_lo,
+                                const float* qrow, int ld, int g) {
+  const unsigned char* arow = st + (r_lo + g) * 128;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    float4 a[kMTW][2], bq[kNTW][2];
+#pragma unroll
+    for (int mi = 0; mi < kMTW; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        a[mi][h] =
+            *reinterpret_cast<const float4*>(arow + (mi * 16 + 8 * h) * 128 + ((c ^ g) << 4));
+#pragma unroll
+    for (int j = 0; j < kNTW; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        bq[j][e] = *reinterpret_cast<const float4*>(qrow + (8 * j + e) * ld + 4 * c);
+#pragma unroll
+    for (int mi = 0; mi < kMTW; ++mi)
+#pragma unroll
+      for (int j = 0; j < kNTW; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& s = acc[mi][j][2 * h + e];
+            s = fmaf(a[mi][h].x, bq[j][e].x, s);
+            s = fmaf(a[mi][h].y, bq[j][e].y, s);
+            s = fmaf(a[mi][h].z, bq[j][e].z, s);
+            s = fmaf(a[mi][h].w, bq[j][e].w, s);
+          }
+  }
+}
+
+// acc[h] += chunks 2t and 2t + 1 of row r_lo + g + 8 h of the box at st
+// times the query's same chunks (qbox: the query at the box's first
+// float).  The 32 lanes read 32 distinct row chunks (8 rows x 4 chunk
+// pairs), conflict-free under the swizzle.
+__device__ inline void box_one_query(float (&acc)[2], const unsigned char* st, int r_lo,
+                                     const float* qbox, int g, int t) {
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int c = 2 * t + u;
+    const float4 qv = *reinterpret_cast<const float4*>(qbox + 4 * c);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float4 a =
+          *reinterpret_cast<const float4*>(st + (r_lo + g + 8 * h) * 128 + ((c ^ g) << 4));
+      acc[h] = fmaf(a.x, qv.x, acc[h]);
+      acc[h] = fmaf(a.y, qv.y, acc[h]);
+      acc[h] = fmaf(a.z, qv.z, acc[h]);
+      acc[h] = fmaf(a.w, qv.w, acc[h]);
+    }
+  }
+}
+
+// A row's sum over the four lanes t of its g (box_one_query's partials).
+__device__ inline float sum_quarters(float v) {
+  v += __shfl_xor_sync(kFull, v, 1);
+  return v + __shfl_xor_sync(kFull, v, 2);
+}
+
+// The driver's cuTensorMapEncodeTiled, from the libcuda the process has
+// loaded (the runtime API has no tensor maps; linking libcuda would tie the
+// library to a driver stub).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_LOCAL);
+    return lib ? reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
+  }();
+  return fn;
+}
+
+// `rows` rows of row_bytes bytes as a 2-D tensor of bytes (row_bytes x
+// rows), read in boxes of 128 bytes x box_rows with the 128-byte swizzle;
+// columns past row_bytes and rows past `rows` read as zero.
+inline bool rows_tensor_map(CUtensorMap* map, const void* base, long long rows, int row_bytes,
+                            int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {cuuint64_t(row_bytes), cuuint64_t(rows)};
+  const cuuint64_t strides[1] = {cuuint64_t(row_bytes)};
+  const cuuint32_t box[2] = {128, cuuint32_t(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+}  // namespace tr_box

@@ -41,14 +41,26 @@
 //        insert about the block's candidates, not eight times as many.  No
 //        block barrier stands in the walk, so a warp's merge overlaps the
 //        other warps' products and the refills;
-//      - an exact merge: each entry of a warp's list goes to its place among
-//        the block's (its index plus the better entries of the other lists,
-//        by binary search), then, after a cluster barrier, among the
-//        cluster's the same way through distributed shared memory, each
-//        block writing its own winners.  Slots are unique and the ranges in
-//        slot order, so this is the top k of the whole list, ties included.
-//      f32 lists keep probe_list_kernel: one block per (query, probe) through
-//      scan_tile.cuh's f32 scoring step, warp 0 inserting every slot.
+//      - an exact merge (merge_cluster): each entry of a warp's list goes
+//        to its place among the block's (its index plus the better entries
+//        of the other lists, by binary search), then, after a cluster
+//        barrier, among the cluster's the same way, over copies of the
+//        peers' lists taken through distributed shared memory, each block
+//        writing its own winners.  Slots are unique and the ranges in slot
+//        order, so this is the top k of the whole list, ties included.
+//      f32 lists (probe_f32_kernel): the same grid, ranges, selection and
+//      merges (merge_cluster), with the product on the CUDA cores (no
+//      TF32); at one query ~0.5 operations a byte, so bytes bound it:
+//      - a 128-slot tile of f32 rows is 192 KB at d 384, so the ring's 2-8
+//        stages each hold one box of it (128 slots x 32 floats, 16 KB),
+//        kept in flight by the producer warp's lane 0 and released per
+//        stage by the 8 consumer warps, whose partial sums stay in
+//        registers over a tile's boxes;
+//      - box_one_query (box_ring.cuh): every slot's float4 of a box read
+//        once by one lane (an n8 tile of mma.sync would multiply one query
+//        eight times), the query's float4 broadcast from shared memory;
+//      - a lane reads its slots' tags when the tile starts, so no tag
+//        copy waits in the ring.
 //   #7 reads each list of the union once for the whole batch: 2.7 GB at 64
 //      queries over the ivf-4M lists, ~2 operations a byte per query, so even
 //      at 64 queries bytes bound it (int8: ~175 operations a byte, the card
@@ -120,98 +132,18 @@
 
 #include <type_traits>
 
+#include "box_ring.cuh"
 #include "mma_sm90.cuh"
-#include "scan_tile.cuh"
 #include "select.cuh"
 
 namespace cg = cooperative_groups;
+using namespace tr_box;
 using namespace tr_mma;
 using namespace tr_tile;
 
 namespace {
 
 constexpr int kPadTag = INT_MIN;
-constexpr int kOneQ = 16;   // f32 #6 stages its one query as a 16-row tile
-
-struct ProbeSmem { size_t q, x, s, m, l, total; };
-
-// probe_list_kernel's layout: one query staged as a 16-row tile, a k-long list.
-__host__ __device__ inline ProbeSmem probe_smem(int d, int k) {
-  ProbeSmem o;
-  o.q = 0;
-  o.x = o.q + q_bytes(4, d, kOneQ);
-  o.s = o.x + x_bytes(4);
-  o.m = o.s + s_bytes(kOneQ);
-  o.l = o.m + tr_align128(size_t(kSub) * 8);
-  o.total = o.l + size_t(k) * 8;
-  return o;
-}
-
-// Tag mask of the kSub slots [slot0, slot0 + kSub) of a list whose first
-// slot is `base`; slots at or past `cap` are masked.
-__device__ inline void slot_mask(const int* __restrict__ ns, const int* __restrict__ canon,
-                                 size_t base, int slot0, int cap, int want_ns, int want_canon,
-                                 int* okS) {
-  for (int r = threadIdx.x; r < kSub; r += kThreads) {
-    const int slot = slot0 + r;
-    int ok = 0;
-    if (slot < cap) {
-      const int t = ns[base + slot], c = canon[base + slot];
-      ok = t != kPadTag && (want_ns < 0 || t == want_ns) && (want_canon < 0 || c == want_canon);
-    }
-    okS[r] = ok;
-  }
-}
-
-// Masked score of staged slot r for query row qi of the score tile.
-__device__ inline float masked_score(const float* S, const int* okS, int qi, int r) {
-  return okS[r] ? S[qi * kSub + r] : -INFINITY;
-}
-
-// #6 on f32 lists: one block per (query, probe) walks its list kSub slots at
-// a time through the scoring step; warp 0 inserts every slot.
-__global__ void __launch_bounds__(kThreads)
-probe_list_kernel(const float* __restrict__ q, const int* __restrict__ lists,
-                  const float* __restrict__ vec, const int* __restrict__ ns,
-                  const int* __restrict__ canon, int nprobe, int cap, int d, int want_ns,
-                  int want_canon, int k, float* __restrict__ out_sc, int* __restrict__ out_id) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const ProbeSmem lay = probe_smem(d, k);
-  float* Qs = reinterpret_cast<float*>(smem + lay.q);
-  float* Xs = reinterpret_cast<float*>(smem + lay.x);
-  float* S = reinterpret_cast<float*>(smem + lay.s);
-  int* okS = reinterpret_cast<int*>(smem + lay.m);
-  float* Lsc = reinterpret_cast<float*>(smem + lay.l);
-  int* Lid = reinterpret_cast<int*>(Lsc + k);
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int qp = blockIdx.x;            // query * nprobe + probe
-  const size_t base = size_t(lists[qp]) * cap;
-  stage_queries(q + size_t(qp / nprobe) * d, 1, d, kOneQ, Qs);
-  for (int i = tid; i < k; i += kThreads) {
-    Lsc[i] = -INFINITY;
-    Lid[i] = INT_MAX;
-  }
-  for (int slot0 = 0; slot0 < cap; slot0 += kSub) {
-    __syncthreads();  // the previous step's readers are done
-    slot_mask(ns, canon, base, slot0, cap, want_ns, want_canon, okS);
-    score_step(vec + (base + slot0) * d, cap - slot0, d, kOneQ, Qs, Xs, S);
-    __syncthreads();
-    if (warp == 0) {
-#pragma unroll
-      for (int h = 0; h < kSub / 32; ++h) {
-        const int r = h * 32 + lane;
-        warp_insert(Lsc, Lid, k, masked_score(S, okS, 0, r), slot0 + r);
-      }
-    }
-  }
-  __syncthreads();
-  for (int j = tid; j < k; j += kThreads) {
-    const float s = Lsc[j];
-    out_sc[size_t(qp) * k + j] = s;
-    out_id[size_t(qp) * k + j] = s > -INFINITY ? Lid[j] : -1;
-  }
-}
 
 // ---- #7 on bf16 and int8 lists: the pipelined bucket probe
 constexpr int kBucketWarps = 8;
@@ -251,8 +183,6 @@ struct BucketSmem {
   bool qreg;
   size_t q, ring, meta, stage, tab, bar, total;
 };
-
-__host__ __device__ inline size_t align1024(size_t x) { return (x + 1023) & ~size_t(1023); }
 
 __host__ __device__ inline BucketSmem bucket_smem(int elt, int d, int qc, int stages, int rows) {
   BucketSmem o;
@@ -830,7 +760,6 @@ int launch_bucket_qc(int qc, int rows, int m, const BucketArgs& a) {
 }
 
 // ---- #7 on f32 lists: the pipelined bucket probe on the CUDA cores
-constexpr int kF32BoxFloats = 32;  // floats of a row in one 128-byte box
 
 // Shared-memory layout of batched_bucket_kernel (mirrored by
 // ops/ivf_probe.py's _f32_bucket_smem), from a 1024-byte aligned base
@@ -848,8 +777,8 @@ struct F32BucketSmem {
 
 __host__ __device__ inline F32BucketSmem f32_bucket_smem(int d, int qc, int stages) {
   F32BucketSmem o;
-  o.boxes = (d + kF32BoxFloats - 1) / kF32BoxFloats;
-  o.ld = o.boxes * kF32BoxFloats + 4;
+  o.boxes = f32_boxes(d);
+  o.ld = f32_query_ld(d);
   o.ring = align1024(size_t(qc) * o.ld * 4);
   o.meta = size_t(kSub) * 128;  // within a stage
   o.stage = align1024(o.meta + 2 * size_t(kSub) * 4);
@@ -996,41 +925,9 @@ batched_bucket_kernel(const float* __restrict__ q, const int* __restrict__ uniq,
     }
     if (any) {
       // ---- the box's 32 floats of rows [r_lo, r_lo + 16 kMTW) x queries
-      // [qb, qb + 8 kNTW): this thread's rows 16 mi + g + 8 h and queries
-      // 8 j + 2 t + e (mma.sync's accumulator layout, so the selection is
-      // the bf16/int8 kernel's).  Row r's 16-byte chunk c sits at r * 128 +
-      // (c ^ (r & 7)) * 16, and r & 7 = g.
-      const unsigned char* arow = st + (r_lo + g) * 128;
-      const float* qrow = Qs + (qb + 2 * t) * ld + box * kF32BoxFloats;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        float4 a[kMTW][2], bq[kNTW][2];
-#pragma unroll
-        for (int mi = 0; mi < kMTW; ++mi)
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-            a[mi][h] = *reinterpret_cast<const float4*>(arow + (mi * 16 + 8 * h) * 128 +
-                                                        ((c ^ g) << 4));
-#pragma unroll
-        for (int j = 0; j < kNTW; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-            bq[j][e] = *reinterpret_cast<const float4*>(qrow + (8 * j + e) * ld + 4 * c);
-#pragma unroll
-        for (int mi = 0; mi < kMTW; ++mi)
-#pragma unroll
-          for (int j = 0; j < kNTW; ++j)
-#pragma unroll
-            for (int h = 0; h < 2; ++h)
-#pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                float& s = acc[mi][j][2 * h + e];
-                s = fmaf(a[mi][h].x, bq[j][e].x, s);
-                s = fmaf(a[mi][h].y, bq[j][e].y, s);
-                s = fmaf(a[mi][h].z, bq[j][e].z, s);
-                s = fmaf(a[mi][h].w, bq[j][e].w, s);
-              }
-      }
+      // [qb, qb + 8 kNTW) in mma.sync's accumulator layout (box_ring.cuh),
+      // so the selection is the bf16/int8 kernel's
+      box_tile<kMTW, kNTW>(acc, st, r_lo, Qs + (qb + 2 * t) * ld + box * kBoxFloats, ld, g);
     }
     if (box != boxes - 1) continue;
     // ---- the bucket's last box: selection into the table
@@ -1135,6 +1032,78 @@ __host__ __device__ inline ListSmem list_smem(int elt, int d, int k, int stages,
   o.bar = o.pub + 64;
   o.total = 1024 + o.bar + 2 * size_t(kMaxStages) * 8;
   return o;
+}
+
+// The list's top k from the `nlists` sorted warp lists of each block of
+// its cluster (wls: [warp][2 k], scores then slots), written to
+// out_sc/out_id at o: each entry of a warp's list goes to its place among
+// all the block's entries (its index plus the entries of the other lists
+// that are better, by binary search; slots are unique, so the places of the
+// real entries are distinct); after a cluster barrier each block copies
+// its peers' lists through distributed shared memory into its ring (free
+// once the walk is done: `scratch`, at least split * k * 8 bytes) in one
+// pass of independent loads, and places its own entries among them the
+// same way, writing its own winners; the ranges are in slot order, so ties
+// across them resolve as in one list.  (A binary search straight over a
+// peer's list is a chain of dependent remote loads: at split 8 each entry
+// waited on ~50 of them.)  Every thread of the block calls it.
+__device__ inline void merge_cluster(int split, int nlists, const float* wls, float* cta_s,
+                                     int* cta_r, int k, unsigned char* scratch, size_t o,
+                                     float* __restrict__ out_sc, int* __restrict__ out_id) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = int(cluster.block_rank());
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  __syncthreads();
+  for (int i = tid; i < k; i += nthreads) {
+    cta_s[i] = -INFINITY;
+    cta_r[i] = INT_MAX;
+  }
+  __syncthreads();
+  for (int e = tid; e < nlists * k; e += nthreads) {
+    const int w = e / k, i = e % k;
+    const float* wl = wls + size_t(w) * 2 * k;
+    const float s = wl[i];
+    if (!(s > -INFINITY)) continue;
+    const int r = reinterpret_cast<const int*>(wl + k)[i];
+    int pos = i;
+    for (int w2 = 0; w2 < nlists && pos < k; ++w2) {
+      const float* ol = wls + size_t(w2) * 2 * k;
+      if (w2 != w) pos += count_better(ol, reinterpret_cast<const int*>(ol + k), k, s, r);
+    }
+    if (pos < k) {
+      cta_s[pos] = s;
+      cta_r[pos] = r;
+    }
+  }
+  cluster.sync();  // every block's list is complete and visible
+  float* peer_s = reinterpret_cast<float*>(scratch);  // [split][k] scores, then slots
+  int* peer_r = reinterpret_cast<int*>(peer_s + split * k);
+  for (int i = tid; i < split * k; i += nthreads) {
+    peer_s[i] = cluster.map_shared_rank(cta_s, i / k)[i % k];
+    peer_r[i] = cluster.map_shared_rank(cta_r, i / k)[i % k];
+  }
+  cluster.sync();  // the copies are whole, and no peer reads this block's list again
+  for (int i = tid; i < k; i += nthreads) {
+    const float s = cta_s[i];
+    if (!(s > -INFINITY)) break;
+    const int r = cta_r[i];
+    int pos = i;
+    for (int p = 0; p < split && pos < k; ++p)
+      if (p != rank) pos += count_better(peer_s + p * k, peer_r + p * k, k, s, r);
+    if (pos < k) {
+      out_sc[o + pos] = s;
+      out_id[o + pos] = r;
+    }
+  }
+  if (rank == 0) {  // places past the cluster's real entries: -inf / -1
+    int real = 0;
+    for (int p = 0; p < split; ++p)
+      real += count_better(peer_s + p * k, peer_r + p * k, k, -INFINITY, INT_MAX);
+    for (int i = min(real, k) + tid; i < k; i += nthreads) {
+      out_sc[o + i] = -INFINITY;
+      out_id[o + i] = -1;
+    }
+  }
 }
 
 // Grid: `split` blocks for each (query, probe) list, a cluster of `split`,
@@ -1296,63 +1265,7 @@ probe_split_kernel(const T* __restrict__ q, const int* __restrict__ lists,
     }
   }
 
-  // the block's top k: each entry of a warp's list goes to its place among
-  // all the warps' entries (its index plus the entries of the other lists
-  // that are better, by binary search); slots are unique, so the places of
-  // the real entries are distinct
-  __syncthreads();
-  for (int i = tid; i < k; i += kListThreads) {
-    cta_s[i] = -INFINITY;
-    cta_r[i] = INT_MAX;
-  }
-  __syncthreads();
-  for (int e = tid; e < kMmaWarps * k; e += kListThreads) {
-    const int w = e / k, i = e % k;
-    const float* wl = wls + size_t(w) * 2 * k;
-    const float s = wl[i];
-    if (!(s > -INFINITY)) continue;
-    const int r = reinterpret_cast<const int*>(wl + k)[i];
-    int pos = i;
-    for (int w2 = 0; w2 < kMmaWarps && pos < k; ++w2) {
-      const float* ol = wls + size_t(w2) * 2 * k;
-      if (w2 != w) pos += count_better(ol, reinterpret_cast<const int*>(ol + k), k, s, r);
-    }
-    if (pos < k) {
-      cta_s[pos] = s;
-      cta_r[pos] = r;
-    }
-  }
-
-  // the list's top k over the cluster: the same placement through
-  // distributed shared memory, each block writing its own winners; the
-  // ranges are in slot order, so ties across them resolve as in one list
-  cluster.sync();  // every block's list is complete and visible
-  const size_t o = size_t(qp) * k;
-  for (int i = tid; i < k; i += kListThreads) {
-    const float s = cta_s[i];
-    if (!(s > -INFINITY)) break;
-    const int r = cta_r[i];
-    int pos = i;
-    for (int p = 0; p < split && pos < k; ++p)
-      if (p != rank)
-        pos += count_better(cluster.map_shared_rank(cta_s, p), cluster.map_shared_rank(cta_r, p),
-                            k, s, r);
-    if (pos < k) {
-      out_sc[o + pos] = s;
-      out_id[o + pos] = r;
-    }
-  }
-  if (rank == 0) {  // places past the cluster's real entries: -inf / -1
-    int real = 0;
-    for (int p = 0; p < split; ++p)
-      real += count_better(cluster.map_shared_rank(cta_s, p), cluster.map_shared_rank(cta_r, p),
-                           k, -INFINITY, INT_MAX);
-    for (int i = min(real, k) + tid; i < k; i += kListThreads) {
-      out_sc[o + i] = -INFINITY;
-      out_id[o + i] = -1;
-    }
-  }
-  cluster.sync();  // no block leaves while a peer reads its list
+  merge_cluster(split, kMmaWarps, wls, cta_s, cta_r, k, smem, size_t(qp) * k, out_sc, out_id);
 }
 
 struct ListArgs {
@@ -1363,11 +1276,9 @@ struct ListArgs {
   cudaStream_t stream;
 };
 
-// A cluster launch (cudaLaunchKernelEx): a refused one returns its error.
-template <typename T, int R>
-int launch_split(const ListArgs& a) {
-  const size_t smem = list_smem(sizeof(T), a.d, a.k, a.stages, R).total;
-  auto kern = probe_split_kernel<T, R>;
+// A cluster launch (cudaLaunchKernelEx) of `kern` over a.blocks blocks in
+// clusters of a.split: a refused one returns its error.
+int launch_cluster(const void* kern, size_t smem, const ListArgs& a, void** args) {
   if (int e = int(cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        int(smem))))
     return e;
@@ -1383,6 +1294,12 @@ int launch_split(const ListArgs& a) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
+  if (int e = int(cudaLaunchKernelExC(&cfg, kern, args))) return e;
+  return int(cudaGetLastError());
+}
+
+template <typename T, int R>
+int launch_split(const ListArgs& a) {
   const T* q = static_cast<const T*>(a.q);
   const int* lists = static_cast<const int*>(a.lists);
   const float* scale = static_cast<const float*>(a.scale);
@@ -1395,58 +1312,186 @@ int launch_split(const ListArgs& a) {
   int* out_id = static_cast<int*>(a.out_id);
   void* args[] = {&q, &lists, &scale, &ns, &canon, &map, &nprobe, &cap, &d, &want_ns,
                   &want_canon, &k, &stages, &split, &out_sc, &out_id};
-  if (int e = int(cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kern), args))) return e;
-  return int(cudaGetLastError());
+  return launch_cluster(reinterpret_cast<const void*>(probe_split_kernel<T, R>),
+                        list_smem(sizeof(T), a.d, a.k, a.stages, R).total, a, args);
+}
+
+// ---- #6 on f32 lists: the split list probe on the CUDA cores
+
+// Shared-memory layout of probe_f32_kernel (mirrored by ops/ivf_probe.py's
+// _f32_list_smem), from a 1024-byte aligned base (1024 bytes of slack):
+// `stages` one-box stages (128 slots x 32 floats, the tensor map's
+// swizzle); the query (d floats rounded up to whole boxes); the 8 warps'
+// sorted lists; the block's merged list; the warps' bit maps of
+// warp_merge; the warps' published scores; two mbarriers per possible
+// stage (its box landed; its consumers are done with it).
+struct F32ListSmem { size_t q, lists, cta, bmap, pub, bar, total; };
+
+__host__ __device__ inline F32ListSmem f32_list_smem(int d, int k, int stages) {
+  F32ListSmem o;
+  o.q = size_t(stages) * kBoxBytes;
+  o.lists = o.q + tr_align128(size_t(f32_boxes(d)) * 128);
+  o.cta = o.lists + tr_align128(size_t(kListWarps) * k * 8);
+  o.bmap = o.cta + tr_align128(size_t(k) * 8);
+  o.pub = o.bmap + size_t(kListWarps) * kListMapWords * 4;
+  o.bar = o.pub + 64;
+  o.total = 1024 + o.bar + 2 * size_t(kMaxStages) * 8;
+  return o;
+}
+
+// probe_split_kernel's grid, ranges, selection and merges on f32 lists: a
+// block's 128-slot tiles are ceil(d / 32) boxes each, which the producer
+// warp's lane 0 keeps `stages` deep in the ring; consumer warp w sums
+// slots [16 w, 16 w + 16) of each tile against the query (box_one_query,
+// partial sums in registers over the tile's boxes), releasing each stage
+// once it has read it, and after the tile's last box selects as
+// probe_split_kernel's warps do.  A lane reads its slots' tags when the
+// tile starts (slots past cap are masked).
+__global__ void __launch_bounds__(kListThreads)
+probe_f32_kernel(const float* __restrict__ q, const int* __restrict__ lists,
+                 const int* __restrict__ ns, const int* __restrict__ canon,
+                 const __grid_constant__ CUtensorMap rows_map, int nprobe, int cap, int d,
+                 int want_ns, int want_canon, int k, int stages, int split,
+                 float* __restrict__ out_sc, int* __restrict__ out_id) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);  // swizzle unit
+  const F32ListSmem lay = f32_list_smem(d, k, stages);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = int(cluster.block_rank());
+  float* Qs = reinterpret_cast<float*>(smem + lay.q);
+  float* wls = reinterpret_cast<float*>(smem + lay.lists);  // [warp][2 k]: scores, slots
+  float* cta_s = reinterpret_cast<float*>(smem + lay.cta);
+  int* cta_r = reinterpret_cast<int*>(cta_s + k);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.bar);  // a stage's box landed
+  uint64_t* empty = full + kMaxStages;                            // its consumers are done
+  volatile float* pub = reinterpret_cast<volatile float*>(smem + lay.pub);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int qp = blockIdx.x / split;                  // query * nprobe + probe
+  const int boxes = f32_boxes(d);
+  const int nb = (cap + kSub - 1) / kSub;
+  const int s_begin = kSub * (nb * rank / split);
+  const int s_end = min(cap, kSub * (nb * (rank + 1) / split));
+  const int ntiles = (s_end - s_begin + kSub - 1) / kSub;
+  const long long base = (long long)__ldg(lists + qp) * cap;  // the list's first row
+
+  // the query (zero past d), empty lists, clear bit maps, the barriers
+  for (int c = tid * 4; c < boxes * kBoxFloats; c += kListThreads * 4) {
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (c < d) v = *reinterpret_cast<const float4*>(q + size_t(qp / nprobe) * d + c);
+    *reinterpret_cast<float4*>(Qs + c) = v;
+  }
+  for (int i = tid; i < kListWarps * k; i += kListThreads) {
+    float* l = wls + size_t(i / k) * 2 * k;
+    l[i % k] = -INFINITY;
+    reinterpret_cast<int*>(l + k)[i % k] = INT_MAX;
+  }
+  for (int i = tid; i < kListWarps * kListMapWords; i += kListThreads)
+    reinterpret_cast<unsigned*>(smem + lay.bmap)[i] = 0u;
+  if (tid < kListWarps) pub[tid] = -INFINITY;
+  // the producer (warp kListWarps, lane 0): box `it` of the walk -> stage
+  // it % stages once its consumers released it (a box past the list's tail
+  // reads the next list's rows, masked below as slot >= cap; past the last
+  // list zeros).  It sets up the barriers and issues the ring's first fill
+  // before the block's barrier, so the loads start while the block stages
+  // the query.
+  const int nsteps = ntiles * boxes;
+  const bool producer = warp == kListWarps && lane == 0;
+  auto fill = [&](int it) {
+    const int stg = it % stages;
+    mbar_arrive_expect_tx(full + stg, kBoxBytes);
+    fence_proxy_async();  // after the consumers' reads of the stage
+    tensor_g2s_2d(smem + size_t(stg) * kBoxBytes, &rows_map, (it % boxes) * 128,
+                  int(base + s_begin + (it / boxes) * kSub), full + stg);
+  };
+  if (producer) {
+    prefetch_tensormap(&rows_map);
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kListWarps);
+    }
+    mbar_fence_init();
+    for (int it = 0; it < min(stages, nsteps); ++it) fill(it);
+  }
+  __syncthreads();
+
+  if (warp == kListWarps) {
+    if (producer) {
+      for (int it = stages; it < nsteps; ++it) {
+        mbar_wait(empty + it % stages, (it / stages - 1) & 1);
+        fill(it);
+      }
+    }
+  } else {
+    // consumer warp w: slots 16 w + g + 8 h of each tile; after a tile's
+    // last box every lane t of a g holds both sums, and lanes t = 0 and 1
+    // take one each.  probe_split_kernel's selection: a candidate must
+    // beat the warp list's k-th entry and the least of the warps'
+    // published kq-th scores (kq = ceil(k / warps)), a lower bound of the
+    // block's k-th
+    float* Ls = wls + size_t(warp) * 2 * k;             // this warp's list
+    int* Li = reinterpret_cast<int*>(Ls + k);
+    unsigned* bm = reinterpret_cast<unsigned*>(smem + lay.bmap) + warp * kListMapWords;
+    const int kq = (k + kListWarps - 1) / kListWarps;
+    const int lr = warp * 16 + g + ((t & 1) << 3);      // this lane's slot of a tile
+    int it = 0;
+    for (int tile = 0; tile < ntiles; ++tile) {
+      const int slot = s_begin + tile * kSub + lr;
+      bool ok = t < 2 && slot < cap;
+      int tg = kPadTag, cn = 0;
+      if (ok) {
+        tg = __ldg(ns + base + slot);
+        cn = __ldg(canon + base + slot);
+      }
+      float acc[2] = {0.f, 0.f};
+      for (int box = 0; box < boxes; ++box, ++it) {
+        const int stg = it % stages;
+        mbar_wait(full + stg, (it / stages) & 1);
+        box_one_query(acc, smem + size_t(stg) * kBoxBytes, warp * 16, Qs + box * kBoxFloats, g, t);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + stg);
+      }
+      const float s0 = sum_quarters(acc[0]), s1 = sum_quarters(acc[1]);
+      ok = ok && tg != kPadTag && (want_ns < 0 || tg == want_ns) &&
+           (want_canon < 0 || cn == want_canon);
+      float s = !ok ? -INFINITY : (t & 1) ? s1 : s0;
+      float T = pub[0];
+#pragma unroll
+      for (int w = 1; w < kListWarps; ++w) T = fminf(T, pub[w]);
+      if (s < T) s = -INFINITY;
+      warp_merge(Ls, Li, k, s, slot, bm);
+      if (lane == 0) pub[warp] = Ls[kq - 1];
+    }
+  }
+  merge_cluster(split, kListWarps, wls, cta_s, cta_r, k, smem, size_t(qp) * k, out_sc, out_id);
+}
+
+int launch_f32_list(const ListArgs& a) {
+  const float* q = static_cast<const float*>(a.q);
+  const int* lists = static_cast<const int*>(a.lists);
+  const int* ns = static_cast<const int*>(a.ns);
+  const int* canon = static_cast<const int*>(a.canon);
+  CUtensorMap map = a.rows_map;
+  int nprobe = a.nprobe, cap = a.cap, d = a.d, want_ns = a.want_ns, want_canon = a.want_canon;
+  int k = a.k, stages = a.stages, split = a.split;
+  float* out_sc = static_cast<float*>(a.out_sc);
+  int* out_id = static_cast<int*>(a.out_id);
+  void* args[] = {&q, &lists, &ns, &canon, &map, &nprobe, &cap, &d, &want_ns, &want_canon,
+                  &k, &stages, &split, &out_sc, &out_id};
+  return launch_cluster(reinterpret_cast<const void*>(probe_f32_kernel),
+                        f32_list_smem(a.d, a.k, a.stages).total, a, args);
 }
 
 int elt_of(int dtype) { return dtype == TR_F32 ? 4 : dtype == TR_BF16 ? 2 : 1; }
 
-template <typename K>
-int launch_prep(K kern, size_t smem) {
-  return int(cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem)));
-}
-
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
-
-// The driver's cuTensorMapEncodeTiled, from the libcuda the process has
-// loaded (the runtime API has no tensor maps; linking libcuda would tie the
-// library to a driver stub).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_LOCAL);
-    return lib ? reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
-  }();
-  return fn;
-}
-
-// The lists' rows as a 2-D tensor of bytes (row_bytes x rows), read in boxes
-// of 128 bytes x box_rows with the 128-byte swizzle; columns past row_bytes
-// read as zero.
-bool rows_tensor_map(CUtensorMap* map, const void* base, long long rows, int row_bytes,
-                     int box_rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {cuuint64_t(row_bytes), cuuint64_t(rows)};
-  const cuuint64_t strides[1] = {cuuint64_t(row_bytes)};
-  const cuuint32_t box[2] = {128, cuuint32_t(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 }  // namespace
 
-// Shared-memory bytes of one block: kind 0, #6 (a k-long list): f32 lists
-// probe_list_kernel, bf16/int8 lists probe_split_kernel with `stages` ring
-// stages of `rows` rows; kind 1, #7 (qc queries, `stages` ring stages):
-// f32 lists batched_bucket_kernel, bf16/int8 lists pipe_bucket_kernel with
-// stages of bucket_rows rows.
+// Shared-memory bytes of one block: kind 0, #6 (a k-long list, `stages`
+// ring stages): f32 lists probe_f32_kernel, bf16/int8 lists
+// probe_split_kernel with stages of `rows` rows; kind 1, #7 (qc queries,
+// `stages` ring stages): f32 lists batched_bucket_kernel, bf16/int8 lists
+// pipe_bucket_kernel with stages of bucket_rows rows.
 extern "C" size_t tr_probe_smem_bytes(int kind, int dtype, int d, int qc, int k, int stages,
                                       int rows) {
   if (dtype != TR_F32) {
@@ -1454,52 +1499,49 @@ extern "C" size_t tr_probe_smem_bytes(int kind, int dtype, int d, int qc, int k,
     return kind == 0 ? list_smem(elt, d, k, stages, rows).total
                      : bucket_smem(elt, d, qc, stages, bucket_rows(elt, d, qc)).total;
   }
-  return kind == 0 ? probe_smem(d, k).total : f32_bucket_smem(d, qc, stages).total;
+  return kind == 0 ? f32_list_smem(d, k, stages).total : f32_bucket_smem(d, qc, stages).total;
 }
 
 // #6: q (nq, d) and vec (nlist, cap, d) share `dtype`; lists (nq * nprobe)
 // int32; scale (nlist, cap) f32 is read for int8 only; ns/canon (nlist, cap)
 // int32.  Out (nq * nprobe, k): each list's top k, sorted, slot -1 for -inf.
-//   bf16/int8 (probe_split_kernel): each list split over `split` (1-8)
-//     blocks, a cluster, of `stages` (2-8) ring stages of `rows` (64 or 128)
-//     rows; cap % 4 == 0 and split <= ceil(cap / 128); q, vec, ns, canon
-//     (and scale for int8) 16-byte aligned (bulk copies).
-//   f32 (probe_list_kernel): one block per list; split, rows, stages ignored.
+// Each list is split over `split` (1-8) blocks, a cluster, with `stages`
+// (2-8) ring stages; cap % 4 == 0 and split <= ceil(cap / 128); q and vec
+// 16-byte aligned (TMA).
+//   bf16/int8 (probe_split_kernel): stages of `rows` (64 or 128) rows; ns,
+//     canon (and scale for int8) 16-byte aligned (bulk copies).
+//   f32 (probe_f32_kernel): one-box stages (128 slots x 32 floats); `rows`
+//     is 128.
 extern "C" int tr_probe_list(const void* q, const void* lists, const void* vec,
                              const void* scale, const void* ns, const void* canon, int nlist,
                              int nq, int nprobe, int cap, int d, int want_ns, int want_canon,
                              int k, int dtype, int split, int rows, int stages, void* out_sc,
                              void* out_id, void* stream) {
+  const int nb = (cap + kSub - 1) / kSub;
   if (nlist <= 0 || nq <= 0 || nprobe <= 0 || cap <= 0 || d <= 0 || d % 16 != 0 || k <= 0 ||
-      k > kMaxK || k > cap)
+      k > kMaxK || k > cap || cap % 4 != 0 || split < 1 || split > kMaxSplit || split > nb ||
+      stages < 2 || stages > kMaxStages || (long long)nq * nprobe * split > INT_MAX ||
+      !aligned16(q) || !aligned16(vec))
     return int(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == TR_BF16 || dtype == TR_I8) {
-    const int elt = elt_of(dtype), nb = (cap + kSub - 1) / kSub;
-    if (cap % 4 != 0 || split < 1 || split > kMaxSplit || split > nb ||
-        (rows != 64 && rows != 128) || stages < 2 || stages > kMaxStages ||
-        (d * elt + 127) / 128 + 3 > 32 ||      // the producer warp's lanes issue the copies
-        (long long)nq * nprobe * split > INT_MAX || !aligned16(q) || !aligned16(vec) ||
-        !aligned16(ns) || !aligned16(canon) || (dtype == TR_I8 && !aligned16(scale)) ||
-        list_smem(elt, d, k, stages, rows).total > kSmemMax)
+  ListArgs a{q, lists, scale, ns, canon, {}, nprobe, cap, d, want_ns, want_canon, k,
+             stages, split, nq * nprobe * split, out_sc, out_id, s};
+  if (dtype == TR_F32) {
+    if (rows != kBoxRows || f32_list_smem(d, k, stages).total > kSmemMax ||
+        !rows_tensor_map(&a.rows_map, vec, (long long)nlist * cap, d * 4, kBoxRows))
       return int(cudaErrorInvalidValue);
-    ListArgs a{q, lists, scale, ns, canon, {}, nprobe, cap, d, want_ns, want_canon, k,
-               stages, split, nq * nprobe * split, out_sc, out_id, s};
-    if (!rows_tensor_map(&a.rows_map, vec, (long long)nlist * cap, d * elt, rows))
-      return int(cudaErrorInvalidValue);
-    if (dtype == TR_BF16)
-      return rows == 128 ? launch_split<__nv_bfloat16, 128>(a) : launch_split<__nv_bfloat16, 64>(a);
-    return rows == 128 ? launch_split<int8_t, 128>(a) : launch_split<int8_t, 64>(a);
+    return launch_f32_list(a);
   }
-  if (dtype != TR_F32) return int(cudaErrorInvalidValue);
-  const size_t smem = probe_smem(d, k).total;
-  if (int e = launch_prep(probe_list_kernel, smem)) return e;
-  probe_list_kernel<<<nq * nprobe, kThreads, smem, s>>>(
-      static_cast<const float*>(q), static_cast<const int*>(lists),
-      static_cast<const float*>(vec), static_cast<const int*>(ns),
-      static_cast<const int*>(canon), nprobe, cap, d, want_ns, want_canon, k,
-      static_cast<float*>(out_sc), static_cast<int*>(out_id));
-  return int(cudaGetLastError());
+  const int elt = elt_of(dtype);
+  if ((dtype != TR_BF16 && dtype != TR_I8) || (rows != 64 && rows != 128) ||
+      (d * elt + 127) / 128 + 3 > 32 ||      // the producer warp's lanes issue the copies
+      !aligned16(ns) || !aligned16(canon) || (dtype == TR_I8 && !aligned16(scale)) ||
+      list_smem(elt, d, k, stages, rows).total > kSmemMax ||
+      !rows_tensor_map(&a.rows_map, vec, (long long)nlist * cap, d * elt, rows))
+    return int(cudaErrorInvalidValue);
+  if (dtype == TR_BF16)
+    return rows == 128 ? launch_split<__nv_bfloat16, 128>(a) : launch_split<__nv_bfloat16, 64>(a);
+  return rows == 128 ? launch_split<int8_t, 128>(a) : launch_split<int8_t, 64>(a);
 }
 
 // #7: q (nq, d) and vec (nlist, cap, d) share `dtype`; uniq (u_max) int32

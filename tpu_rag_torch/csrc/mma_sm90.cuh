@@ -118,6 +118,12 @@ __device__ inline void tensor_g2s_2d(void* s, const void* map, int c0, int c1, u
       : "memory");
 }
 
+// Brings a tensor map (the address of a __grid_constant__ CUtensorMap
+// parameter) into the TMA unit's descriptor cache ahead of its first copy.
+__device__ inline void prefetch_tensormap(const void* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
 // A bulk copy (TMA, no tensor map) of `bytes` (a multiple of 16, both
 // addresses 16-byte aligned) global -> shared, completing on `bar`.
 __device__ inline void bulk_g2s(void* s, const void* g, uint32_t bytes, uint64_t* bar) {

@@ -1,6 +1,7 @@
 // Sorted top-k lists in shared memory, shared by the exact and packed scans
-// (pipe_scan_kernel, topk.cu: #1 #2) and the split per-list IVF probe
-// (probe_split_kernel, ivf_probe.cu: #6).
+// (pipe_scan_kernel and f32_scan_kernel, topk.cu: #1 #2) and the split
+// per-list IVF probes (probe_split_kernel and probe_f32_kernel,
+// ivf_probe.cu: #6).
 //
 // A list holds k entries (score, row) in the order (score desc, row asc);
 // empty entries are (-inf, INT_MAX) and sort last.  Rows are unique, so the
@@ -11,9 +12,15 @@
 #include <limits.h>
 #include <math.h>
 
-#include "scan_tile.cuh"
+#include "common.cuh"
 
 namespace tr_tile {
+
+constexpr int kSub = 128;        // rows of a bucket (#3, #7) and of a scan's row tile
+constexpr int kMaxQc = 64;       // queries one scan block takes at once
+constexpr int kMaxK = 128;       // longest per-list (#6) selection
+constexpr int kMaxDeepK = 1024;  // longest list warp_merge keeps (#1, #2)
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ inline bool better(float s, int r, float s2, int r2) {
   return s > s2 || (s == s2 && r < r2);
@@ -29,7 +36,7 @@ __device__ inline bool better(float s, int r, float s2, int r2) {
 // the map): an entry only ever moves up, so with the chunks of 32 taken
 // from the top no entry is overwritten before it is read.  Whatever lands
 // at k or beyond drops out: the list that inserting the candidates one at a
-// time (warp_insert) gives.
+// time gives.
 __device__ inline void warp_merge(float* Ls, int* Li, int k, float s, int row, unsigned* bm) {
   const int lane = threadIdx.x & 31;
   const bool real = s > -INFINITY && better(s, row, Ls[k - 1], Li[k - 1]);

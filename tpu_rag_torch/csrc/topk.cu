@@ -49,15 +49,31 @@
 //     memory (and its row to its query's bit mask), and only when some
 //     thread found one do the list owners (warp w keeps queries w, w + 8,
 //     ...) merge a mask word's candidates into the list at once
-//     (warp_merge, select.cuh: one pass over the list, where warp_insert
-//     takes one shift per candidate);
+//     (warp_merge, select.cuh: one pass over the list, where inserting
+//     one candidate at a time takes one shift each);
 //   - bucketed: each warp reduces its 16 rows per query with shuffles, and
 //     one thread per query folds the row tiles of a stage, in row order,
 //     and closes a 128-row bucket at its last row.
-// f32 databases keep the first version (scan_kernel): one block holds up
-// to 64 queries and walks its rows 128 at a time, staged 128 bytes deep,
-// CUDA-core FMAs (no TF32), the same selections.  The sorted insertion
-// lives in scan_tile.cuh, shared with the IVF probe kernels (ivf_probe.cu).
+// f32 (f32_scan_kernel): 1.5 GB at 1M x 384, and at 64 queries 49 GFLOP
+// on the CUDA cores (the reference is f32: no TF32), 0.73 ms at the 67
+// TFLOP/s f32 peak against 0.46 ms of bytes, so operations bound it from
+// ~40 queries and bytes below:
+//   - the same persistent grid of contiguous 128-aligned row ranges, one
+//     block per SM for each query chunk (1, 8, 16, 32 or 64 queries: a
+//     single query is not padded to 16), the chunks one wave after another;
+//   - a TMA ring of 2-8 one-box stages (128 rows x 32 floats, 16 KB; a
+//     whole f32 row tile is 192 KB at d 384) kept in flight by a producer
+//     warp, released per stage by the 8 consumer warps on `empty`
+//     mbarriers; a tile's rows' tags are read by the threads that own the
+//     rows when the tile starts and used at its last box;
+//   - the product in registers over a tile's boxes (box_ring.cuh): one
+//     query as box_one_query (each row float4 read by one lane), 8-64 as
+//     box_tile micro-tiles in mma.sync's accumulator layout (a thread 4
+//     rows x 8 queries at 64);
+//   - pipe_scan_kernel's selection from those registers: thresholds,
+//     candidates, warp_merge by the list owners, and the bucketed fold of
+//     a tile (one bucket) per query.  The consumers' named barrier at a
+//     tile's selection is the only one of the walk.
 //
 // Output: exact/packed -> (nq, n_blocks, k) candidates, sorted within a block's
 // range, with id -1 for -inf slots (the caller merges them with a stable sort);
@@ -68,8 +84,8 @@
 
 #include <type_traits>
 
+#include "box_ring.cuh"
 #include "mma_sm90.cuh"
-#include "scan_tile.cuh"
 #include "select.cuh"
 
 using namespace tr_mma;
@@ -79,173 +95,13 @@ namespace {
 
 constexpr int kPadTag = INT_MIN;
 
-struct ScanSmem { size_t q, x, s, m, l, total; };
-
-__host__ __device__ inline ScanSmem scan_smem(int elt, int d, int qc, int k, bool exact) {
-  ScanSmem o;
-  o.q = 0;
-  o.x = o.q + q_bytes(elt, d, qc);
-  o.s = o.x + x_bytes(elt);
-  o.m = o.s + s_bytes(qc);
-  o.l = o.m + tr_align128(size_t(kSub) * 8);
-  o.total = o.l + (exact ? size_t(qc) * k * 8 : 0);
-  return o;
-}
-
-// selection of scan_kernel
+// selection of the scan kernels
 enum ScanMode { kBucketed = 0, kExact = 1, kPacked = 2 };
 
 // #2's rounding: the top 18 bits of the f32 pattern.  The TPU kernel's
 // sortable-key round trip with its low-bit fill gives exactly this value
 // (-inf stays -inf), and the rounded values order as the keys do.
 __device__ inline float round18(float s) { return __int_as_float(__float_as_int(s) & ~0x3FFF); }
-
-template <typename T, int kMode>
-__global__ void __launch_bounds__(kThreads)
-scan_kernel(const T* __restrict__ q, const T* __restrict__ x,
-            const float* __restrict__ scale, const int* __restrict__ ns,
-            const int* __restrict__ canon, const float* __restrict__ qscale,
-            int n, int d, int nq, int want_ns, int want_canon, int tile_rows,
-            int qc, int k, float* __restrict__ out_sc, int* __restrict__ out_id) {
-  constexpr bool kInt8 = std::is_same<T, int8_t>::value;
-  constexpr bool kList = kMode != kBucketed;  // a sorted list of k per query
-  constexpr int kElt = sizeof(T);
-  extern __shared__ __align__(128) unsigned char smem[];
-  const ScanSmem lay = scan_smem(kElt, d, qc, k, kList);
-  T* Qs = reinterpret_cast<T*>(smem + lay.q);
-  T* Xs = reinterpret_cast<T*>(smem + lay.x);
-  float* Sf = reinterpret_cast<float*>(smem + lay.s);  // int8: raw s32 sums
-  int* okS = reinterpret_cast<int*>(smem + lay.m);
-  float* rsS = reinterpret_cast<float*>(smem + lay.m) + kSub;
-  float* Lsc = reinterpret_cast<float*>(smem + lay.l);
-  int* Lid = reinterpret_cast<int*>(Lsc + qc * k);
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int q0 = blockIdx.y * qc;
-  const int nql = min(qc, nq - q0);
-  const int row_begin = blockIdx.x * tile_rows;
-  const int row_end = min(n, row_begin + tile_rows);
-
-  stage_queries(q + size_t(q0) * d, nql, d, qc, Qs);
-  if constexpr (kList) {
-    for (int i = tid; i < qc * k; i += kThreads) {
-      Lsc[i] = -INFINITY;
-      Lid[i] = INT_MAX;
-    }
-  }
-
-  for (int row0 = row_begin; row0 < row_end; row0 += kSub) {
-    __syncthreads();  // the previous step's readers are done
-    for (int r = tid; r < kSub; r += kThreads) {
-      const int row = row0 + r;
-      int ok = 0;
-      float rs = 0.f;
-      if (row < n) {
-        const int t = ns[row], c = canon[row];
-        ok = t != kPadTag && (want_ns < 0 || t == want_ns) &&
-             (want_canon < 0 || c == want_canon);
-        if constexpr (kInt8) rs = scale[row];
-      }
-      okS[r] = ok;
-      rsS[r] = rs;
-    }
-
-    // ---- scores of this step: Sf[qi][r], qc x kSub
-    score_step(x + size_t(row0) * d, n - row0, d, qc, Qs, Xs, Sf);
-    __syncthreads();
-
-    // ---- selection
-    for (int qi = warp; qi < nql; qi += kWarps) {
-      float qs = 1.f;
-      if constexpr (kInt8 && kList) qs = qscale[q0 + qi];
-      auto score = [&](int r) -> float {
-        if (!okS[r]) return -INFINITY;
-        if constexpr (kInt8) {
-          const float a = float(reinterpret_cast<const int*>(Sf)[qi * kSub + r]);
-          // exact/packed: (acc * query scale) * row scale, in the reference's
-          // order; bucketed: the caller applies the query scale after selection
-          return kList ? (a * qs) * rsS[r] : a * rsS[r];
-        } else {
-          return Sf[qi * kSub + r];
-        }
-      };
-      if constexpr (kList) {
-        float* Ls = Lsc + qi * k;
-        int* Li = Lid + qi * k;
-        if (k <= kMaxK) {  // warp-uniform
-#pragma unroll
-          for (int h = 0; h < kSub / 32; ++h) {
-            const int r = h * 32 + lane, row = row0 + r;
-            const float s = score(r);
-            warp_insert(Ls, Li, k, kMode == kPacked ? round18(s) : s, row);
-          }
-        } else {
-          for (int h = 0; h < kSub / 32; ++h) {
-            const int r = h * 32 + lane, row = row0 + r;
-            const float s = score(r);
-            warp_insert_deep(Ls, Li, k, kMode == kPacked ? round18(s) : s, row);
-          }
-        }
-      } else {
-        float best = -INFINITY;
-        int brow = INT_MAX;
-#pragma unroll
-        for (int h = 0; h < kSub / 32; ++h) {
-          const int r = h * 32 + lane, row = row0 + r;
-          const float s = score(r);
-          if (s > best || (s == best && row < brow)) {
-            best = s;
-            brow = row;
-          }
-        }
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-          const float os = __shfl_down_sync(kFull, best, off);
-          const int orow = __shfl_down_sync(kFull, brow, off);
-          if (os > best || (os == best && orow < brow)) {
-            best = os;
-            brow = orow;
-          }
-        }
-        if (lane == 0) {
-          const size_t nb = (size_t(n) + kSub - 1) / kSub;
-          const size_t o = size_t(q0 + qi) * nb + row0 / kSub;
-          out_sc[o] = best;
-          out_id[o] = brow;
-        }
-      }
-    }
-  }
-
-  if constexpr (kList) {
-    __syncthreads();
-    for (int i = tid; i < nql * k; i += kThreads) {
-      const int qi = i / k, j = i % k;
-      const float s = Lsc[qi * k + j];
-      const size_t o = (size_t(q0 + qi) * gridDim.x + blockIdx.x) * k + j;
-      out_sc[o] = s;
-      out_id[o] = s > -INFINITY ? Lid[qi * k + j] : -1;
-    }
-  }
-}
-
-template <typename T, int kMode>
-int launch(const void* q, const void* x, const void* scale, const void* ns,
-           const void* canon, const void* qscale, int n, int d, int nq,
-           int want_ns, int want_canon, int tile_rows, int qc, int k,
-           void* out_sc, void* out_id, cudaStream_t stream) {
-  const size_t smem = scan_smem(sizeof(T), d, qc, k, kMode != kBucketed).total;
-  auto kern = scan_kernel<T, kMode>;
-  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  dim3 grid((n + tile_rows - 1) / tile_rows, (nq + qc - 1) / qc);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(x),
-      static_cast<const float*>(scale), static_cast<const int*>(ns),
-      static_cast<const int*>(canon), static_cast<const float*>(qscale), n, d,
-      nq, want_ns, want_canon, tile_rows, qc, k, static_cast<float*>(out_sc),
-      static_cast<int*>(out_id));
-  return int(cudaGetLastError());
-}
 
 // ---- bf16 / int8: the pipelined scan
 constexpr int kPipeWarps = 8;
@@ -634,6 +490,387 @@ int launch_pipe_qc(int qc, int rows, const void* q, const void* x, const void* s
 
 int elt_of(int dtype) { return dtype == TR_F32 ? 4 : dtype == TR_BF16 ? 2 : 1; }
 
+// ---- f32: the pipelined scan on the CUDA cores
+constexpr int kF32Warps = 8;                           // consumer warps
+constexpr int kF32Consumers = 32 * kF32Warps;
+constexpr int kF32Threads = kF32Consumers + 32;        // and the producer warp
+
+// The consumer warps' own barrier (id 1, `threads` threads): a producer
+// warp that only feeds the ring never waits on it.
+__device__ inline void consumers_sync(int threads) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(threads) : "memory");
+}
+
+// consumers_sync that also returns whether `p` held in any of its threads.
+__device__ inline bool consumers_sync_or(bool p, int threads) {
+  int r;
+  asm volatile(
+      "{\n"
+      ".reg .pred pi, po;\n"
+      "setp.ne.b32 pi, %1, 0;\n"
+      "bar.red.or.pred po, 1, %2, pi;\n"
+      "selp.b32 %0, 1, 0, po;\n"
+      "}\n"
+      : "=r"(r)
+      : "r"(int(p)), "r"(threads)
+      : "memory");
+  return r != 0;
+}
+
+// Warp tiling of a 128-row tile for a chunk of QC queries: a warp
+// multiplies kMTW m16 row tiles by kNTW n8 query tiles (QC 1: the one
+// query, box_one_query); the 8 warps are kWR row groups x kWQ query groups.
+__host__ __device__ constexpr int f32_mtw(int qc) { return qc >= 16 ? 2 : 1; }
+__host__ __device__ constexpr int f32_wr(int qc) { return kSub / (16 * f32_mtw(qc)); }
+
+// Shared-memory layout of f32_scan_kernel (mirrored by ops/topk.py's
+// _f32_scan_smem), from a 1024-byte aligned base (1024 bytes of slack):
+// `stages` ring stages of one box (128 rows x 32 floats, the tensor map's
+// swizzle); the queries (qc rows of f32_query_ld floats); exact/packed:
+// the sorted lists (qc x k scores, then slots), the candidates' scores
+// ([128 rows][qc + 1]), their rows' bit masks ([qc][4 words]) and a
+// 1024-bit merge map a warp; bucketed: two tables of the row groups'
+// maxima ([2][kWR][qc] scores, then rows); two mbarriers per possible stage
+// (its box landed; its consumers are done with it).
+struct F32ScanSmem { int boxes, ld; size_t q, list, scratch, cmask, bmap, bar, total; };
+
+__host__ __device__ inline F32ScanSmem f32_scan_smem(int d, int qc, int k, int mode, int stages) {
+  F32ScanSmem o;
+  const bool list = mode != kBucketed;
+  o.boxes = tr_box::f32_boxes(d);
+  o.ld = tr_box::f32_query_ld(d);
+  o.q = size_t(stages) * tr_box::kBoxBytes;                         // the ring at 0
+  o.list = o.q + tr_align128(size_t(qc) * o.ld * 4);
+  o.scratch = o.list + (list ? tr_align128(size_t(qc) * k * 8) : 0);
+  o.cmask = o.scratch + tr_align128(list ? size_t(kSub) * (qc + 1) * 4
+                                         : 2 * size_t(f32_wr(qc)) * qc * 8);
+  o.bmap = o.cmask + (list ? tr_align128(size_t(qc) * (kSub / 32) * 4) : 0);
+  o.bar = o.bmap + (list ? size_t(kF32Warps) * 32 * 4 : 0);
+  o.total = 1024 + o.bar + 2 * size_t(kMaxStages) * 8;
+  return o;
+}
+
+// Grid: blockIdx.y the query chunk, blockIdx.x a contiguous range of
+// block_rows rows (a multiple of 128), walked in 128-row tiles of
+// ceil(d / 32) boxes.  The producer warp's lane 0 keeps `stages` boxes in
+// flight (a stage refilled once its 8 consumer warps released it); the
+// consumer warps multiply each box as it lands, with partial sums in
+// registers over a tile's boxes, and select after the tile's last box:
+// the only barrier of the walk is the consumers' one at the selection.
+template <int kMode, int QC>
+__global__ void __launch_bounds__(kF32Threads, 1)
+f32_scan_kernel(const float* __restrict__ q, const __grid_constant__ CUtensorMap x_map,
+                const int* __restrict__ ns, const int* __restrict__ canon, int n, int d, int nq,
+                int want_ns, int want_canon, int block_rows, int k, int stages,
+                const float* __restrict__ seed, float* __restrict__ out_sc,
+                int* __restrict__ out_id) {
+  constexpr bool kList = kMode != kBucketed;
+  constexpr bool kOneQ = QC == 1;
+  constexpr int kMTW = f32_mtw(QC);
+  constexpr int kWR = f32_wr(QC);
+  constexpr int kWQ = kF32Warps / kWR;
+  constexpr int kNTW = QC >= 8 ? QC / 8 / kWQ : 1;
+  constexpr int kSld = QC + 1;                 // candidate scratch row stride
+  constexpr int kWords = kSub / 32;            // candidate bit mask words of a query
+  static_assert(kWR * 16 * kMTW == kSub && (kOneQ || kWQ * kNTW * 8 == QC), "warp tiling");
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);  // swizzle unit
+  const F32ScanSmem lay = f32_scan_smem(d, QC, k, kMode, stages);
+  const int ld = lay.ld, boxes = lay.boxes;
+  float* Qs = reinterpret_cast<float*>(smem + lay.q);
+  float* Lsc = reinterpret_cast<float*>(smem + lay.list);
+  int* Lid = reinterpret_cast<int*>(Lsc + QC * k);
+  float* Sc = reinterpret_cast<float*>(smem + lay.scratch);  // exact: [kSub][kSld]
+  int* Sr = reinterpret_cast<int*>(Sc + 2 * kWR * QC);        // bucketed: [2][kWR][QC] rows
+  unsigned* cmask = reinterpret_cast<unsigned*>(smem + lay.cmask);  // [QC][kWords]
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.bar);     // a stage's box landed
+  uint64_t* empty = full + kMaxStages;                               // its consumers are done
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.y * QC, nql = min(QC, nq - q0);
+  const int row_begin = blockIdx.x * block_rows;
+  const int row_end = min(n, row_begin + block_rows);
+  const int ntiles = (row_end - row_begin + kSub - 1) / kSub;
+
+  // queries (zero past nql and past d), lists, masks, barriers
+  for (int i = tid; i < QC * (ld / 4); i += kF32Threads) {
+    const int r = i / (ld / 4), c = (i % (ld / 4)) * 4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < nql && c < d) v = *reinterpret_cast<const float4*>(q + size_t(q0 + r) * d + c);
+    *reinterpret_cast<float4*>(Qs + r * ld + c) = v;
+  }
+  if constexpr (kList) {
+    for (int i = tid; i < QC * k; i += kF32Threads) {
+      Lsc[i] = -INFINITY;
+      Lid[i] = INT_MAX;
+    }
+    for (int i = tid; i < QC * kWords; i += kF32Threads) cmask[i] = 0u;
+    for (int i = tid; i < kF32Warps * 32; i += kF32Threads)
+      reinterpret_cast<unsigned*>(smem + lay.bmap)[i] = 0u;
+  }
+  // the producer (warp kF32Warps, lane 0): box `it` of the walk -> stage
+  // it % stages once its consumers released it; a tile's box past the
+  // block's rows reads the next block's rows (masked below as row >=
+  // row_end), past n zeros.  It sets up the barriers and issues the ring's
+  // first fill before the block's barrier, so the loads start while the
+  // block stages the queries.
+  const int nsteps = ntiles * boxes;
+  const bool producer = warp == kF32Warps && lane == 0;
+  auto fill = [&](int it) {
+    const int stg = it % stages;
+    mbar_arrive_expect_tx(full + stg, tr_box::kBoxBytes);
+    fence_proxy_async();  // after the consumers' reads of the stage
+    tensor_g2s_2d(smem + size_t(stg) * tr_box::kBoxBytes, &x_map, (it % boxes) * 128,
+                  row_begin + (it / boxes) * kSub, full + stg);
+  };
+  if (producer) {
+    prefetch_tensormap(&x_map);
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kF32Warps);
+    }
+    mbar_fence_init();
+    for (int it = 0; it < min(stages, nsteps); ++it) fill(it);
+  }
+  __syncthreads();
+
+  if (warp == kF32Warps) {
+    if (producer) {
+      for (int it = stages; it < nsteps; ++it) {
+        mbar_wait(empty + it % stages, (it / stages - 1) & 1);
+        fill(it);
+      }
+    }
+  } else {
+    const int wr = warp % kWR, qb = (warp / kWR) * 8 * kNTW;
+    const int r_lo = wr * 16 * kMTW;            // this warp's first row of a tile
+    const bool mma_warp = qb < nql;             // else its query group is empty
+    unsigned* bmap = reinterpret_cast<unsigned*>(smem + lay.bmap) + 32 * warp;
+    // thresholds of this thread's queries (qb + 8 j + 2t + e): the lists'
+    // last entries, never below the seed (a lower bound of each query's
+    // k-th score over all rows, or -inf), which a row scoring at least it
+    // passes
+    float thr_s[2 * kNTW], seed_s[2 * kNTW];
+    int thr_r[2 * kNTW];
+#pragma unroll
+    for (int i = 0; i < 2 * kNTW; ++i) {
+      const int qi = qb + (i >> 1) * 8 + 2 * t + (i & 1);
+      seed_s[i] = seed != nullptr && mma_warp && qi < nql ? seed[q0 + qi] : -INFINITY;
+      thr_s[i] = seed_s[i];
+      thr_r[i] = INT_MAX;
+    }
+    int it = 0;
+    for (int tile = 0; tile < ntiles; ++tile) {
+      const int r0 = row_begin + tile * kSub;
+      // this thread's rows' tags, read now and first used after the tile's
+      // last box (rows past the block's range are masked as PAD)
+      int tg[kMTW][2], cn[kMTW][2];
+#pragma unroll
+      for (int mi = 0; mi < kMTW; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = r0 + r_lo + mi * 16 + g + 8 * h;
+          tg[mi][h] = row < row_end ? __ldg(ns + row) : kPadTag;
+          cn[mi][h] = row < row_end ? __ldg(canon + row) : 0;
+        }
+      float acc[kMTW][kNTW][4];
+      float acc1[2] = {0.f, 0.f};
+#pragma unroll
+      for (int mi = 0; mi < kMTW; ++mi)
+#pragma unroll
+        for (int j = 0; j < kNTW; ++j) acc[mi][j][0] = acc[mi][j][1] = acc[mi][j][2] = acc[mi][j][3] = 0.f;
+      for (int box = 0; box < boxes; ++box, ++it) {
+        const int stg = it % stages;
+        mbar_wait(full + stg, (it / stages) & 1);
+        const unsigned char* st = smem + size_t(stg) * tr_box::kBoxBytes;
+        if constexpr (kOneQ) {
+          tr_box::box_one_query(acc1, st, r_lo, Qs + box * tr_box::kBoxFloats, g, t);
+        } else if (mma_warp) {
+          tr_box::box_tile<kMTW, kNTW>(acc, st, r_lo,
+                                       Qs + (qb + 2 * t) * ld + box * tr_box::kBoxFloats, ld, g);
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + stg);
+      }
+      if constexpr (kOneQ) {  // every lane t of a g: rows g and g + 8 for query 0
+        const float s0 = tr_box::sum_quarters(acc1[0]), s1 = tr_box::sum_quarters(acc1[1]);
+        acc[0][0][0] = acc[0][0][1] = s0;
+        acc[0][0][2] = acc[0][0][3] = s1;
+      }
+
+      // ---- scores: masked, rounded (packed); queries past nql score -inf
+      float sc[kMTW][kNTW][4];
+#pragma unroll
+      for (int mi = 0; mi < kMTW; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const bool ok = tg[mi][h] != kPadTag && (want_ns < 0 || tg[mi][h] == want_ns) &&
+                          (want_canon < 0 || cn[mi][h] == want_canon);
+#pragma unroll
+          for (int j = 0; j < kNTW; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int qi = qb + j * 8 + 2 * t + e;
+              const float s = ok && qi < nql && mma_warp ? acc[mi][j][2 * h + e] : -INFINITY;
+              sc[mi][j][2 * h + e] = kMode == kPacked ? round18(s) : s;
+            }
+        }
+
+      if constexpr (kList) {
+        // a candidate beats its query's threshold: its score goes to the
+        // scratch and its row to the query's bit mask
+        bool mine = false;
+#pragma unroll
+        for (int mi = 0; mi < kMTW; ++mi)
+#pragma unroll
+          for (int j = 0; j < kNTW; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int i = 2 * j + e, l = r_lo + mi * 16 + g + 8 * h;
+                const int qi = qb + j * 8 + 2 * t + e;
+                const float s = sc[mi][j][2 * h + e];
+                if (s > -INFINITY && (s > thr_s[i] || (s == thr_s[i] && r0 + l < thr_r[i]))) {
+                  Sc[l * kSld + qi] = s;
+                  atomicOr(cmask + qi * kWords + (l >> 5), 1u << (l & 31));
+                  mine = true;
+                }
+              }
+        if (consumers_sync_or(mine, kF32Consumers)) {
+          // list owners: warp w keeps queries w, w + 8, ...; lane l reads
+          // the mask word l % kWords of its (l / kWords)-th query, and each
+          // word that holds a candidate is one merge
+          const int nown = (nql - warp + kF32Warps - 1) / kF32Warps;
+          const int wi = (warp + kF32Warps * (lane / kWords)) * kWords + lane % kWords;
+          const unsigned wb = lane < nown * kWords ? cmask[wi] : 0u;
+          for (unsigned todo = __ballot_sync(kFull, wb != 0u); todo; todo &= todo - 1) {
+            const int src = __ffs(todo) - 1;
+            const unsigned bits = __shfl_sync(kFull, wb, src);
+            const int qi = warp + kF32Warps * (src / kWords), l = (src % kWords) * 32 + lane;
+            warp_merge(Lsc + qi * k, Lid + qi * k, k,
+                       (bits >> lane) & 1u ? Sc[l * kSld + qi] : -INFINITY, r0 + l, bmap);
+          }
+          if (wb) cmask[wi] = 0u;
+          consumers_sync(kF32Consumers);
+#pragma unroll
+          for (int i = 0; i < 2 * kNTW; ++i) {
+            const int qi = qb + (i >> 1) * 8 + 2 * t + (i & 1);
+            if (mma_warp && qi < nql) {
+              const float ls = Lsc[qi * k + k - 1];
+              const int li = Lid[qi * k + k - 1];
+              if (better(ls, li, seed_s[i], INT_MAX)) {
+                thr_s[i] = ls;
+                thr_r[i] = li;
+              }
+            }
+          }
+        }
+      } else {
+        // per query column: the max of this thread's rows (in row order, so
+        // a strictly greater score replaces), then over the 8 lanes of
+        // other rows g, lowest row on a tie, into the table of tile & 1
+        float* tS = Sc + (tile & 1) * kWR * QC;
+        int* tR = Sr + (tile & 1) * kWR * QC;
+#pragma unroll
+        for (int j = 0; j < kNTW; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float best = -INFINITY;
+            int bro = INT_MAX;
+#pragma unroll
+            for (int mi = 0; mi < kMTW; ++mi)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const float s = sc[mi][j][2 * h + e];
+                if (s > best || bro == INT_MAX) {
+                  best = s;
+                  bro = r0 + r_lo + mi * 16 + g + 8 * h;
+                }
+              }
+#pragma unroll
+            for (int off = 4; off < 32; off <<= 1) {
+              const float os = __shfl_xor_sync(kFull, best, off);
+              const int orow = __shfl_xor_sync(kFull, bro, off);
+              if (better(os, orow, best, bro)) {
+                best = os;
+                bro = orow;
+              }
+            }
+            const int qi = qb + j * 8 + 2 * t + e;
+            if (g == 0 && qi < QC) {
+              tS[wr * QC + qi] = best;
+              tR[wr * QC + qi] = bro;
+            }
+          }
+        consumers_sync(kF32Consumers);
+        if (tid < nql) {  // the bucket (this tile) closes: its row groups in row order
+          float bbest = tS[tid];
+          int brow = tR[tid];
+#pragma unroll
+          for (int w = 1; w < kWR; ++w) {
+            if (better(tS[w * QC + tid], tR[w * QC + tid], bbest, brow)) {
+              bbest = tS[w * QC + tid];
+              brow = tR[w * QC + tid];
+            }
+          }
+          const size_t o = size_t(q0 + tid) * ((size_t(n) + kSub - 1) / kSub) + r0 / kSub;
+          out_sc[o] = bbest;
+          out_id[o] = brow;
+        }
+      }
+    }
+  }
+
+  if constexpr (kList) {
+    __syncthreads();  // every list complete
+    for (int i = tid; i < nql * k; i += kF32Threads) {
+      const int qi = i / k, j = i % k;
+      const float s = Lsc[qi * k + j];
+      const size_t o = (size_t(q0 + qi) * gridDim.x + blockIdx.x) * k + j;
+      out_sc[o] = s;
+      out_id[o] = s > -INFINITY ? Lid[qi * k + j] : -1;
+    }
+  }
+}
+
+template <int kMode, int QC>
+int launch_f32(const CUtensorMap& map, const void* q, const void* ns, const void* canon, int n,
+               int d, int nq, int want_ns, int want_canon, int block_rows, int k, int stages,
+               const void* seed, void* out_sc, void* out_id, cudaStream_t stream) {
+  const size_t smem = f32_scan_smem(d, QC, k, kMode, stages).total;
+  auto kern = f32_scan_kernel<kMode, QC>;
+  if (int e = int(cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       int(smem))))
+    return e;
+  dim3 grid((n + block_rows - 1) / block_rows, (nq + QC - 1) / QC);
+  kern<<<grid, kF32Threads, smem, stream>>>(
+      static_cast<const float*>(q), map, static_cast<const int*>(ns),
+      static_cast<const int*>(canon), n, d, nq, want_ns, want_canon, block_rows, k, stages,
+      static_cast<const float*>(seed), static_cast<float*>(out_sc), static_cast<int*>(out_id));
+  return int(cudaGetLastError());
+}
+
+template <int kMode>
+int launch_f32_qc(int qc, const CUtensorMap& map, const void* q, const void* ns,
+                  const void* canon, int n, int d, int nq, int want_ns, int want_canon,
+                  int block_rows, int k, int stages, const void* seed, void* out_sc,
+                  void* out_id, cudaStream_t stream) {
+#define TR_F32(QC) \
+  launch_f32<kMode, QC>(map, q, ns, canon, n, d, nq, want_ns, want_canon, block_rows, k, stages, \
+                        seed, out_sc, out_id, stream)
+  switch (qc) {
+    case 1: return TR_F32(1);
+    case 8: return TR_F32(8);
+    case 16: return TR_F32(16);
+    case 32: return TR_F32(32);
+    case 64: return TR_F32(64);
+  }
+#undef TR_F32
+  return int(cudaErrorInvalidValue);
+}
+
 // ---- #4: read-rate probe.  The TPU kernel streamed (bn, d) tiles through
 // VMEM and reduced each to one row so the DMA could not be elided.  Here
 // every thread walks the matrix as 16-byte vectors (neighbouring threads on
@@ -704,23 +941,23 @@ read_sum_kernel(const T* __restrict__ x, long long n_elems, float* __restrict__ 
 
 }  // namespace
 
-// Shared-memory bytes of one scan block: f32 (scan_kernel) or, for bf16 and
-// int8, pipe_scan_kernel with `stages` ring stages.
+// Shared-memory bytes of one scan block: f32_scan_kernel (f32) or
+// pipe_scan_kernel (bf16, int8) with `stages` ring stages.
 extern "C" size_t tr_scan_smem_bytes(int dtype, int d, int qc, int k, int mode, int stages) {
-  if (dtype == TR_F32) return scan_smem(4, d, qc, k, mode != kBucketed).total;
+  if (dtype == TR_F32) return f32_scan_smem(d, qc, k, mode, stages).total;
   const int elt = elt_of(dtype);
   return pipe_smem(elt, d, qc, k, mode, stages, pipe_rows(elt, d, qc, k, mode)).total;
 }
 
 // mode 1 (exact, #1) or 2 (packed, #2) -> out (nq, ceil(n / tile_rows), k);
 // mode 0 (bucketed, #3) -> out (nq, ceil(n / 128)).
-// q (nq, d) and x (n, d) share `dtype`; scale (n,) and qscale (nq,) f32 are
-// read for int8 only; ns/canon (n,) int32.  Each block scans tile_rows
-// consecutive rows (a multiple of 128) for qc queries.  bf16 and int8 take
-// qc in {8, 16, 32, 64}, 2 <= stages <= 8 and 16-byte aligned q and x, and
-// for exact/packed an optional seed (nq,) f32: a lower bound of each
-// query's k-th score, below which no row is a candidate; f32 takes
-// qc % 16 == 0 and ignores stages and seed.
+// q (nq, d) and x (n, d) share `dtype` and are 16-byte aligned; scale (n,)
+// and qscale (nq,) f32 are read for int8 only; ns/canon (n,) int32.  Each
+// block scans tile_rows consecutive rows (a multiple of 128) for qc queries
+// through a ring of 2 <= stages <= 8 stages; exact/packed take an optional
+// seed (nq,) f32: a lower bound of each query's k-th score, below which no
+// row is a candidate.  bf16 and int8 (pipe_scan_kernel) take qc in {8, 16,
+// 32, 64}, f32 (f32_scan_kernel) qc in {1, 8, 16, 32, 64}.
 extern "C" int tr_scan(const void* q, const void* x, const void* scale,
                        const void* ns, const void* canon, const void* qscale,
                        int n, int d, int nq, int want_ns, int want_canon,
@@ -729,19 +966,24 @@ extern "C" int tr_scan(const void* q, const void* x, const void* scale,
   if (n <= 0 || nq <= 0 || d <= 0 || d % 16 != 0 || tile_rows <= 0 ||
       tile_rows % kSub != 0 || qc <= 0 || qc > kMaxQc ||
       mode < kBucketed || mode > kPacked ||
-      (mode != kBucketed && (k <= 0 || k > kMaxDeepK)))
+      (mode != kBucketed && (k <= 0 || k > kMaxDeepK)) || stages < 2 || stages > kMaxStages ||
+      !tr_box::aligned16(q) || !tr_box::aligned16(x))
     return int(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == TR_F32) {
-    if (qc % 16 != 0) return int(cudaErrorInvalidValue);
-#define TR_SCAN(M) \
-  launch<float, M>(q, x, scale, ns, canon, qscale, n, d, nq, want_ns, want_canon, tile_rows, qc, k, out_sc, out_id, s)
-    return mode == kExact ? TR_SCAN(kExact) : mode == kPacked ? TR_SCAN(kPacked) : TR_SCAN(kBucketed);
-#undef TR_SCAN
+    if ((qc != 1 && qc != 8 && qc != 16 && qc != 32 && qc != 64) ||
+        f32_scan_smem(d, qc, k, mode, stages).total > size_t(kSmemMax))
+      return int(cudaErrorInvalidValue);
+    CUtensorMap map;
+    if (!tr_box::rows_tensor_map(&map, x, n, d * 4, tr_box::kBoxRows))
+      return int(cudaErrorInvalidValue);
+#define TR_F32(M) \
+  launch_f32_qc<M>(qc, map, q, ns, canon, n, d, nq, want_ns, want_canon, tile_rows, k, stages, seed, out_sc, out_id, s)
+    return mode == kExact ? TR_F32(kExact) : mode == kPacked ? TR_F32(kPacked) : TR_F32(kBucketed);
+#undef TR_F32
   }
   const int elt = elt_of(dtype), rows = pipe_rows(elt, d, qc, k, mode);
-  if ((dtype != TR_BF16 && dtype != TR_I8) || stages < 2 || stages > kMaxStages ||
-      reinterpret_cast<uintptr_t>(q) % 16 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+  if ((dtype != TR_BF16 && dtype != TR_I8) ||
       pipe_smem(elt, d, qc, k, mode, stages, rows).total > size_t(kSmemMax))
     return int(cudaErrorInvalidValue);
 #define TR_PIPE(T, M) \

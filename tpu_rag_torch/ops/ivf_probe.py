@@ -5,9 +5,9 @@ Two entry points with the JAX functions' signatures and return contracts:
 - `ivf_probe_pallas`, the per-list probe: each query takes its nprobe
   nearest centroids (f32 matmul, ties to the lowest centroid), and kernel #6
   (csrc/ivf_probe.cu) selects the exact top k_eff = min(k, cap) slots of
-  each probed list, ties to the lowest slot.  On bf16/int8 lists each list
-  is split over a cluster of blocks as _list_plan lays it out; the blocks'
-  sorted partial lists merge exactly in distributed shared memory.  The
+  each probed list, ties to the lowest slot.  Each list is split over a
+  cluster of blocks as _list_plan lays it out; the blocks' sorted partial
+  lists merge exactly in distributed shared memory.  The
   merge over the nprobe * k_eff candidates is torch, as the JAX package
   merges outside Pallas: a stable sort over candidates laid out
   probe-major, rank-minor, which equals the reference's lax.top_k over the
@@ -280,7 +280,8 @@ def _bucket_plan(u_max: int, nb: int, nq: int, d: int, dtype: torch.dtype,
                       fixed + stages * stage)
 
 
-# ---- kernel #6's launch plan (probe_split_kernel, bf16/int8 lists)
+# ---- kernel #6's launch plan (probe_split_kernel on bf16/int8 lists,
+# probe_f32_kernel on f32 lists)
 
 _LIST_WARPS = 8
 _LIST_SPLIT_MAX = 8        # blocks of one list: a thread-block cluster
@@ -291,11 +292,11 @@ _SM_SMEM = 233_472         # shared memory of one H100 SM; a resident block rese
 
 
 class ListPlan(NamedTuple):
-    """Launch geometry of kernel #6 on bf16/int8 lists: each (query, probe)
-    list split over `split` blocks (one cluster) walking _list_ranges, a
-    ring of `stages` stages of `rows` rows (128 or 64), `blocks` blocks in
-    all, `per_sm` of them resident on an SM at once, `smem` bytes of shared
-    memory a block."""
+    """Launch geometry of kernel #6: each (query, probe) list split over
+    `split` blocks (one cluster) walking _list_ranges, a ring of `stages`
+    stages of `rows` rows (bf16/int8: 128 or 64; f32: 128 rows of one
+    32-float box), `blocks` blocks in all, `per_sm` of them resident on an
+    SM at once, `smem` bytes of shared memory a block."""
     split: int
     rows: int
     stages: int
@@ -318,6 +319,17 @@ def _list_smem(elt: int, d: int, k: int, stages: int, rows: int) -> int:
             + _LIST_WARPS * _LIST_MAP_WORDS * 4 + 64 + 2 * _LIST_STAGES_MAX * 8)
 
 
+def _f32_list_smem(d: int, k: int, stages: int) -> int:
+    """Shared-memory bytes of probe_f32_kernel (f32_list_smem): 1024 bytes of
+    slack, `stages` one-box stages (128 slots x 128 bytes), the query (d
+    floats rounded up to whole boxes), the 8 warps' sorted lists and the
+    block's merged list, warp_merge's bit maps, the warps' published scores
+    and two mbarriers per possible stage."""
+    return (1024 + stages * BUCKET * 128 + _round_up(-(-d // _F32_BOX) * 128, 128)
+            + _round_up(_LIST_WARPS * k * 8, 128) + _round_up(k * 8, 128)
+            + _LIST_WARPS * _LIST_MAP_WORDS * 4 + 64 + 2 * _LIST_STAGES_MAX * 8)
+
+
 def _list_ranges(cap: int, split: int) -> list[tuple[int, int]]:
     """The slot range [begin, end) of each block of a list, as
     probe_split_kernel computes it: whole 128-slot buckets, nb * r // split
@@ -330,8 +342,7 @@ def _list_ranges(cap: int, split: int) -> list[tuple[int, int]]:
 @functools.lru_cache(maxsize=256)
 def _list_plan(nq: int, nprobe: int, cap: int, d: int, dtype: torch.dtype, k: int,
                sms: int) -> ListPlan:
-    """Launch geometry of kernel #6 on bf16/int8 lists, a pure function of
-    the shapes.
+    """Launch geometry of kernel #6, a pure function of the shapes.
 
     The split (1-8 blocks a list, at most one a bucket) minimises the
     buckets the busiest SM walks, ceil(lists * split / sms) blocks of
@@ -344,7 +355,18 @@ def _list_plan(nq: int, nprobe: int, cap: int, d: int, dtype: torch.dtype, k: in
     else of 64 rows: a stage costs the consumer warps a wait, a product
     and a merge, so fewer, larger stages win (bf16 at one query: two
     128-row stages 0.077 ms, four 64-row 0.083 ms of device time, NVIDIA
-    H100 80GB HBM3 at 700 W, probe_sweep.py --list)."""
+    H100 80GB HBM3 at 700 W, probe_sweep.py --list).
+
+    f32 lists (one-box stages of 128 rows): a block's fixed cost (its
+    start, the two merges) weighs more beside its few tiles, so the split
+    is the largest that keeps every block in one wave of one an SM, and
+    the ring takes the stages of a block's share at two or more resident
+    blocks (six at d 384): at cap 1024, nprobe 16, d 384 one query (split
+    8) 0.0223 ms where eight stages took 0.0362, three queries (split 2)
+    0.0379 ms where the rule above (split 8, three an SM) took 0.0563
+    (device time, NVIDIA H100 80GB HBM3 at 700 W, probe_sweep.py --list
+    --f32)."""
+    f32 = dtype == torch.float32
     elt = _ELT[dtype]
     nb = -(-cap // BUCKET)
     n_lists = nq * nprobe
@@ -352,13 +374,21 @@ def _list_plan(nq: int, nprobe: int, cap: int, d: int, dtype: torch.dtype, k: in
     def busiest(split):
         return -(-n_lists * split // sms) * -(-nb // split)
 
-    split = min(range(1, min(_LIST_SPLIT_MAX, nb) + 1), key=lambda s_: (busiest(s_), s_))
+    if f32:
+        split = max(1, min(_LIST_SPLIT_MAX, nb, sms // n_lists))
+    else:
+        split = min(range(1, min(_LIST_SPLIT_MAX, nb) + 1), key=lambda s_: (busiest(s_), s_))
     blocks = n_lists * split
-    for per_sm in range(min(-(-blocks // sms), _LIST_PER_SM_MAX), 0, -1):
+    most = min(-(-blocks // sms), _LIST_PER_SM_MAX)
+    for per_sm in range(max(2, most) if f32 else most, 0, -1):
         budget = min(_SMEM_MAX, _SM_SMEM // per_sm - 1024)
-        rows = 128 if _list_smem(elt, d, k, 2, 128) <= budget else 64
-        fixed = _list_smem(elt, d, k, 0, rows)
-        stage = _list_smem(elt, d, k, 1, rows) - fixed
+        if f32:
+            rows, fixed = BUCKET, _f32_list_smem(d, k, 0)
+            stage = _f32_list_smem(d, k, 1) - fixed
+        else:
+            rows = 128 if _list_smem(elt, d, k, 2, 128) <= budget else 64
+            fixed = _list_smem(elt, d, k, 0, rows)
+            stage = _list_smem(elt, d, k, 1, rows) - fixed
         stages = min(_LIST_STAGES_MAX, max(0, budget - fixed) // stage)
         if stages >= 2:
             return ListPlan(split, rows, stages, blocks, per_sm, fixed + stages * stage)
@@ -388,33 +418,26 @@ def _check_lists(q_in, vec_lists, scale_lists, ns_lists, canon_lists) -> int:
 
 def _probe_list_cuda(q_in, lists, vec_lists, scale_lists, ns_lists, canon_lists,
                      want_ns: int, want_canon: int, k_eff: int):
-    """Launch kernel #6: on bf16/int8 lists as _list_plan lays it out, on
-    f32 lists one block per (query, probe)."""
+    """Launch kernel #6 as _list_plan lays it out."""
     code = _check_lists(q_in, vec_lists, scale_lists, ns_lists, canon_lists)
     nlist, cap, d = vec_lists.shape
     nq, nprobe = lists.shape
     if not 0 < k_eff <= min(K_EFF_MAX, cap):
         raise ValueError(f"the per-list probe selects 1 <= k <= min({K_EFF_MAX}, cap), "
                          f"got {k_eff}")
-    split = rows = stages = 0
-    if vec_lists.dtype == torch.float32:
-        if _smem_bytes(0, code, d, 16, k_eff) > _SMEM_MAX:
-            raise ValueError(f"per-list probe does not fit shared memory at d={d}")
-    else:
-        if cap % 4:
-            raise ValueError(f"the bf16/int8 per-list probe copies tags in 16-byte units "
-                             f"and needs cap % 4 == 0, got cap={cap}")
-        bulk = [("queries", q_in), ("vec_lists", vec_lists), ("ns_lists", ns_lists),
-                ("canon_lists", canon_lists)]
-        if vec_lists.dtype == torch.int8:
-            bulk.append(("scale_lists", scale_lists))
-        for name, t in bulk:
-            if t.data_ptr() % 16:
-                raise ValueError(f"{name}: the bf16/int8 per-list probe copies by TMA "
-                                 f"and needs 16-byte aligned tensors")
-        plan = _list_plan(nq, nprobe, cap, d, vec_lists.dtype, k_eff,
-                          _sm_count(vec_lists.device))
-        split, rows, stages = plan.split, plan.rows, plan.stages
+    if cap % 4:
+        raise ValueError(f"the per-list probe needs cap % 4 == 0 (bf16/int8 lists copy "
+                         f"their tags in 16-byte units), got cap={cap}")
+    bulk = [("queries", q_in), ("vec_lists", vec_lists)]
+    if vec_lists.dtype != torch.float32:
+        bulk += [("ns_lists", ns_lists), ("canon_lists", canon_lists)]
+    if vec_lists.dtype == torch.int8:
+        bulk.append(("scale_lists", scale_lists))
+    for name, t in bulk:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the per-list probe copies by TMA and needs "
+                             f"16-byte aligned tensors")
+    plan = _list_plan(nq, nprobe, cap, d, vec_lists.dtype, k_eff, _sm_count(vec_lists.device))
     lists32 = lists.to(device=vec_lists.device, dtype=torch.int32).contiguous()
     out_sc = torch.empty((nq * nprobe, k_eff), dtype=torch.float32, device=vec_lists.device)
     out_id = torch.empty((nq * nprobe, k_eff), dtype=torch.int32, device=vec_lists.device)
@@ -424,7 +447,8 @@ def _probe_list_cuda(q_in, lists, vec_lists, scale_lists, ns_lists, canon_lists,
         err = fn(q_in.data_ptr(), lists32.data_ptr(), vec_lists.data_ptr(),
                  scale_lists.data_ptr(), ns_lists.data_ptr(), canon_lists.data_ptr(),
                  nlist, nq, nprobe, cap, d, int(want_ns), int(want_canon), k_eff, code,
-                 split, rows, stages, out_sc.data_ptr(), out_id.data_ptr(), stream)
+                 plan.split, plan.rows, plan.stages, out_sc.data_ptr(), out_id.data_ptr(),
+                 stream)
     _build.check(err, "tr_probe_list", "ivf_probe")
     _probe_list_cuda.launches += 1
     if vec_lists.dtype == torch.float32:
@@ -475,7 +499,7 @@ def _probe_batched_cuda(q_in, uniq, n_uniq, vec_lists, scale_lists, ns_lists,
 
 
 _probe_list_cuda.launches = 0           # every launch of #6
-_probe_list_cuda.f32_launches = 0       # those on f32 lists (probe_list_kernel)
+_probe_list_cuda.f32_launches = 0       # those on f32 lists (probe_f32_kernel)
 _probe_batched_cuda.launches = 0        # every launch of #7
 _probe_batched_cuda.f32_launches = 0    # those on f32 lists (batched_bucket_kernel)
 

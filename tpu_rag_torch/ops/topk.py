@@ -145,8 +145,9 @@ _SEED_ROWS_MIN = 32_768   # rows of the seeding scan (at least 32 k)
 class ScanPlan(NamedTuple):
     """Launch geometry of one scan: `qc` queries per block, each block
     scanning `block_rows` consecutive rows (a multiple of BUCKET) through a
-    ring of `stages` tiles (bf16/int8; 0 for f32), `blocks` blocks per query
-    chunk, `smem` bytes of shared memory a block."""
+    ring of `stages` stages (bf16/int8: row tiles; f32: 128 x 32-float
+    boxes), `blocks` blocks per query chunk, `smem` bytes of shared memory
+    a block."""
     qc: int
     stages: int
     block_rows: int
@@ -196,13 +197,30 @@ def _pipe_rows(elt: int, d: int, qc: int, k: int, mode: str) -> int:
     return 64 if _pipe_fit(elt, d, qc, k, mode, 64) >= 2 else 32
 
 
-def _f32_smem(d: int, qc: int, k: int, mode: str) -> int:
-    """Shared-memory bytes of csrc/topk.cu's f32 scan_kernel (scan_smem):
-    queries, a 128 x 32 row chunk, the qc x 128 score tile, the row masks
-    and the sorted lists."""
-    lists = k * 8 * qc if mode != "bucketed" else 0
-    return (_align128(qc * (d + 1) * 4) + _align128(BUCKET * 33 * 4)
-            + _align128(qc * BUCKET * 4) + _align128(BUCKET * 8) + lists)
+_F32_WARPS = 8          # consumer warps of f32_scan_kernel
+_BOX_BYTES = 128 * 128  # one f32 ring stage: 128 rows x 32 floats
+
+
+def _f32_wr(qc: int) -> int:
+    """Row groups of f32_scan_kernel's warps (f32_wr): 16-row groups at 1
+    and 8 queries, 32-row groups (two m16 tiles) from 16."""
+    return BUCKET // (32 if qc >= 16 else 16)
+
+
+def _f32_scan_smem(d: int, qc: int, k: int, mode: str, stages: int) -> int:
+    """Shared-memory bytes of csrc/topk.cu's f32_scan_kernel (f32_scan_smem):
+    1024 bytes of slack to align the base to the swizzle unit, `stages`
+    one-box stages, the queries (rows of d floats rounded up to whole
+    32-float boxes, plus 4); exact/packed: the sorted lists, the
+    candidates' scores (128 rows x (qc + 1)), their rows' bit masks and a
+    1024-bit merge map a warp; bucketed: two tables of the row groups'
+    maxima; then two 8-byte mbarriers per possible stage."""
+    ld = _round_up(d, 32) + 4
+    lists = mode != "bucketed"
+    tail = (_align128(qc * k * 8) + _align128(BUCKET * (qc + 1) * 4)
+            + _align128(qc * BUCKET // 32 * 4) + _F32_WARPS * 32 * 4 if lists
+            else _align128(2 * _f32_wr(qc) * qc * 8))
+    return 1024 + stages * _BOX_BYTES + _align128(qc * ld * 4) + tail + 2 * _PIPE_STAGES_MAX * 8
 
 
 def _scan_plan(n: int, d: int, nq: int, k: int, dtype: torch.dtype, sms: int,
@@ -213,16 +231,25 @@ def _scan_plan(n: int, d: int, nq: int, k: int, dtype: torch.dtype, sms: int,
     halved while fewer than two ring stages fit beside the lists; the ring
     takes as many stages (at most 8) of _pipe_rows rows as the rest of the
     232,448 bytes hold; one block per SM and query chunk, each over one
-    contiguous range of rows.  f32: chunks of 16..64 queries, ~2 blocks per SM."""
+    contiguous range of rows.  f32: the chunk is 1 for one query, else the
+    power of two 8..64 that covers nq, halved the same way, with one-box
+    stages; a wave of one block per SM for each chunk (the FMA pipes, not
+    the bytes, bound a chunk from ~40 queries)."""
     kk = k if mode != "bucketed" else 0
     if dtype == torch.float32:
-        qc = min(64, _round_up(nq, 16))
-        while qc > 16 and _f32_smem(d, qc, kk, mode) > _SMEM_MAX:
-            qc -= 16
-        smem, stages = _f32_smem(d, qc, kk, mode), 0
-        if smem > _SMEM_MAX:
-            raise ValueError(f"scan does not fit shared memory at d={d}, k={k}")
-        per_chunk = max(1, (2 * sms) // -(-nq // qc))
+        qc = 1 if nq == 1 else 8
+        while 1 < qc < min(nq, 64):
+            qc *= 2
+        while True:
+            fixed = _f32_scan_smem(d, qc, kk, mode, 0)
+            stages = min(_PIPE_STAGES_MAX, max(0, _SMEM_MAX - fixed) // _BOX_BYTES)
+            if stages >= 2:
+                break
+            if qc <= 8:
+                raise ValueError(f"scan does not fit shared memory at d={d}, k={k}")
+            qc //= 2
+        smem = fixed + stages * _BOX_BYTES
+        per_chunk = sms
     else:
         elt = _ELT[dtype]
         qc = 8
@@ -244,8 +271,8 @@ def _scan_plan(n: int, d: int, nq: int, k: int, dtype: torch.dtype, sms: int,
     return ScanPlan(qc, stages, block_rows, -(-n // block_rows), smem)
 
 
-def _seed_rows(n: int, nq: int, k: int, dtype: torch.dtype) -> int:
-    """Rows of the seeding scan of an exact/packed bf16 or int8 scan, or 0.
+def _seed_rows(n: int, nq: int, k: int) -> int:
+    """Rows of the seeding scan of an exact/packed scan, or 0.
 
     Every block keeps its own sorted list and, on its own, inserts some
     k (1 + ln(rows / k)) rows per query before its list's last entry is
@@ -258,7 +285,7 @@ def _seed_rows(n: int, nq: int, k: int, dtype: torch.dtype) -> int:
     below the bound cannot be among the top k; rows equal to it still
     compete, ties to the lowest row."""
     rows = _round_up(max(_SEED_ROWS_MIN, 32 * k), BUCKET)
-    if dtype == torch.float32 or nq * k < _SEED_MIN_WORK or n < 8 * rows:
+    if nq * k < _SEED_MIN_WORK or n < 8 * rows:
         return 0
     return rows
 
@@ -266,7 +293,7 @@ def _seed_rows(n: int, nq: int, k: int, dtype: torch.dtype) -> int:
 def _list_scan_cuda(q, x, scale, ns, canon, qscale, want_ns, want_canon, k, mode):
     """Kernel #1 or #2 of csrc/topk.cu, seeded where _seed_rows says so;
     returns the per-block candidates and the number of launches."""
-    rows = _seed_rows(x.shape[0], q.shape[0], k, x.dtype)
+    rows = _seed_rows(x.shape[0], q.shape[0], k)
     seed = None
     if rows:
         cut = (lambda t: None if t is None else t[:rows])
@@ -290,7 +317,7 @@ def _check_depth(k: int) -> None:
 def _scan_cuda(q, x, scale, ns, canon, qscale, want_ns, want_canon, k, mode, seed=None):
     """Launch kernel #1 (exact), #2 (packed) or #3 (bucketed) of csrc/topk.cu;
     `seed` (nq,) f32 is a lower bound of each query's k-th score (exact and
-    packed, bf16/int8)."""
+    packed)."""
     n, d = x.shape
     nq = q.shape[0]
     for name, t, dt in (("queries", q, x.dtype), ("database", x, x.dtype),
@@ -302,8 +329,8 @@ def _scan_cuda(q, x, scale, ns, canon, qscale, want_ns, want_canon, k, mode, see
         raise TypeError(f"unsupported database dtype {x.dtype}")
     if d % 16 != 0:
         raise ValueError(f"the CUDA scan needs d % 16 == 0, got d={d}")
-    if x.dtype != torch.float32 and (q.data_ptr() % 16 or x.data_ptr() % 16):
-        raise ValueError("the bf16/int8 scan needs 16-byte aligned queries and database")
+    if q.data_ptr() % 16 or x.data_ptr() % 16:
+        raise ValueError("the scan copies by TMA and needs 16-byte aligned queries and database")
     if ns.shape != (n,) or canon.shape != (n,):
         raise ValueError("ns/canon tags must be (n,)")
     exact = mode != "bucketed"       # a sorted list of k per query (#1, #2)
@@ -340,6 +367,8 @@ def _exact_scan_cuda(q, x, scale, ns, canon, qscale, want_ns, want_canon, k):
     (cand_sc, cand_id), launches = _list_scan_cuda(q, x, scale, ns, canon, qscale,
                                                    want_ns, want_canon, k, "exact")
     _exact_scan_cuda.launches += launches
+    if x.dtype == torch.float32:
+        _exact_scan_cuda.f32_launches += launches
     return select_topk(cand_sc, cand_id, k)
 
 
@@ -349,6 +378,8 @@ def _packed_scan_cuda(q, x, scale, ns, canon, qscale, want_ns, want_canon, k):
     (cand_sc, cand_id), launches = _list_scan_cuda(q, x, scale, ns, canon, qscale,
                                                    want_ns, want_canon, k, "packed")
     _packed_scan_cuda.launches += launches
+    if x.dtype == torch.float32:
+        _packed_scan_cuda.f32_launches += launches
     return select_topk(cand_sc, cand_id, k)
 
 
@@ -357,12 +388,15 @@ def _bucketed_scan_cuda(q, x, scale, ns, canon, want_ns, want_canon):
     out = _scan_cuda(q, x, scale, ns, canon, None, want_ns, want_canon, 0,
                      "bucketed")
     _bucketed_scan_cuda.launches += 1
+    if x.dtype == torch.float32:
+        _bucketed_scan_cuda.f32_launches += 1
     return out
 
 
-_exact_scan_cuda.launches = 0
-_packed_scan_cuda.launches = 0
-_bucketed_scan_cuda.launches = 0
+# each wrapper's launches, and those on f32 rows (the f32 kernel)
+_exact_scan_cuda.launches = _exact_scan_cuda.f32_launches = 0
+_packed_scan_cuda.launches = _packed_scan_cuda.f32_launches = 0
+_bucketed_scan_cuda.launches = _bucketed_scan_cuda.f32_launches = 0
 
 
 def exact_scan(q, x, scale, ns, canon, qscale, want_ns, want_canon, k):
