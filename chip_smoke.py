@@ -57,6 +57,19 @@ Phases, each printing one JSON line (any failure exits non-zero):
            corpus (or one of its own): bge-base (768 wide, head dim 64)
            embeds 20,000 documents, 1,000,000 x 768 rows served through the
            index API and HTTP against f32 exact, bench_http's load.
+  shard    the sharded serving path (tpu_rag_torch/parallel) on cuda:0 named
+           4 times: a 4,000,000 x 384 ShardedFlatIndex (int8, 1M rows a
+           shard: #1 on every shard, the host refine) served over HTTP with a
+           data-parallel MiniLM-L6 encoder (/docs/save into the first build,
+           32 /search with #1's launches counted a window, a re-save whose
+           old row dies by a shard-local kill), recall@10 against f32 exact
+           and ids against the plain scans, the same snapshot bucketed (#3
+           on every shard); a 2,000,000 x 384 int8 ShardedIVFIndex (nlist
+           1024, cap factor 2.0, nprobe 64: #6 on every shard) with a
+           main-list and an overflow kill; two processes in a gloo group
+           on cuda:0 loading their halves of a 1,000,000 x 384 bf16 store;
+           and rehearse_100m (8 shards, 384 wide, rows cut as PERF.md
+           section 4 says) in a process of its own beside them;
   rerank_train  train_reranker at MiniLM-L6 width over the train phase's
            corpus and bi-encoder (batch 256 pairs, T 160, bf16, 1,500 steps
            at lr 1e-4) with a val eval and two mining rounds: every step
@@ -84,6 +97,7 @@ import argparse
 import contextlib
 import json
 import math
+import os
 import socket
 import statistics
 import subprocess
@@ -1338,17 +1352,17 @@ def _profile_window(engine, texts: list[str]) -> dict:
 
 
 @contextlib.contextmanager
-def _served(cfg):
-    """The app for cfg (it loads the saved store) behind the real HTTP
-    server on a free port; counters are zeroed just before it starts.
-    Yields (app, engine, /health reply)."""
+def _served(cfg, engine=None):
+    """The app for cfg (it loads the saved store, unless `engine` is given)
+    behind the real HTTP server on a free port; counters are zeroed just
+    before it starts.  Yields (app, engine, /health reply)."""
     from tpu_rag_torch.api.app import create_app
     from tpu_rag_torch.api.server import HTTPServer
 
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         cfg.port = s.getsockname()[1]
-    app = create_app(cfg)
+    app = create_app(cfg, engine=engine)
     engine = app.state["engine"]
     server = HTTPServer(app, cfg.host, cfg.port, executor_workers=cfg.http_executor_workers)
     thread = threading.Thread(target=server.run, daemon=True, name=f"http-server-{cfg.port}")
@@ -3176,9 +3190,556 @@ def phase_rehearse(work: Path, corpus: Path) -> dict:
     return counts
 
 
+# ------------------------------------------------------------------ shard
+# The sharded serving path (tpu_rag_torch/parallel) on cuda:0 named
+# SHARD_COUNT times: a 4,000,000 x 384 ShardedFlatIndex (auto: int8, 1M
+# rows a shard, the exact scan #1 with the host refine) served over HTTP;
+# a 2,000,000 x 384 int8 ShardedIVFIndex (nlist 1024, cap factor 2.0,
+# nprobe 64: #6 on every shard); two gloo processes loading their halves of
+# a 1,000,000 x 384 bf16 store; and rehearse_100m cut from 100M rows to
+# REHEARSE_100M_ROWS (PERF.md section 4: its SQLite ingest runs ~46,000
+# rows/s, and at 10M rows it held the phase 140 s past its other parts)
+SHARD_COUNT = 4
+SHARD_FLAT_ROWS, SHARD_IVF_ROWS, SHARD_DIST_ROWS = 4_000_000, 2_000_000, 1_000_000
+SHARD_IVF_NLIST, SHARD_IVF_NPROBE = 1024, 64
+REHEARSE_100M_ROWS = 6_000_000
+# the shard phase's kernel rows (#1 and #6 on one shard's own tensors),
+# added to the kernels line by main()
+SHARD_ROWS: list[dict] = []
+
+
+def _tie_check(got, plain, what: str) -> int:
+    """Two SearchResults of the same queries: equal ids, but where the two
+    results' f32 refine scores at that rank are within 1e-5 (a tie).
+    Returns the count of positions that differ in ties."""
+    differ = 0
+    for a_ids, a_s, b_ids, b_s in zip(got.ids, got.similarities, plain.ids,
+                                      plain.similarities):
+        if len(a_ids) != len(b_ids):
+            raise AssertionError(f"{what}: {len(a_ids)} hits against {len(b_ids)}")
+        for ia, sa, ib, sb in zip(a_ids, a_s, b_ids, b_s):
+            if ia != ib:
+                if abs(sa - sb) > 1e-5:
+                    raise AssertionError(f"{what}: ids differ outside ties ({ia} {sa}, "
+                                         f"{ib} {sb})")
+                differ += 1
+    return differ
+
+
+def _device_ms(fn, name: str) -> tuple[float, str]:
+    """The kernel's own time (kernel_ms) and where it came from; where the
+    profiler lost records in all three windows, 10 calls back to back timed
+    by CUDA events (the wrapper's other kernels included)."""
+    try:
+        return kernel_ms(fn, name), "torch.profiler"
+    except AssertionError:
+        return (cuda_ms(fn, iters=5, batch=10),
+                "CUDA events over 10 calls back to back (the profiler lost records)")
+
+
+def _shard_scan_row(x, scale, ns, canon, nq: int, k: int, g) -> dict:
+    """#1 (exact, int8) on one shard's own snapshot tensors: kernel against
+    plain version (_id_check), times, bound, and the kernel's device time."""
+    import torch
+
+    from tpu_rag_torch.ops import topk as tk
+    from tpu_rag_torch.ops.quant import quantize_int8_rows
+
+    n, d = x.shape
+    qf = torch.randn((nq, d), generator=g, device=x.device)
+    q8, qs = quantize_int8_rows(qf)
+    args = (q8, x, scale, ns, canon, qs, -1, -1, k)
+    chk = _id_check(*tk._exact_scan_cuda(*args), *tk._exact_scan_plain(*args), 1e-4)
+
+    def library():
+        s = torch.matmul(q8.to(torch.bfloat16), x.to(torch.bfloat16).T).float()
+        s = s * qs[:, None] * scale[None, :]
+        return torch.topk(torch.where((ns != tk.PAD_TAG)[None, :], s, -math.inf), k, dim=1)
+
+    nbytes = n * d + n * 8 + n * 4 + nq * d + nq * k * 8
+    b_ms, b_by = bound(nbytes, 2.0 * n * d * nq, "int8")
+    dev_ms, dev_src = _device_ms(lambda: tk._exact_scan_cuda(*args), "pipe_scan_kernel")
+    return {"name": f"exact_scan[int8,shard of {SHARD_COUNT},n={n},d={d},q={nq},k={k}]",
+            "route": "cuda", "source": "tpu_rag_torch/csrc/topk.cu",
+            "replaces": "tpu_rag/ops/topk.py:96", "counter": "exact_bf16_int8",
+            "plan": tk._scan_plan(n, d, nq, k, x.dtype, tk._sm_count(x.device),
+                                  "exact")._asdict(),
+            **chk, "ms": cuda_ms(lambda: tk._exact_scan_cuda(*args)), "device_ms": dev_ms,
+            "device_ms_from": dev_src,
+            "plain_ms": cuda_ms(lambda: tk._exact_scan_plain(*args), iters=5),
+            "library_ms": cuda_ms(library, iters=5),
+            "library": "composite: torch.matmul + torch.topk",
+            "bound_ms": b_ms, "bound_by": b_by, "pct_of_bound": 100.0 * b_ms / dev_ms}
+
+
+def _shard_probe_row(snap, s: int, q, k_eff: int, nprobe: int) -> dict:
+    """#6 on shard s's own lists (cap a multiple of 8, not of 128):
+    kernel against plain version, times, and the bound over live rows."""
+    import torch
+
+    from tpu_rag_torch.ops import ivf_probe as ip
+    from tpu_rag_torch.ops.quant import quantize_int8_rows
+    from tpu_rag_torch.ops.topk import PAD_TAG
+
+    vec, scale = snap["vec_lists"][s], snap["scale_lists"][s]
+    ns, canon = snap["ns_lists"][s], snap["canon_lists"][s]
+    nq, (_nlist, cap, d) = q.shape[0], vec.shape
+    lists = ip._top_lists(q, snap["centroids"][s], nprobe)
+    q8 = quantize_int8_rows(q)[0]
+    args = (q8, lists, vec, scale, ns, canon, -1, -1, k_eff)
+    k_sc, k_id = ip._probe_list_cuda(*args)
+    p_sc, p_id = ip._probe_list_plain(*args)
+    if not (torch.equal(k_sc, p_sc) and torch.equal(k_id, p_id)):
+        raise AssertionError("per-list probe on a shard: ids or scores differ from plain")
+    flat = lists.reshape(-1)
+
+    def library():
+        x = vec[flat].to(torch.bfloat16)
+        qv = q8.to(torch.bfloat16).repeat_interleave(nprobe, 0)[:, :, None]
+        sc = torch.bmm(x, qv)[..., 0].float() * scale[flat]
+        return torch.topk(torch.where(ns[flat] != PAD_TAG, sc, -math.inf), k_eff, dim=1)
+
+    n_lists, live = _probed(lists, ns)
+    live_pairs = int((ns[flat] != PAD_TAG).sum())
+    nbytes = (n_lists * cap * 4 + live * (d + 4) + nq * d + lists.numel() * 4
+              + nq * nprobe * k_eff * 8)
+    b_ms, b_by = bound(nbytes, 2.0 * live_pairs * d, "int8")
+    dev_ms, dev_src = _device_ms(lambda: ip._probe_list_cuda(*args), "probe_split_kernel")
+    return {"name": f"ivf_probe_per_list[int8,shard of {SHARD_COUNT},q={nq},nprobe={nprobe},"
+                    f"cap={cap},d={d},k={k_eff}]", "route": "cuda",
+            "source": "tpu_rag_torch/csrc/ivf_probe.cu",
+            "replaces": "tpu_rag/ops/ivf_probe.py:41", "counter": "per_list_bf16_int8",
+            "plan": ip._list_plan(nq, nprobe, cap, d, torch.int8, k_eff,
+                                  ip._sm_count(vec.device))._asdict(),
+            "max_abs_err": 0.0, "ms": cuda_ms(lambda: ip._probe_list_cuda(*args)),
+            "device_ms": dev_ms, "device_ms_from": dev_src,
+            "plain_ms": cuda_ms(lambda: ip._probe_list_plain(*args), iters=5),
+            "library_ms": cuda_ms(library, iters=5),
+            "library": "composite: list gather + torch.bmm + torch.topk",
+            "bound_ms": b_ms, "bound_by": b_by, "pct_of_bound": 100.0 * b_ms / dev_ms}
+
+
+def _shard_flat(work: Path) -> dict:
+    """ShardedFlatIndex over SHARD_FLAT_ROWS x 384 served over HTTP with a
+    data-parallel MiniLM-L6 encoder (seeded checkpoint) on the same mesh;
+    the store's saves are not run (each would rewrite 6 GB: the serve and
+    ivf phases hold the store path)."""
+    import numpy as np
+    import torch
+
+    from tpu_rag_torch.config import Config
+    from tpu_rag_torch.engine import RagEngine
+    from tpu_rag_torch.models.biencoder import BiEncoder, spec_for_model
+    from tpu_rag_torch.parallel import ShardedFlatIndex, mesh_from_spec
+
+    n, d, nq, k = SHARD_FLAT_ROWS, 384, 64, 10
+    t0 = time.perf_counter()
+    x, q, _base = _ivf_corpus(n, d, nq, SEED + 7)
+    xt = torch.from_numpy(x).cuda()
+    truth = torch.topk(torch.from_numpy(q).cuda() @ xt.T, k, dim=1).indices.cpu().numpy()
+    del xt
+    torch.cuda.empty_cache()
+    gen_s = time.perf_counter() - t0
+    mesh = mesh_from_spec("", ["cuda:0"] * SHARD_COUNT)
+    index = ShardedFlatIndex(d, mesh=mesh, dtype="auto", master_backing="ram")
+    index._bulk_adopt_rows(x, (f"syn-{i}" for i in range(n)), (("", {}) for _ in range(n)),
+                           count=n)
+    del x
+    bi_dir, _bi, _ce_dir, _ce = _write_checkpoints(work, spec_for_model("minilm-l6"))
+    cfg = Config(persist_dir=str(work / "vs"), kb_db_path=str(work / "db" / "kb.sqlite3"),
+                 db_path=str(work / "db" / "app.sqlite3"), docs_dir=str(work / "docs"),
+                 embedding_model="sentence-transformers/all-MiniLM-L6-v2",
+                 embedding_weights=str(bi_dir), model_priority=("extractive",),
+                 summarize_mode="off", host="127.0.0.1", device="cuda")
+    encoder = BiEncoder(cfg.embedding_model, weights_path=str(bi_dir), device="cuda",
+                        mesh=mesh)
+    engine = RagEngine(cfg, encoder=encoder, index=index)
+    engine.indexer.persist_fn = None
+    with _served(cfg, engine) as (_app, engine, _health):
+        texts = [_doc_text(i + 40) for i in range(4)]
+        saved = []
+        t_save = time.perf_counter()
+        for i, text in enumerate(texts):                 # into the first build
+            saved.append(_http(cfg.port, "POST", "/docs/save",
+                               {"title": f"Shard doc {i}", "content": text,
+                                "metadata": {"namespace": "smoke"}})["id"])
+        while index.count() < n + len(texts):
+            if time.perf_counter() - t_save > 600:
+                raise TimeoutError("background indexing did not finish")
+            time.sleep(0.2)
+        save_s = time.perf_counter() - t_save
+        t1 = time.perf_counter()
+        _http(cfg.port, "POST", "/search", {"query": "first light", "k": 5})
+        build_s = time.perf_counter() - t1             # the sharded build + one search
+        snap = index.device_snapshot()
+        geometry = {"dtype": snap["dtype"], "shards": len(snap["vectors"]),
+                    "shard_rows": snap["shard_rows"], "n_pad": snap["n_pad"],
+                    "mode": index.effective_search_mode(n // SHARD_COUNT)}
+        if (geometry["dtype"] != "int8" or geometry["mode"] != "exact"
+                or {str(v.device) for v in snap["vectors"]} != {"cuda:0"}):
+            raise AssertionError(f"unexpected sharded flat geometry {geometry}")
+        queries = texts + [f"{w} tale of the {w} keeper" for w in (
+            "harbor", "falcon", "orchard", "winter", "glass", "copper", "meadow", "canyon")]
+        queries = (queries * 3)[:32]
+        windows, lat = [], []
+        for i, qtext in enumerate(queries):              # one window a request
+            before = _read_counters()["exact"]
+            t1 = time.perf_counter()
+            r = _http(cfg.port, "POST", "/search", {"query": f"{qtext} #{i}"
+                                                    if i >= 4 else qtext, "k": 5})
+            lat.append((time.perf_counter() - t1) * 1e3)
+            windows.append(_read_counters()["exact"] - before)
+            if i < 4 and r["hits"][0]["id"] != saved[i]:
+                raise AssertionError(f"saved doc {i} is not its own top hit: {r['hits'][0]}")
+            assert r["hits"] and all(math.isfinite(h["score"]) for h in r["hits"])
+        if min(windows) < SHARD_COUNT:
+            raise AssertionError(f"#1 launched {windows} times a window: fewer than one "
+                                 f"launch a shard")
+        http_counts = _read_counters()
+        # a new version of doc 0: the old row dies by a shard-local kill
+        kills0, rebuilds0 = (index.snapshot_stats["incremental_kills"],
+                             index.snapshot_stats["full_rebuilds"])
+        owner = (n + 0) // snap["shard_rows"]
+        ns_before = snap["ns"]
+        new_id = _http(cfg.port, "POST", "/docs/save",
+                       {"title": "Shard doc 0", "content": _doc_text(90),
+                        "metadata": {"namespace": "smoke"}})["id"]
+        t1 = time.perf_counter()
+        while index.get(new_id) is None or index.get(saved[0]) is not None:
+            if time.perf_counter() - t1 > 600:
+                raise TimeoutError("the re-save was not indexed")
+            time.sleep(0.1)
+        resave_s = time.perf_counter() - t1
+        old_hits = [h["id"] for h in _http(cfg.port, "POST", "/search",
+                                           {"query": texts[0], "k": 10})["hits"]]
+        top_new = _http(cfg.port, "POST", "/search", {"query": _doc_text(90), "k": 3})
+        snap2 = index.device_snapshot()
+        touched = [s_ for s_ in range(SHARD_COUNT) if snap2["ns"][s_] is not ns_before[s_]]
+        if (saved[0] in old_hits or top_new["hits"][0]["id"] != new_id
+                or index.snapshot_stats["incremental_kills"] - kills0 != 1
+                or index.snapshot_stats["full_rebuilds"] != rebuilds0 or touched != [owner]):
+            raise AssertionError(f"shard-local kill: old hits {old_hits[:3]}, top "
+                                 f"{top_new['hits'][0]['id']}, touched shards {touched} "
+                                 f"(owner {owner}), {index.snapshot_stats}")
+
+        # in process: recall against f32 exact, ids against the plain scans
+        def recall(res):
+            got = [[int(i[4:]) for i in ids if i.startswith("syn-")] for ids in res.ids]
+            return float(np.mean([len(set(a) & set(b)) / k for a, b in zip(got, truth)]))
+
+        before = _read_counters()
+        t1 = time.perf_counter()
+        res = index.search(q, k)
+        q64_ms = (time.perf_counter() - t1) * 1e3
+        one = [index.search(q[i:i + 1], k) for i in range(8)]
+        counts_q = {name: v - before[name] for name, v in _read_counters().items()}
+        with _plain_scans():
+            plain = index.search(q, k)
+            plain_one = [index.search(q[i:i + 1], k) for i in range(8)]
+        ties = _tie_check(res, plain, "sharded flat") + sum(
+            _tie_check(a, b, "sharded flat q 1") for a, b in zip(one, plain_one))
+        exact_recall = recall(res)
+        if exact_recall < 0.99:
+            raise AssertionError(f"sharded flat recall@10 {exact_recall} < 0.99")
+        # the same snapshot bucketed: #3 on every shard, the plain rule
+        index.search_mode = "bucketed"
+        before = _read_counters()["bucketed"]
+        bres = index.search(q, k)
+        if _read_counters()["bucketed"] - before < SHARD_COUNT:
+            raise AssertionError("the bucketed search did not launch #3 on every shard")
+        with _plain_scans():
+            bplain = index.search(q, k)
+        bties = _tie_check(bres, bplain, "sharded bucketed")
+        index.search_mode = "auto"
+        counts = _read_counters()
+        g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+        rows = [_shard_scan_row(snap2["vectors"][0], snap2["scales"][0], snap2["ns"][0],
+                                snap2["canon"][0], nq_, 40, g) for nq_ in (1, 8)]
+    SHARD_ROWS.extend(rows)
+    rows_view = index._vectors[:n]
+    del index, engine, snap, snap2
+    torch.cuda.empty_cache()
+    by_shards = _shard_windows(rows_view, q)
+    return {"rows": n, "geometry": geometry, "corpus_and_truth_s": gen_s,
+            "docs_index_s": save_s, "build_and_first_search_s": build_s,
+            "search_ms": lat, "search_ms_p50": statistics.median(lat),
+            "exact_launches_per_window": windows, "resave_indexed_s": resave_s,
+            "q64_search_ms": q64_ms, "recall_at_10": exact_recall,
+            "ids_differing_from_plain_in_ties": ties,
+            "bucketed": {"recall_at_10": recall(bres), "ids_differing_from_plain_in_ties": bties},
+            "launches_http": http_counts, "launches_in_process": counts_q,
+            "launches": counts, "persist": "off", "windows_by_shard_count": by_shards}
+
+
+def _shard_windows(rows, q) -> list[dict]:
+    """The same rows as 1, 2 and 4 shards of cuda:0, each searched exactly
+    (int8, k 10 -> k_scan 40, the host refine) at q 1 and q 8 under
+    torch.profiler: wall and device ms of one window, and #1's share.  The
+    counters are read after this, so these launches are not the path's."""
+    import torch
+
+    from kernel_ab import _profile
+    from tpu_rag_torch.parallel import ShardedFlatIndex, mesh_from_spec
+
+    n, d = rows.shape
+    out = []
+    for shards in (1, 2, SHARD_COUNT):
+        index = ShardedFlatIndex(d, mesh=mesh_from_spec("", ["cuda:0"] * shards),
+                                 dtype="int8", search_mode="exact")
+        index._bulk_adopt_rows(rows, (f"syn-{i}" for i in range(n)),
+                               (("", {}) for _ in range(n)), count=n)
+        t0 = time.perf_counter()
+        index.device_snapshot()
+        torch.cuda.synchronize()
+        row = {"shards": shards, "build_s": time.perf_counter() - t0}
+        for nq in (1, 8):
+            prof = _profile(lambda nq=nq: index.search(q[:nq], 10))
+            scan = sum(v for key, v in prof["by_kernel_ms"].items() if "scan_kernel" in key)
+            row[f"q{nq}"] = {"wall_ms": prof["wall_ms"], "device_ms": prof["device_ms"],
+                             "scan_ms": scan,
+                             "device_idle_share": max(0.0, 1 - prof["device_ms"] / prof["wall_ms"])}
+        out.append(row)
+        del index
+        torch.cuda.empty_cache()
+    return out
+
+
+def _shard_ivf() -> dict:
+    """ShardedIVFIndex over SHARD_IVF_ROWS x 384 int8: 64 perturbed rows one
+    at a time and as one batch (#6 on every shard either way), recall@10
+    against f32 exact, ids against the plain probes, and a main-list and an
+    overflow row killed in place."""
+    import numpy as np
+    import torch
+
+    from tpu_rag_torch.parallel import ShardedIVFIndex, mesh_from_spec
+
+    n, d, nq, k = SHARD_IVF_ROWS, 384, 64, 10
+    x, q, _base = _ivf_corpus(n, d, nq, SEED + 8)
+    truth = torch.topk(torch.from_numpy(q).cuda() @ torch.from_numpy(x).cuda().T, k,
+                       dim=1).indices.cpu().numpy()
+    torch.cuda.empty_cache()
+    mesh = mesh_from_spec("", ["cuda:0"] * SHARD_COUNT)
+    index = ShardedIVFIndex(d, mesh=mesh, dtype="int8", nlist=SHARD_IVF_NLIST,
+                            nprobe=SHARD_IVF_NPROBE, list_cap_factor=2.0,
+                            master_backing="ram")
+    index._bulk_adopt_rows(x, (f"syn-{i}" for i in range(n)), (("", {}) for _ in range(n)),
+                           count=n)
+    del x
+    t0 = time.perf_counter()
+    snap = index.device_snapshot()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    geometry = {"nlist": snap["nlist"], "cap": snap["cap"], "ov_cap": snap["ov_cap"],
+                "shards": len(snap["vec_lists"]),
+                "overflow_rows": int((index._s_ov_of >= 0).sum())}
+
+    def recall(id_lists):
+        got = [[int(i[4:]) for i in ids] for ids in id_lists]
+        return float(np.mean([len(set(a) & set(b)) / k for a, b in zip(got, truth)]))
+
+    def routes():
+        one = [index.search(q[i:i + 1], k) for i in range(nq)]
+        assert index.last_probe_route == "per_list"
+        per_search = []
+        for i in range(4):
+            before = _read_counters()["per_list"]
+            index.search(q[i:i + 1], k)
+            per_search.append(_read_counters()["per_list"] - before)
+        batch = index.search(q, k)
+        assert index.last_probe_route == "per_list"
+        return one, batch, per_search
+
+    _reset_counters()
+    t0 = time.perf_counter()
+    one, batch, per_search = routes()
+    routes_s = time.perf_counter() - t0
+    counts = _read_counters()
+    with _plain_probes():
+        p_one, p_batch, _ = routes()
+    if _read_counters() != counts:
+        raise AssertionError("the plain sharded IVF run launched a probe kernel")
+    if min(per_search) < SHARD_COUNT:
+        raise AssertionError(f"#6 launched {per_search} times a search: fewer than one a shard")
+    ties = _tie_check(batch, p_batch, "sharded ivf q 64") + sum(
+        _tie_check(a, b, "sharded ivf q 1") for a, b in zip(one, p_one))
+    rec1, rec64 = recall([r.ids[0] for r in one]), recall(batch.ids)
+    if min(rec1, rec64) < 0.95:
+        raise AssertionError(f"sharded IVF recall@10 {rec1} (q 1), {rec64} (q 64) < 0.95")
+    # kills: one main-list row and one overflow row, in place
+    main_row = next(r for r in batch.rows[0] if index._s_slot_of[r] >= 0)
+    ov_rows = np.flatnonzero(index._s_ov_of >= 0)
+    victims = [f"syn-{main_row}"] + ([f"syn-{int(ov_rows[0])}"] if len(ov_rows) else [])
+    vec_of = {v: np.asarray(index.get(v)["vector"]) for v in victims}
+    index.delete(ids=victims)
+    after = index.search(np.stack(list(vec_of.values())), k)
+    if any(v in ids for v in victims for ids in after.ids) or \
+            index.snapshot_stats["full_rebuilds"] != 1:
+        raise AssertionError(f"sharded IVF kills: {victims} in {after.ids}, "
+                             f"{index.snapshot_stats}")
+    SHARD_ROWS.append(_shard_probe_row(snap, 0, torch.from_numpy(q[:1]).cuda(), 40,
+                                       SHARD_IVF_NPROBE))
+    del index, snap
+    torch.cuda.empty_cache()
+    return {"rows": n, "geometry": geometry, "build_s": build_s, "routes_s": routes_s,
+            "recall_at_10": {"q1": rec1, "q64": rec64},
+            "plain_recall_at_10": {"q1": recall([r.ids[0] for r in p_one]),
+                                   "q64": recall(p_batch.ids)},
+            "ids_differing_from_plain_in_ties": ties, "per_list_launches_per_search": per_search,
+            "killed": victims, "launches": counts}
+
+
+_DIST_WORKER = """
+import json, sys, time
+sys.path.insert(0, {repo!r})
+import numpy as np
+import torch
+import torch.distributed as dist
+from tpu_rag_torch.ops import topk as tk
+from tpu_rag_torch.parallel.distributed import load_sharded_flat_distributed, maybe_init_distributed
+
+t0 = time.perf_counter()
+assert maybe_init_distributed(backend="gloo", device="cuda")
+idx = load_sharded_flat_distributed({store!r}, dtype="bfloat16", device="cuda")
+load_s = time.perf_counter() - t0
+snap = idx.device_snapshot()
+q = np.load({queries!r})
+tk._exact_scan_cuda.launches = 0
+res = idx.search(q, 10)
+print("RESULT " + json.dumps({{"rank": dist.get_rank(), "world": dist.get_world_size(),
+      "backend": dist.get_backend(), "ids": res.ids, "sims": res.similarities,
+      "row0": snap["row0"], "rows": sum(int(t.shape[0]) for t in snap["vectors"]),
+      "devices": [str(t.device) for t in snap["vectors"]], "n_pad": snap["n_pad"],
+      "exact_launches": tk._exact_scan_cuda.launches, "load_s": load_s}}), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def _shard_distributed(work: Path) -> dict:
+    """Two processes on cuda:0 join a gloo group (NCCL takes one card a
+    rank), each loads its half of a saved SHARD_DIST_ROWS x 384 bf16 store
+    and answers the same 8 queries; both must give a single-process
+    load_index's ids (refined on the host, as the distributed index is)."""
+    import numpy as np
+
+    from tpu_rag_torch.index.flat import FlatIndex
+    from tpu_rag_torch.index.store import load_index, save_index
+
+    n, d = SHARD_DIST_ROWS, 384
+    x = _unit_rows(n, d, SEED + 11)
+    store = FlatIndex(d, dtype="bfloat16", device="cuda")
+    store._bulk_adopt_rows(x, (f"d-{i}" for i in range(n)), (("", {}) for _ in range(n)),
+                           count=n)
+    t0 = time.perf_counter()
+    save_index(store, work / "dist_store")
+    save_s = time.perf_counter() - t0
+    del store
+    rng = np.random.default_rng(SEED + 12)
+    q = x[rng.choice(n, 8, replace=False)] + 0.02 * rng.standard_normal((8, d), dtype=np.float32)
+    del x
+    np.save(work / "dist_queries.npy", q.astype(np.float32))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    code = _DIST_WORKER.format(repo=str(REPO), store=str(work / "dist_store"),
+                               queries=str(work / "dist_queries.npy"))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True,
+                              env={**os.environ, "MASTER_ADDR": "127.0.0.1",
+                                   "MASTER_PORT": str(port), "WORLD_SIZE": "2",
+                                   "RANK": str(rank)})
+             for rank in (0, 1)]
+    outs = []
+    try:
+        for pr in procs:
+            out, err = pr.communicate(timeout=300)
+            if pr.returncode != 0:
+                raise AssertionError(f"distributed worker exit {pr.returncode}:\n{err[-3000:]}")
+            outs.append(out)
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+    workers_s = time.perf_counter() - t0
+    results = sorted((json.loads(ln[len("RESULT "):]) for out in outs
+                      for ln in out.splitlines() if ln.startswith("RESULT ")),
+                     key=lambda r: r["rank"])
+    single = load_index(work / "dist_store", device="cuda")
+    single.device_refine = False             # refined on the host, as the shards are
+    want = single.search(q, 10)
+    del single
+    if [r["rank"] for r in results] != [0, 1] or any(r["backend"] != "gloo" for r in results):
+        raise AssertionError(f"distributed workers: {results}")
+    for r in results:
+        if r["ids"] != want.ids or r["exact_launches"] < 1 or r["devices"] != ["cuda:0"]:
+            raise AssertionError(f"rank {r['rank']}: ids {r['ids'][:1]} against "
+                                 f"{want.ids[:1]}, #1 launched {r['exact_launches']}")
+    if results[0]["ids"] != results[1]["ids"]:
+        raise AssertionError("the two ranks disagree")
+    return {"rows": n, "store_save_s": save_s, "workers_s": workers_s,
+            "ranks": [{k_: r[k_] for k_ in ("rank", "row0", "rows", "n_pad", "devices",
+                                           "exact_launches", "load_s")} for r in results],
+            "ids_equal_single_process": True, "backend": "gloo",
+            "nccl": "not run: NCCL takes one card a rank, and this machine has one card; "
+                    "the two ranks share cuda:0 over gloo"}
+
+
+def _start_rehearse_100m(work: Path):
+    """rehearse_100m in a process of its own (a clean anonymous-RSS
+    baseline), beside the other parts of the phase."""
+    out = open(work / "rehearse_100m.out", "w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tpu_rag_torch.scripts.rehearse_100m", "--device", "cuda",
+         "--shards", "8", "--rows", str(REHEARSE_100M_ROWS), "--dim", "384",
+         "--workdir", str(work / "rehearse_100m")],
+        cwd=str(REPO), stdout=out, stderr=subprocess.STDOUT, text=True)
+    return proc, out
+
+
+def phase_shard(work: Path) -> dict:
+    """The sharded serving path on SHARD_COUNT shards of cuda:0 (module
+    comment above): flat over HTTP, IVF, two gloo processes, and
+    rehearse_100m, which runs in its own process from the start."""
+    t0 = time.perf_counter()
+    proc, out = _start_rehearse_100m(work)
+    try:
+        parts, seconds = {}, {}
+        for name, run in (("flat", lambda: _shard_flat(work)), ("ivf", _shard_ivf),
+                          ("distributed", lambda: _shard_distributed(work))):
+            t1 = time.perf_counter()
+            _reset_counters()
+            parts[name] = run()
+            seconds[name] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        rc = proc.wait(timeout=900)
+        seconds["rehearse_100m_wait"] = time.perf_counter() - t1
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    out.seek(0)
+    text = out.read()
+    out.close()
+    lines = [ln for ln in text.splitlines() if ln.startswith("{")]
+    rep = json.loads(lines[-1]) if lines else {"error": text[-3000:]}
+    parts["rehearse_100m"] = rep
+    seconds["rehearse_100m_total"] = time.perf_counter() - t0
+    counts = {name: parts["flat"]["launches"][name] + parts["ivf"]["launches"][name]
+              for name in parts["flat"]["launches"]}
+    emit({"phase": "shard", "shards": SHARD_COUNT, "device": "cuda:0", "seconds": seconds,
+          **parts, "launches": counts})
+    if (rc != 0 or not rep.get("passed") or rep.get("device_bytes_in_budget")
+            or rep.get("rss_anon_peak_mb", 0) <= 0):
+        raise AssertionError(f"rehearse_100m (exit {rc}) did not pass on the card: {rep}")
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    all_phases = "build,kernels,serve,scale,ivf,host_ivf,train,scripts,rehearse,rerank_train"
+    all_phases = ("build,kernels,serve,scale,ivf,host_ivf,train,scripts,rehearse,shard,"
+                  "rerank_train")
     ap.add_argument("--phases", default=all_phases,
                     help=f"comma-separated subset of {all_phases}; rerank_train and "
                          f"scripts read what train writes")
@@ -3223,7 +3784,7 @@ def main() -> int:
             # corpus, the bi-encoder and the served store carry over
             trained = Path(stack.enter_context(tempfile.TemporaryDirectory(
                 prefix="chip_smoke_train_", dir=REPO / "build")))
-        seconds, backends, threads_left = {}, {}, {}
+        seconds, backends, threads_left, sharded = {}, {}, {}, {}
         if "build" in phases:
             t0 = time.perf_counter()
             phase_build()
@@ -3241,6 +3802,7 @@ def main() -> int:
                 "train": lambda _work: phase_train(trained, corpus),
                 "scripts": lambda _work: phase_scripts(trained, hnsw),
                 "rehearse": lambda work: phase_rehearse(work, corpus.result()[0]),
+                "shard": phase_shard,
                 "rerank_train": lambda _work: phase_rerank_train(trained, corpus.path)}
         for name, run in runs.items():
             if name in phases:
@@ -3251,6 +3813,8 @@ def main() -> int:
                         _wordpiece_backends() as built:
                     for kern, count in run(Path(work)).items():
                         launches[kern] = launches.get(kern, 0) + count
+                        if name == "shard":
+                            sharded[kern] = count
                 seconds[name] = time.perf_counter() - t0
                 backends[name] = sorted(set(built))
                 threads_left[name] = _threads(before)  # started and left running
@@ -3258,11 +3822,17 @@ def main() -> int:
                     raise AssertionError(f"the {name} phase tokenized in Python: {built}")
     emit({"phase_seconds": seconds, "wordpiece_backends": backends,
           "threads_left": threads_left})
-    for name, (whole, f32) in _SPLIT_COUNTERS.items():
-        if whole in launches:
-            launches[name] = launches[whole] - launches.get(f32, 0)
+    for counts in (launches, sharded):
+        for name, (whole, f32) in _SPLIT_COUNTERS.items():
+            if whole in counts:
+                counts[name] = counts[whole] - counts.get(f32, 0)
+    rows = rows + SHARD_ROWS
     for r in rows:
-        r["launches"] = launches.get(r.pop("counter"))
+        counter = r.pop("counter")
+        r["launches"] = launches.get(counter)
+        if sharded:
+            # the shard phase's share: its kernels launched on the shards
+            r["launches_sharded"] = sharded.get(counter)
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,9 @@ requests, transformers nor safetensors (the machine with the card has none
 of them) to import every module, serve /compose on the extractive backend
 and /search with rerank, and run `python -m tpu_rag_torch.scripts.<tool>
 --help` for every entry point (the native/ and baseline/ modules included,
-which tokenize and search in C++ built at first use); asking for CUDA without a card raises
-instead of falling back to the CPU."""
+which tokenize and search in C++ built at first use), and search the sharded
+indexes of parallel/; asking for CUDA without a card raises instead of
+falling back to the CPU."""
 
 import os
 import subprocess
@@ -52,11 +53,20 @@ hnsw = CpuHnswIndex(8, 8)
 hnsw.add(np.eye(8, dtype=np.float32))
 assert hnsw.search(np.eye(8, dtype=np.float32)[3:4], 1)[0].tolist() == [[3]]
 
+from tpu_rag_torch.parallel import ShardedFlatIndex, ShardedIVFIndex, mesh_from_spec
+from tpu_rag_torch.parallel.distributed import maybe_init_distributed
+rows = np.random.default_rng(0).standard_normal((600, 16)).astype(np.float32)
+for cls in (ShardedFlatIndex, ShardedIVFIndex):
+    sharded = cls(16, mesh=mesh_from_spec("data:2", ["cpu"] * 2))
+    sharded.add([f"r{i}" for i in range(600)], rows)
+    assert sharded.search(rows[7], 1).ids == [["r7"]]
+assert maybe_init_distributed(device="cpu") is False
+
 import runpy
 for tool in ("train_semantic", "train_reranker", "build_index", "ingest_docs", "bulk_import",
              "query_local", "rag_ask", "eval_recall", "prove_checkpoint", "bench_http",
-             "bench_scale", "rehearse_scale", "rehearse_host_ivf", "make_demo_corpus",
-             "md_to_json", "import_chat_history"):
+             "bench_scale", "rehearse_scale", "rehearse_host_ivf", "rehearse_100m",
+             "make_demo_corpus", "md_to_json", "import_chat_history"):
     sys.argv = [tool, "--help"]
     try:
         runpy.run_module("tpu_rag_torch.scripts." + tool, run_name="__main__")
@@ -78,7 +88,8 @@ def test_every_module_imports_with_jax_and_tpu_rag_blocked():
     assert "--biencoder" in out.stdout and "--embedding-weights" in out.stdout
     assert "--synthetic" in out.stdout and "--api" in out.stdout
     assert "--concurrency" in out.stdout and "--dim-model" in out.stdout   # the scale tools
-    assert int(out.stdout.strip().splitlines()[-1]) >= 91   # every module of the package
+    assert "--shards" in out.stdout                          # rehearse_100m
+    assert int(out.stdout.strip().splitlines()[-1]) >= 97   # every module of the package
 
 
 def test_cuda_without_a_card_raises(tmp_path):

@@ -258,9 +258,9 @@ def test_load_restores_params_and_resets_adamw(tmp_path):
 
 def test_mesh_of_more_than_one_device_raises():
     spec = BertSpec(**SPEC)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
         ContrastiveTrainer(spec, device="cpu", mesh={"data": 2, "model": 1})
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
         ContrastiveTrainer(spec, device="cpu", mesh={"data": 1, "model": 2})
     ContrastiveTrainer(spec, device="cpu", mesh={"data": 1, "model": 1})
 
@@ -464,6 +464,6 @@ def test_train_biencoder_on_cpu(tmp_path, monkeypatch):
                           "--batch", "4", "--seq-len", "32", "--device", "cpu"])
     enc = BiEncoder(weights_path=str(out), device="cpu")
     assert (enc.spec.hidden, enc.spec.layers, enc.spec.vocab_size) == (64, 2, 1024)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
         train_biencoder.main(["--pairs", str(pairs), "--out", str(out), "--device", "cpu",
                               "--mesh", "data:2,model:1"])

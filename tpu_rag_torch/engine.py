@@ -2,14 +2,18 @@
 
 Owns the encoder + cross-encoder + vector index (flat, or IVF with
 INDEX_KIND=ivf) + SQLite stores + LLM dispatcher and implements the ingest,
-retrieval, rerank and compose flows the HTTP routes call.  Sharding is not
-ported.
+retrieval, rerank and compose flows the HTTP routes call.  Where
+MESH_SHAPE names a "data" axis over two or more devices, the index is a
+ShardedFlatIndex over that axis and the encoder splits its batches over it
+(parallel/); under torch.distributed with more than one process, a saved
+store loads row-sharded across the processes (parallel/distributed.py).
 
 Errors raised by the kernels or by CUDA are not caught here: they reach the
 client as a 500 (or, for rerank, as /search's `rerank_error`) instead of an
 empty answer.  So a cross-encoder that fails to build raises on every
 rerank, where tpu_rag's engine remembers the failure and serves unreranked
-hits from then on.
+hits from then on.  Likewise a distributed load that fails raises, where
+tpu_rag's engine logs it and falls back to a replicated load.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from collections import OrderedDict
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from tpu_rag_torch.compose.history import format_history_block, update_thread_summary
 from tpu_rag_torch.compose.language import norm_lang
@@ -96,11 +101,32 @@ class RagEngine:
 
     # ------------------------------------------------------------ components
 
+    def _mesh(self):
+        """Device mesh from MESH_SHAPE (None when unset or below two
+        devices: nothing to shard over).  On cuda the mesh spans
+        torch.cuda.device_count() cards; the CPU counts as one device."""
+        if not self.config.mesh_shape:
+            return None
+        if getattr(self, "_mesh_cache", None) is None:
+            from tpu_rag_torch.parallel.mesh import mesh_from_spec
+            count = torch.cuda.device_count() if self.device.type == "cuda" else 1
+            self._mesh_cache = (mesh_from_spec(self.config.mesh_shape) if count >= 2
+                                else False)
+        return self._mesh_cache or None
+
+    def _data_mesh(self):
+        """The mesh when it has a "data" axis larger than 1, else None."""
+        mesh = self._mesh()
+        if mesh is not None and mesh.shape.get("data", 1) > 1:
+            return mesh
+        return None
+
     @property
     def encoder(self):
         if self._encoder is None:
             from tpu_rag_torch.models.biencoder import BiEncoder
             cfg = self.config
+            mesh = self._mesh()
             self._encoder = BiEncoder(
                 cfg.embedding_model,
                 weights_path=cfg.embedding_weights,
@@ -108,6 +134,7 @@ class RagEngine:
                 seq_len=cfg.embed_seq_len,
                 batch=cfg.embed_batch,
                 device=self.device,
+                mesh=mesh if (mesh is not None and "data" in mesh.shape) else None,
             )
         return self._encoder
 
@@ -143,16 +170,39 @@ class RagEngine:
         cfg = self.config
         p = self._index_path()
         if (p / MANIFEST).is_file():
+            import torch.distributed as dist
+
+            if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+                # several processes: each loads only its row shard (read-only
+                # serving; re-shard by rebuilding the store).  A failure
+                # raises: no process falls back to a replicated load
+                from tpu_rag_torch.parallel.distributed import load_sharded_flat_distributed
+                return load_sharded_flat_distributed(
+                    p, mesh=self._data_mesh(), dtype=cfg.index_dtype, block_n=cfg.block_n,
+                    device=str(self.device))
             # the configured search mode holds for a loaded store too (the JAX
             # engine drops it there, so INDEX_SEARCH_MODE did nothing on it)
-            return load_index(p, block_n=cfg.block_n, search_mode=cfg.index_search_mode,
-                              device=self.device)
+            loaded = load_index(p, block_n=cfg.block_n, search_mode=cfg.index_search_mode,
+                                device=self.device)
+            mesh = self._data_mesh()
+            if type(loaded) is FlatIndex and mesh is not None:
+                from tpu_rag_torch.parallel.sharded import ShardedFlatIndex
+                loaded = ShardedFlatIndex.from_state(
+                    loaded.state(), mesh=mesh, block_n=cfg.block_n,
+                    search_mode=cfg.index_search_mode)
+            return loaded
         kw = dict(dtype=cfg.index_dtype, block_n=cfg.block_n,
                   search_mode=cfg.index_search_mode, device=self.device)
         if cfg.index_kind == "ivf":
             return IVFIndex(self.encoder.dim, nlist=cfg.ivf_nlist, nprobe=cfg.ivf_nprobe, **kw)
         if cfg.index_kind != "flat":
             raise ValueError(f"unknown INDEX_KIND={cfg.index_kind!r}: expected flat or ivf")
+        mesh = self._data_mesh()
+        if mesh is not None:
+            from tpu_rag_torch.parallel.sharded import ShardedFlatIndex
+            # search_mode passes through: "auto" resolves per SHARD size
+            del kw["device"]
+            return ShardedFlatIndex(self.encoder.dim, mesh=mesh, **kw)
         return FlatIndex(self.encoder.dim, **kw)
 
     def persist_index(self) -> None:

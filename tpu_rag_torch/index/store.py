@@ -201,11 +201,14 @@ def _load_opened(manifest: dict, opened: dict, overrides: dict) -> FlatIndex:
         np.zeros((0, dim), np.float32)
     ids = iter_store_ids(opened["ids"])
     ivf_cfg = manifest.get("ivf", {})
-    if manifest["kind"] == "ivf":
+    # a sharded index saves its rows like any other: it loads unsharded
+    # (the engine shards it again over its mesh)
+    is_ivf = manifest["kind"] in ("ivf", "sharded_ivf")
+    if is_ivf:
         overrides.setdefault("nlist", ivf_cfg.get("nlist", 0))
         overrides.setdefault("nprobe", ivf_cfg.get("nprobe", 8))
         cls = IVFIndex
-    elif manifest["kind"] == "flat":
+    elif manifest["kind"] in ("flat", "sharded_flat", "dist_flat"):
         cls = FlatIndex
     else:
         raise ValueError(f"unknown index kind {manifest['kind']!r}")
@@ -223,7 +226,7 @@ def _load_opened(manifest: dict, opened: dict, overrides: dict) -> FlatIndex:
 
     if count:
         idx._bulk_adopt_rows(vectors, ids, _doc_meta_iter(), count=count)
-    if manifest["kind"] == "ivf" and "centroids" in ivf_cfg:
+    if is_ivf and "centroids" in ivf_cfg:
         shape = tuple(ivf_cfg["centroids_shape"])
         idx._cached_centroids = np.fromfile(
             opened["centroids"], dtype=np.float32).reshape(shape)

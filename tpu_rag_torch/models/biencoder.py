@@ -14,6 +14,13 @@ weights, weights drawn from a torch.Generator seeded by the model name —
 index-time and query-time embeddings agree, which is all retrieval needs.
 They are not the JAX package's seeded numbers: parity tests carry params
 across instead.
+
+Data parallelism: with a `mesh` whose "data" axis is larger than 1, the
+batch is rounded up to a multiple of that axis and each data device embeds
+its contiguous slice of every batch with its own replica of the weights
+(devices named more than once share one replica).  Every slice is launched
+before any is read back.  A "model" axis larger than 1 (tensor
+parallelism) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -94,7 +101,17 @@ class BiEncoder:
         spec: BertSpec | None = None,
         device: str | torch.device = "cuda",
         state_dict: dict[str, torch.Tensor] | None = None,
+        mesh=None,
     ) -> None:
+        self._data_devices: list[torch.device] = []
+        if mesh is not None:
+            if mesh.shape.get("model", 1) > 1:
+                raise NotImplementedError(
+                    "tensor parallelism over a \"model\" mesh axis is not ported yet "
+                    "(ROADMAP.md queue 1 item 3); use a data-only mesh")
+            if mesh.shape.get("data", 1) > 1:
+                self._data_devices = mesh.axis_devices("data")
+                device = self._data_devices[0]
         self.device = resolve(device)
         self.model_name = model_name
         if spec is None and weights_path:
@@ -123,17 +140,28 @@ class BiEncoder:
             state_dict if state_dict is not None
             else init_params(self.spec, _seed_from_name(model_name)))
         self.module.to(self.device).eval()
+        # one replica per distinct data device (the first is self.module)
+        self._replicas: dict[torch.device, torch.nn.Module] = {self.device: self.module}
+        for dev in self._data_devices:
+            if dev not in self._replicas:
+                rep = BertEncoder(self.spec, compute_dtype=self.compute_dtype)
+                rep.load_state_dict(self.module.state_dict())
+                self._replicas[dev] = rep.to(dev).eval()
+        unit = max(1, len(self._data_devices))
+        self.batch = -(-self.batch // unit) * unit   # divisible by the data axis
 
     @property
     def dim(self) -> int:
         return self.spec.hidden
 
     def _bucket(self, n: int) -> int:
-        # power-of-two batch ladder up to self.batch
+        # power-of-two batch ladder up to self.batch, each a multiple of
+        # the data axis
+        unit = max(1, len(self._data_devices))
         for b in (8, 16, 32, 64, 128, 256, 512):
-            if n <= b <= self.batch:
+            if n <= b <= self.batch and b % unit == 0:
                 return b
-        return self.batch
+        return max(self.batch, unit)
 
     def _seq_bucket(self, longest_row: int) -> int:
         for t in self.SEQ_BUCKETS:
@@ -142,13 +170,25 @@ class BiEncoder:
         return self.seq_len
 
     @torch.no_grad()
+    def _forward_on(self, module: torch.nn.Module, ids, device: torch.device) -> torch.Tensor:
+        ids_t = torch.as_tensor(ids).to(device).to(torch.int64)
+        mask = (ids_t != self.pad_id).to(torch.int32)
+        hidden = module(ids_t, mask)
+        return l2_normalize(mean_pool(hidden, mask).to(torch.float32))
+
+    @torch.no_grad()
     def forward_ids(self, ids) -> torch.Tensor:
         """(B, T) ids (numpy or tensor, any int dtype) -> (B, dim) f32
-        L2-normalized embeddings on the device; mask = ids != pad_id."""
-        ids_t = torch.as_tensor(ids).to(self.device).to(torch.int64)
-        mask = (ids_t != self.pad_id).to(torch.int32)
-        hidden = self.module(ids_t, mask)
-        return l2_normalize(mean_pool(hidden, mask).to(torch.float32))
+        L2-normalized embeddings on the device; mask = ids != pad_id.  On a
+        data mesh each data device embeds a contiguous slice of
+        ceil(B / shards) rows."""
+        if not self._data_devices:
+            return self._forward_on(self.module, ids, self.device)
+        ids_t = torch.as_tensor(ids)
+        step = -(-ids_t.shape[0] // len(self._data_devices))
+        parts = [self._forward_on(self._replicas[dev], ids_t[i * step:(i + 1) * step], dev)
+                 for i, dev in enumerate(self._data_devices) if i * step < ids_t.shape[0]]
+        return torch.cat([p.to(self.device) for p in parts], dim=0)
 
     def _assemble(self, toks: list[list[int]], b: int, t: int) -> np.ndarray:
         cls_id, sep_id, pad_id = _special_ids(self.tokenizer)

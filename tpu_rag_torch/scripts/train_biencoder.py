@@ -63,7 +63,8 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--lr", type=float, default=2e-5)
     ap.add_argument("--tau", type=float, default=0.05)
-    ap.add_argument("--mesh", default="", help='"" or "data:1,model:1" (one device)')
+    ap.add_argument("--mesh", default="", help='"" or "data:1,model:1" (one device; multi-card '
+                    'training is ROADMAP.md queue 1 item 3)')
     ap.add_argument("--device", default="cuda", help="cuda or cpu")
     args = ap.parse_args(argv)
 

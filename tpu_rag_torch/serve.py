@@ -2,7 +2,10 @@
 
 Mirrors scripts/serve.py of the JAX package.  Configuration comes from the
 environment (config_from_env: PERSIST_DIR, EMBEDDING_MODEL, INDEX_DTYPE,
-DEVICE=cuda|cpu, ...); --host/--port override HOST/PORT.
+DEVICE=cuda|cpu, MESH_SHAPE, ...); --host/--port override HOST/PORT.  Under
+torchrun (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK set) it joins the
+process group first and each process serves its row shard of the store
+(parallel/distributed.py).
 """
 
 from __future__ import annotations
@@ -24,8 +27,10 @@ def main() -> None:
     from tpu_rag_torch.api.app import create_app
     from tpu_rag_torch.api.server import run_app
     from tpu_rag_torch.config import config_from_env
+    from tpu_rag_torch.parallel.distributed import maybe_init_distributed
 
     cfg = config_from_env()
+    maybe_init_distributed(device=cfg.device)
     if args.host:
         cfg.host = args.host
     if args.port:

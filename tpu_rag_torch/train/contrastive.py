@@ -88,7 +88,7 @@ class ContrastiveTrainer:
         if mesh and math.prod(mesh.values()) > 1:
             raise NotImplementedError(
                 f"mesh {mesh}: the port trains on one device; multi-card "
-                "data/tensor parallel training is ROADMAP.md queue 1 item 4")
+                "data/tensor parallel training is ROADMAP.md queue 1 item 3")
         self.device = resolve(device)
         self.spec = spec
         self.tau = tau
