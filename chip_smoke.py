@@ -9,7 +9,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
            all sources in parallel, into build/tpu_rag_torch/;
   kernels  hold each kernel against its plain PyTorch version on the card at
            the main path's shapes, d 384 and bge-base's d 768 (head dim 64
-           for #5), and time kernel, plain version and one library call
+           for #5, and one model rank's 6 or 3 heads), and time kernel, plain version and one library call
            (CUDA events, median); every launch plan at d 384 and 768 against
            the kernels' own shared-memory arithmetic;
   serve    a 1,000,000 x 384 flat store (bf16, exact scan) behind the real
@@ -70,6 +70,19 @@ Phases, each printing one JSON line (any failure exits non-zero):
            on cuda:0 loading their halves of a 1,000,000 x 384 bf16 store;
            and rehearse_100m (8 shards, 384 wide, rows cut as PERF.md
            section 4 says) in a process of its own beside them;
+  tp       data x tensor parallel on data:2,model:2 of cuda:0 named 4
+           times: bge-base (12 heads of 64, 6 a model rank) over a
+           1,000,000 x 768 bf16 ShardedFlatIndex (2 data shards) behind the
+           HTTP server, 64 /docs/save and 32 /search (each doc its own top
+           hit; #5 once a layer, rank and data slice of every T >= 128
+           forward, #1 once a data shard a window), its embeddings against
+           the unsharded encoder on the card (cosine >= 0.999) and the
+           CPU's f32 forward (>= 0.99); bge-base at model:4 (3 heads a
+           rank) over 256 documents at T 256; the DP x TP contrastive
+           trainer (MiniLM-L6, batch 512, T 128 / 48): 3 f32 steps against
+           the unsharded trainer, 30 bf16 steps (the loss falls, no kernel
+           launches), ms/step beside the unsharded step's, the gathered
+           checkpoint served unsharded;
   rerank_train  train_reranker at MiniLM-L6 width over the train phase's
            corpus and bi-encoder (batch 256 pairs, T 160, bf16, 1,500 steps
            at lr 1e-4) with a val eval and two mining rounds: every step
@@ -470,6 +483,10 @@ def phase_kernels() -> list[dict]:
     for hd in (32, 64):
         for t in (256, 512, 160):
             rows.append(_attention_row(g, 64, t, 12, hd, torch.float32))
+    # ---- #5 on one model rank's heads (the tp phase): bge-base at
+    # model:2 (H 6) and model:4 (H 3), D 64, and MiniLM's D 32 at H 6
+    for b, h, hd in ((64, 6, 64), (64, 3, 64), (32, 6, 32)):
+        rows.append(_attention_row(g, b, 256, h, hd))
     rows += _probe_kernel_rows(g)
     rows += _probe_kernel_rows(g, d=768, dtypes=(torch.int8,))
     rows += _probe_float_rows(g)
@@ -3198,11 +3215,12 @@ def phase_rehearse(work: Path, corpus: Path) -> dict:
 # nprobe 64: #6 on every shard); two gloo processes loading their halves of
 # a 1,000,000 x 384 bf16 store; and rehearse_100m cut from 100M rows to
 # REHEARSE_100M_ROWS (PERF.md section 4: its SQLite ingest runs ~46,000
-# rows/s, and at 10M rows it held the phase 140 s past its other parts)
+# rows/s; at 10M rows it held the phase 140 s past its other parts, at 6M
+# 17.5 s, with the whole run, the tp phase added, at 1,002 s)
 SHARD_COUNT = 4
 SHARD_FLAT_ROWS, SHARD_IVF_ROWS, SHARD_DIST_ROWS = 4_000_000, 2_000_000, 1_000_000
 SHARD_IVF_NLIST, SHARD_IVF_NPROBE = 1024, 64
-REHEARSE_100M_ROWS = 6_000_000
+REHEARSE_100M_ROWS = 4_000_000
 # the shard phase's kernel rows (#1 and #6 on one shard's own tensors),
 # added to the kernels line by main()
 SHARD_ROWS: list[dict] = []
@@ -3736,9 +3754,298 @@ def phase_shard(work: Path) -> dict:
     return counts
 
 
+# tp: data x tensor parallel on TP_MESH, cuda:0 named once a mesh entry
+# (the ranks and data positions run one after another).  Serving: bge-base
+# (768 wide, 12 heads of 64: 6 a rank) over TP_ROWS bf16 rows in two data
+# shards, behind the HTTP server (TP_DOCS /docs/save, TP_QUERIES /search at
+# k 5); an embed-only check at model:4 (3 heads a rank) over TP_M4_DOCS at
+# T 256.  Training: MiniLM-L6 at batch TP_BATCH, T TP_D_LEN / TP_Q_LEN:
+# TP_PARITY_STEPS f32 steps against the unsharded trainer from one init
+# (losses within TP_LOSS_RTOL relative, parameters within TP_PARAM_TOL, the
+# key biases within Adam's bound of the start: their true gradient is
+# zero), then TP_TRAIN_STEPS bf16 steps over seeded batches whose queries
+# are drawn from their documents' tokens, and TP_TIMED_STEPS of the
+# unsharded step beside them.  Embeddings: TP against unsharded on the card
+# at cosine >= TP_COS_CARD per row, against the CPU's f32 forward at
+# >= TP_COS_CPU (the train phase's tolerance)
+TP_MESH, TP_MODEL = "data:2,model:2", "BAAI/bge-base-en-v1.5"
+TP_ROWS, TP_DOCS, TP_QUERIES, TP_M4_DOCS = 1_000_000, 64, 32, 256
+TP_BATCH, TP_Q_LEN, TP_D_LEN, TP_LR = 512, 48, 128, 1e-4
+TP_PARITY_STEPS, TP_TRAIN_STEPS, TP_TIMED_STEPS = 3, 30, 10
+# parameters: half of one Adam step (an element that stepped the other way
+# once would be 2 lr apart); at MiniLM's width on the CPU (2 layers, batch
+# 64) they stayed within 0.08 lr
+TP_LOSS_RTOL, TP_PARAM_TOL = 1e-4, TP_LR / 2
+TP_COS_CARD, TP_COS_CPU = 0.999, 0.99
+
+
+def _cos_min(a, b) -> float:
+    """The least cosine of two row-aligned sets of unit rows."""
+    import numpy as np
+
+    return float(np.min(np.sum(np.asarray(a) * np.asarray(b), axis=1)))
+
+
+def _tp_serve(work: Path) -> dict:
+    """bge-base served data x tensor parallel over HTTP (module comment
+    above), its launches counted; then its embeddings against the
+    unsharded encoder on the card and the CPU's f32 forward, and the
+    model:4 embed."""
+    import torch
+
+    from tpu_rag_torch.config import Config
+    from tpu_rag_torch.engine import RagEngine
+    from tpu_rag_torch.models.bert import TensorParallelEncoder
+    from tpu_rag_torch.models.biencoder import BiEncoder, spec_for_model
+    from tpu_rag_torch.models.hf_export import write_safetensors
+    from tpu_rag_torch.parallel import ShardedFlatIndex, mesh_from_spec
+
+    spec, seconds = spec_for_model(TP_MODEL), {}
+    t0 = time.perf_counter()
+    bi_dir = work / "bge-base"
+    bi_dir.mkdir()
+    write_safetensors(bi_dir / "model.safetensors",
+                      _seeded_checkpoint(_hf_bert_shapes(spec), SEED + 13))
+    mesh = mesh_from_spec(TP_MESH, ["cuda:0"] * 4)
+    encoder = BiEncoder(TP_MODEL, weights_path=str(bi_dir), device="cuda", mesh=mesh)
+    ranks = [s.layers[0].attention.heads for s in encoder.module.shards]
+    if (not isinstance(encoder.module, TensorParallelEncoder) or len(encoder._groups) != 2
+            or ranks != [spec.heads // 2] * 2):
+        raise AssertionError(f"the encoder on {TP_MESH} is not 2 groups of 2 ranks: "
+                             f"{type(encoder.module).__name__}, {ranks}")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    x = torch.randn((TP_ROWS, spec.hidden), generator=g, device="cuda")
+    x = torch.nn.functional.normalize(x, dim=1).cpu().numpy()
+    index = ShardedFlatIndex(spec.hidden, mesh=mesh, dtype="bfloat16", search_mode="exact",
+                             master_backing="ram")
+    index._bulk_adopt_rows(x, (f"syn-{i}" for i in range(TP_ROWS)),
+                           (("", {}) for _ in range(TP_ROWS)), count=TP_ROWS)
+    del x
+    seconds["setup"] = time.perf_counter() - t0
+    cfg = Config(persist_dir=str(work / "vs"), kb_db_path=str(work / "db" / "kb.sqlite3"),
+                 db_path=str(work / "db" / "app.sqlite3"), docs_dir=str(work / "docs"),
+                 embedding_model=TP_MODEL, embedding_weights=str(bi_dir), mesh_shape=TP_MESH,
+                 model_priority=("extractive",), summarize_mode="off", host="127.0.0.1",
+                 device="cuda")
+    engine = RagEngine(cfg, encoder=encoder, index=index)
+    engine.indexer.persist_fn = None
+    calls = []                                   # the (B, T) of every TP forward
+    forward = encoder.forward_ids
+    encoder.forward_ids = lambda ids: calls.append(tuple(ids.shape)) or forward(ids)
+    texts = [_doc_text(i + 200) for i in range(TP_DOCS)]
+    with _served(cfg, engine) as (_app, engine, _health):
+        t0 = time.perf_counter()
+        saved = [_http(cfg.port, "POST", "/docs/save",
+                       {"title": f"TP doc {i}", "content": text,
+                        "metadata": {"namespace": "tp"}})["id"]
+                 for i, text in enumerate(texts)]
+        while index.count() < TP_ROWS + TP_DOCS:
+            if time.perf_counter() - t0 > 600:
+                raise TimeoutError("background indexing did not finish")
+            time.sleep(0.1)
+        seconds["docs_index"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _http(cfg.port, "POST", "/search", {"query": "first light", "k": 5})
+        seconds["build_and_first_search"] = time.perf_counter() - t0   # the shards' build
+        t0 = time.perf_counter()
+        windows, lat = [], []
+        for i in range(TP_QUERIES):                      # one window a request
+            before = _read_counters()["exact"]
+            t1 = time.perf_counter()
+            r = _http(cfg.port, "POST", "/search", {"query": texts[i], "k": 5})
+            lat.append((time.perf_counter() - t1) * 1e3)
+            windows.append(_read_counters()["exact"] - before)
+            if r["hits"][0]["id"] != saved[i]:
+                raise AssertionError(f"saved doc {i} is not its own top hit: {r['hits'][0]}")
+        seconds["search"] = time.perf_counter() - t0
+        counts = _read_counters()
+    encoder.forward_ids = forward
+    long_calls = sum(1 for _b, t in calls if t >= 128)
+    mha_min = spec.layers * 2 * 2 * long_calls           # layers x ranks x data slices
+    if counts["mha"] < mha_min or min(windows) < 2:
+        raise AssertionError(f"#5 launched {counts['mha']} times for {long_calls} forwards "
+                             f"at T >= 128 (at least {mha_min}); #1 {windows} a window "
+                             f"(at least one a data shard)")
+
+    # the same documents through the unsharded encoder on the card and on
+    # the CPU in f32 (comparisons: their launches are not the path's)
+    t0 = time.perf_counter()
+    tp_emb = encoder.embed(texts)
+    single = BiEncoder(TP_MODEL, weights_path=str(bi_dir), device="cuda")
+    card_emb = single.embed(texts)
+    cpu_emb = BiEncoder(TP_MODEL, weights_path=str(bi_dir), device="cpu").embed(texts)
+    cos = {"tp_vs_card": _cos_min(tp_emb, card_emb), "tp_vs_cpu_f32": _cos_min(tp_emb, cpu_emb)}
+    seconds["compare"] = time.perf_counter() - t0
+    del encoder, engine, index
+    torch.cuda.empty_cache()
+
+    # model:4: 3 heads a rank, one group, the embed alone
+    t0 = time.perf_counter()
+    enc4 = BiEncoder(TP_MODEL, weights_path=str(bi_dir), device="cuda",
+                     mesh=mesh_from_spec("model:4", ["cuda:0"] * 4))
+    docs4 = [_doc_text(i + 1000) for i in range(TP_M4_DOCS)]
+    _reset_counters()
+    emb4 = enc4.embed(docs4)
+    counts4 = _read_counters()
+    cos["model4_vs_card"] = _cos_min(emb4, single.embed(docs4))
+    seconds["model4"] = time.perf_counter() - t0
+    heads4, batch4 = [s.layers[0].attention.heads for s in enc4.module.shards], enc4.batch
+    batches4 = -(-TP_M4_DOCS // batch4)
+    if heads4 != [spec.heads // 4] * 4 or counts4["mha"] < spec.layers * 4 * batches4:
+        raise AssertionError(f"model:4: heads a rank {heads4}, #5 {counts4['mha']} times "
+                             f"(at least {spec.layers * 4 * batches4})")
+    if not (cos["tp_vs_card"] >= TP_COS_CARD and cos["model4_vs_card"] >= TP_COS_CARD
+            and cos["tp_vs_cpu_f32"] >= TP_COS_CPU):
+        raise AssertionError(f"TP embeddings: cosines {cos}")
+    del enc4, single
+    torch.cuda.empty_cache()
+    return {"model": TP_MODEL, "mesh": TP_MESH, "rows": TP_ROWS, "docs": TP_DOCS,
+            "seconds": seconds, "search_ms": lat, "search_ms_p50": statistics.median(lat),
+            "exact_launches_per_window": windows, "tp_forwards": len(calls),
+            "tp_forwards_t128_plus": long_calls, "mha_launches_min": mha_min,
+            "embed_cos_min": cos, "embed_cos_tolerance": {"card": TP_COS_CARD,
+                                                          "cpu_f32": TP_COS_CPU},
+            "model4": {"heads_a_rank": heads4, "docs": TP_M4_DOCS, "batch": batch4,
+                       "launches": counts4},
+            "launches_http": counts,
+            "launches": {name: counts[name] + counts4[name] for name in counts}}
+
+
+def _tp_batches(rng, n: int, vocab: int):
+    """Seeded contrastive batches: documents of TP_D_LEN / 2 to TP_D_LEN
+    random tokens (pad 0 after), each query TP_Q_LEN tokens drawn from its
+    document's, so the pairs can be learned."""
+    import numpy as np
+
+    out = []
+    for _ in range(n):
+        d_ids = rng.integers(1000, vocab, (TP_BATCH, TP_D_LEN))
+        lens = rng.integers(TP_D_LEN // 2, TP_D_LEN + 1, TP_BATCH)
+        d_mask = (np.arange(TP_D_LEN)[None, :] < lens[:, None]).astype(np.int64)
+        d_ids *= d_mask
+        pick = (rng.random((TP_BATCH, TP_Q_LEN)) * lens[:, None]).astype(np.int64)
+        q_ids = np.take_along_axis(d_ids, pick, axis=1)
+        out.append({"q_ids": q_ids, "q_mask": np.ones_like(q_ids), "d_ids": d_ids,
+                    "d_mask": d_mask})
+    return out
+
+
+def _tp_train(work: Path) -> dict:
+    """The DP x TP contrastive trainer (module comment above)."""
+    import numpy as np
+    import torch
+
+    from tpu_rag_torch.models.biencoder import BiEncoder, init_params, spec_for_model
+    from tpu_rag_torch.parallel import mesh_from_spec
+    from tpu_rag_torch.train.contrastive import ContrastiveTrainer
+
+    spec, cuda, seconds = spec_for_model("minilm-l6"), torch.device("cuda:0"), {}
+    mesh = mesh_from_spec(TP_MESH, ["cuda:0"] * 4)
+    rng = np.random.default_rng(SEED + 15)
+
+    # parity: f32, one init (init_params(spec, SEED) in both)
+    t0 = time.perf_counter()
+    tp = ContrastiveTrainer(spec, lr=TP_LR, device=cuda, mesh=mesh, seed=SEED)
+    ref = ContrastiveTrainer(spec, lr=TP_LR, device=cuda, seed=SEED)
+    losses = [(tp.train_step(b), ref.train_step(b))
+              for b in _tp_batches(rng, TP_PARITY_STEPS, spec.vocab_size)]
+    start = init_params(spec, SEED)
+    got, want = tp.module.state_dict(), ref.module.state_dict()
+    key_bias = {f"layers.{i}.attention.key.bias" for i in range(spec.layers)}
+    param_diff = max(float((got[n] - want[n]).abs().max()) for n in want if n not in key_bias)
+    key_moved = max(float((sd[n].cpu() - start[n]).abs().max())
+                    for n in key_bias for sd in (got, want))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in losses)
+    seconds["parity"] = time.perf_counter() - t0
+    if not (loss_rel <= TP_LOSS_RTOL and param_diff <= TP_PARAM_TOL
+            and key_moved <= TP_PARITY_STEPS * TP_LR * 1.01):
+        raise AssertionError(f"DP x TP f32 steps against unsharded: losses {losses} "
+                             f"(relative {loss_rel}), parameters {param_diff}, key biases "
+                             f"moved {key_moved}")
+    del tp, ref, got, want
+    torch.cuda.empty_cache()
+
+    # bf16: TP_TRAIN_STEPS timed steps, no kernel launched
+    trainer = ContrastiveTrainer(spec, lr=TP_LR, compute_dtype=torch.bfloat16, device=cuda,
+                                 mesh=mesh, seed=SEED)
+    batches = _tp_batches(rng, TP_TRAIN_STEPS, spec.vocab_size)
+
+    def timed(tr, batch) -> tuple[float, float]:
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        loss = tr.train_step(batch)
+        b.record()
+        b.synchronize()
+        return loss, a.elapsed_time(b)
+
+    t0 = time.perf_counter()
+    _reset_counters()
+    steps = [timed(trainer, b) for b in batches]
+    counts = _read_counters()
+    seconds["train_bf16"] = time.perf_counter() - t0
+    losses_bf16 = [loss for loss, _ms in steps]
+    first, last = statistics.mean(losses_bf16[:5]), statistics.mean(losses_bf16[-5:])
+    if any(counts.values()) or not (all(map(math.isfinite, losses_bf16)) and last < first):
+        raise AssertionError(f"bf16 DP x TP training: launches {counts}, losses first 5 "
+                             f"{first}, last 5 {last}")
+    t0 = time.perf_counter()
+    single = ContrastiveTrainer(spec, lr=TP_LR, compute_dtype=torch.bfloat16, device=cuda,
+                                seed=SEED)
+    single_ms = [timed(single, b)[1] for b in batches[:TP_TIMED_STEPS + 2]][2:]
+    flops = _train_step_flops(single.module, TP_BATCH, TP_Q_LEN, TP_D_LEN)
+    del single
+    seconds["unsharded_steps"] = time.perf_counter() - t0
+
+    # the gathered checkpoint, served unsharded, against the TP module
+    t0 = time.perf_counter()
+    ckpt = work / "tp-trained"
+    trainer.save(ckpt)
+    enc = BiEncoder("minilm-l6-tp-trained", weights_path=str(ckpt), device="cuda",
+                    seq_len=TP_D_LEN, batch=64)
+    if enc.spec != spec or enc.pad_id != 0:
+        raise AssertionError(f"the gathered checkpoint: {enc.spec}, pad id {enc.pad_id}")
+    ids = batches[0]["d_ids"][:64]
+    served = enc.forward_ids(ids).cpu().numpy()
+    with torch.no_grad():
+        ids_t = torch.as_tensor(ids, device=cuda)
+        tp_emb = trainer._embed(ids_t, (ids_t != 0).to(torch.int64)).cpu().numpy()
+    ckpt_cos = _cos_min(served, tp_emb)
+    seconds["checkpoint"] = time.perf_counter() - t0
+    if not ckpt_cos >= TP_COS_CARD:
+        raise AssertionError(f"the gathered checkpoint served unsharded: cosine {ckpt_cos}")
+    tp_ms = sorted(ms for _loss, ms in steps[2:])
+    return {"model": "minilm-l6", "mesh": TP_MESH, "batch": TP_BATCH, "q_len": TP_Q_LEN,
+            "d_len": TP_D_LEN, "lr": TP_LR, "seconds": seconds,
+            "parity_f32": {"losses_tp_unsharded": losses, "loss_rel_max": loss_rel,
+                           "param_abs_max": param_diff, "key_bias_moved_max": key_moved,
+                           "tolerance": {"loss_rel": TP_LOSS_RTOL, "param": TP_PARAM_TOL}},
+            "bf16": {"loss_first": losses_bf16[0], "loss_last": losses_bf16[-1],
+                     "loss_first5_mean": first, "loss_last5_mean": last,
+                     "step_ms_p50": statistics.median(tp_ms), "step_ms_min": tp_ms[0],
+                     "unsharded_step_ms_p50": statistics.median(single_ms),
+                     "unsharded_step_ms_min": min(single_ms),
+                     "step_tflop": flops / 1e12,
+                     "bf16_peak_share": flops / (statistics.median(tp_ms) / 1e3)
+                                        / PEAK_OPS_S["bf16"]},
+            "training_launches": counts, "checkpoint_cos_min_unsharded_vs_tp": ckpt_cos}
+
+
+def phase_tp(work: Path) -> dict:
+    """Data x tensor parallel serving and training on TP_MESH of cuda:0
+    (module comment above TP_MESH)."""
+    t0 = time.perf_counter()
+    serve = _tp_serve(work)
+    t1 = time.perf_counter()
+    train = _tp_train(work)
+    emit({"phase": "tp", "device": "cuda:0", "seconds": {"serve": t1 - t0,
+                                                        "train": time.perf_counter() - t1},
+          "serve": serve, "train": train})
+    return serve["launches"]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    all_phases = ("build,kernels,serve,scale,ivf,host_ivf,train,scripts,rehearse,shard,"
+    all_phases = ("build,kernels,serve,scale,ivf,host_ivf,train,scripts,rehearse,shard,tp,"
                   "rerank_train")
     ap.add_argument("--phases", default=all_phases,
                     help=f"comma-separated subset of {all_phases}; rerank_train and "
@@ -3784,7 +4091,7 @@ def main() -> int:
             # corpus, the bi-encoder and the served store carry over
             trained = Path(stack.enter_context(tempfile.TemporaryDirectory(
                 prefix="chip_smoke_train_", dir=REPO / "build")))
-        seconds, backends, threads_left, sharded = {}, {}, {}, {}
+        seconds, backends, threads_left, sharded, tp_counts = {}, {}, {}, {}, {}
         if "build" in phases:
             t0 = time.perf_counter()
             phase_build()
@@ -3802,7 +4109,7 @@ def main() -> int:
                 "train": lambda _work: phase_train(trained, corpus),
                 "scripts": lambda _work: phase_scripts(trained, hnsw),
                 "rehearse": lambda work: phase_rehearse(work, corpus.result()[0]),
-                "shard": phase_shard,
+                "shard": phase_shard, "tp": phase_tp,
                 "rerank_train": lambda _work: phase_rerank_train(trained, corpus.path)}
         for name, run in runs.items():
             if name in phases:
@@ -3815,6 +4122,8 @@ def main() -> int:
                         launches[kern] = launches.get(kern, 0) + count
                         if name == "shard":
                             sharded[kern] = count
+                        if name == "tp":
+                            tp_counts[kern] = count
                 seconds[name] = time.perf_counter() - t0
                 backends[name] = sorted(set(built))
                 threads_left[name] = _threads(before)  # started and left running
@@ -3822,7 +4131,7 @@ def main() -> int:
                     raise AssertionError(f"the {name} phase tokenized in Python: {built}")
     emit({"phase_seconds": seconds, "wordpiece_backends": backends,
           "threads_left": threads_left})
-    for counts in (launches, sharded):
+    for counts in (launches, sharded, tp_counts):
         for name, (whole, f32) in _SPLIT_COUNTERS.items():
             if whole in counts:
                 counts[name] = counts[whole] - counts.get(f32, 0)
@@ -3833,6 +4142,9 @@ def main() -> int:
         if sharded:
             # the shard phase's share: its kernels launched on the shards
             r["launches_sharded"] = sharded.get(counter)
+        if tp_counts:
+            # the tp phase's share: its kernels launched on the model ranks
+            r["launches_tp"] = tp_counts.get(counter)
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,9 +3,9 @@ requests, transformers nor safetensors (the machine with the card has none
 of them) to import every module, serve /compose on the extractive backend
 and /search with rerank, and run `python -m tpu_rag_torch.scripts.<tool>
 --help` for every entry point (the native/ and baseline/ modules included,
-which tokenize and search in C++ built at first use), and search the sharded
-indexes of parallel/; asking for CUDA without a card raises instead of
-falling back to the CPU."""
+which tokenize and search in C++ built at first use), search the sharded
+indexes of parallel/ and embed over its tensor-parallel mesh; asking for
+CUDA without a card raises instead of falling back to the CPU."""
 
 import os
 import subprocess
@@ -62,6 +62,12 @@ for cls in (ShardedFlatIndex, ShardedIVFIndex):
     assert sharded.search(rows[7], 1).ids == [["r7"]]
 assert maybe_init_distributed(device="cpu") is False
 
+from tpu_rag_torch.models.biencoder import BiEncoder
+from tpu_rag_torch.parallel.tensor import shard_state_dict
+tp = BiEncoder("tiny", device="cpu", mesh=mesh_from_spec("data:2,model:2", ["cpu"] * 4))
+assert len(shard_state_dict(tp.module.state_dict(), tp.spec, 2)) == 2
+assert tp.embed(["the moon temple"]).shape == (1, 64)
+
 import runpy
 for tool in ("train_semantic", "train_reranker", "build_index", "ingest_docs", "bulk_import",
              "query_local", "rag_ask", "eval_recall", "prove_checkpoint", "bench_http",
@@ -89,7 +95,7 @@ def test_every_module_imports_with_jax_and_tpu_rag_blocked():
     assert "--synthetic" in out.stdout and "--api" in out.stdout
     assert "--concurrency" in out.stdout and "--dim-model" in out.stdout   # the scale tools
     assert "--shards" in out.stdout                          # rehearse_100m
-    assert int(out.stdout.strip().splitlines()[-1]) >= 97   # every module of the package
+    assert int(out.stdout.strip().splitlines()[-1]) >= 98   # every module of the package
 
 
 def test_cuda_without_a_card_raises(tmp_path):

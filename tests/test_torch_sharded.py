@@ -265,9 +265,11 @@ def test_dp_embed_matches_single_device_and_jax(tiny_params):
     assert e_dp.shape == (20, 64)
     np.testing.assert_allclose(e_dp, single.embed(texts), rtol=0, atol=1e-5)
     np.testing.assert_allclose(e_dp, jax_dp.embed(texts), rtol=0, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="model"):
-        BiEncoder(spec=spec, device="cpu", state_dict=sd,
-                  mesh=mesh_from_spec("data:4,model:2", CPU8))
+    tp = BiEncoder(spec=spec, seq_len=32, batch=8, device="cpu", state_dict=sd,
+                   mesh=mesh_from_spec("data:4,model:2", CPU8))
+    np.testing.assert_allclose(tp.embed(texts), e_dp, rtol=0, atol=1e-5)
+    with pytest.raises(ValueError, match='"model" mesh axis of size 8'):
+        BiEncoder(spec=spec, device="cpu", state_dict=sd, mesh=mesh_from_spec("model:8", CPU8))
 
 
 SLICE_DOCS = [

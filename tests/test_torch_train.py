@@ -257,12 +257,22 @@ def test_load_restores_params_and_resets_adamw(tmp_path):
 
 
 def test_mesh_of_more_than_one_device_raises():
+    """A dict names a one-device mesh only; more devices take a
+    parallel.Mesh (DP x TP, tests/test_torch_tp.py), whose "model" axis must
+    divide the heads."""
+    from tpu_rag_torch.parallel import mesh_from_spec
+
     spec = BertSpec(**SPEC)
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         ContrastiveTrainer(spec, device="cpu", mesh={"data": 2, "model": 1})
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         ContrastiveTrainer(spec, device="cpu", mesh={"data": 1, "model": 2})
     ContrastiveTrainer(spec, device="cpu", mesh={"data": 1, "model": 1})
+    trainer = ContrastiveTrainer(spec, device="cpu",
+                                 mesh=mesh_from_spec("data:2,model:2", ["cpu"] * 4))
+    assert np.isfinite(trainer.train_step(_batch(np.random.default_rng(1))))
+    with pytest.raises(ValueError, match='"model" mesh axis of size 8'):
+        ContrastiveTrainer(spec, device="cpu", mesh=mesh_from_spec("model:8", ["cpu"] * 8))
 
 
 def test_training_entry_points_default_to_cuda(tmp_path):
@@ -464,6 +474,12 @@ def test_train_biencoder_on_cpu(tmp_path, monkeypatch):
                           "--batch", "4", "--seq-len", "32", "--device", "cpu"])
     enc = BiEncoder(weights_path=str(out), device="cpu")
     assert (enc.spec.hidden, enc.spec.layers, enc.spec.vocab_size) == (64, 2, 1024)
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+    tp_out = tmp_path / "ckpt_tp"
+    train_biencoder.main(["--pairs", str(pairs), "--out", str(tp_out), "--steps", "2",
+                          "--batch", "4", "--seq-len", "32", "--device", "cpu",
+                          "--mesh", "data:2,model:2"])
+    tp_enc = BiEncoder(weights_path=str(tp_out), device="cpu")
+    assert tp_enc.spec == enc.spec
+    with pytest.raises(ValueError, match='"model" mesh axis of size 3'):
         train_biencoder.main(["--pairs", str(pairs), "--out", str(out), "--device", "cpu",
-                              "--mesh", "data:2,model:1"])
+                              "--mesh", "data:1,model:3"])

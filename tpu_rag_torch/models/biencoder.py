@@ -15,12 +15,15 @@ index-time and query-time embeddings agree, which is all retrieval needs.
 They are not the JAX package's seeded numbers: parity tests carry params
 across instead.
 
-Data parallelism: with a `mesh` whose "data" axis is larger than 1, the
-batch is rounded up to a multiple of that axis and each data device embeds
-its contiguous slice of every batch with its own replica of the weights
-(devices named more than once share one replica).  Every slice is launched
-before any is read back.  A "model" axis larger than 1 (tensor
-parallelism) is not ported yet and raises.
+Data and tensor parallelism: with a `mesh` whose "data" axis is larger
+than 1, the batch is rounded up to a multiple of that axis and each data
+position embeds its contiguous slice of every batch with its own copy of
+the weights.  With a "model" axis larger than 1, each data position holds
+a tensor-parallel group (Mesh.model_groups: its devices along "model"),
+whose TensorParallelEncoder splits the heads and the FFN over them
+(parallel/tensor.py); a "model"-only mesh serves with one group.  Groups
+that name the same devices share one copy (a device named more than once
+holds one replica).  Every slice is launched before any is read back.
 """
 
 from __future__ import annotations
@@ -32,7 +35,8 @@ import numpy as np
 import torch
 
 from tpu_rag_torch.device import compute_dtype, resolve
-from tpu_rag_torch.models.bert import BertEncoder, BertSpec, l2_normalize, mean_pool
+from tpu_rag_torch.models.bert import (BertEncoder, BertSpec, TensorParallelEncoder,
+                                       l2_normalize, mean_pool)
 from tpu_rag_torch.models.hf_import import load_bert_params, spec_from_hf_config
 from tpu_rag_torch.models.tokenizer import _special_ids, load_tokenizer
 
@@ -103,15 +107,13 @@ class BiEncoder:
         state_dict: dict[str, torch.Tensor] | None = None,
         mesh=None,
     ) -> None:
-        self._data_devices: list[torch.device] = []
-        if mesh is not None:
-            if mesh.shape.get("model", 1) > 1:
-                raise NotImplementedError(
-                    "tensor parallelism over a \"model\" mesh axis is not ported yet "
-                    "(ROADMAP.md queue 1 item 3); use a data-only mesh")
-            if mesh.shape.get("data", 1) > 1:
-                self._data_devices = mesh.axis_devices("data")
-                device = self._data_devices[0]
+        # one device group a data position (one device each without a
+        # "model" axis); empty without a mesh of two or more devices
+        self._groups: list[tuple[torch.device, ...]] = []
+        if mesh is not None and (mesh.shape.get("data", 1) > 1
+                                 or mesh.shape.get("model", 1) > 1):
+            self._groups = [tuple(g) for g in mesh.model_groups()]
+            device = self._groups[0][0]
         self.device = resolve(device)
         self.model_name = model_name
         if spec is None and weights_path:
@@ -135,20 +137,26 @@ class BiEncoder:
         self.pad_id = _special_ids(self.tokenizer)[2]
         if state_dict is None and weights_path:
             state_dict = load_bert_params(weights_path, self.spec)
-        self.module = BertEncoder(self.spec, compute_dtype=self.compute_dtype)
-        self.module.load_state_dict(
-            state_dict if state_dict is not None
-            else init_params(self.spec, _seed_from_name(model_name)))
-        self.module.to(self.device).eval()
-        # one replica per distinct data device (the first is self.module)
-        self._replicas: dict[torch.device, torch.nn.Module] = {self.device: self.module}
-        for dev in self._data_devices:
-            if dev not in self._replicas:
-                rep = BertEncoder(self.spec, compute_dtype=self.compute_dtype)
-                rep.load_state_dict(self.module.state_dict())
-                self._replicas[dev] = rep.to(dev).eval()
-        unit = max(1, len(self._data_devices))
+        if state_dict is None:
+            state_dict = init_params(self.spec, _seed_from_name(model_name))
+        # one encoder per distinct group (the first is self.module): a
+        # BertEncoder on one device, a TensorParallelEncoder over several
+        self._replicas: dict[tuple[torch.device, ...], torch.nn.Module] = {}
+        for group in self._groups or [(self.device,)]:
+            if group not in self._replicas:
+                self._replicas[group] = self._encoder_on(group, state_dict)
+        self.module = next(iter(self._replicas.values()))
+        unit = max(1, len(self._groups))
         self.batch = -(-self.batch // unit) * unit   # divisible by the data axis
+
+    def _encoder_on(self, group: tuple[torch.device, ...], state_dict) -> torch.nn.Module:
+        if len(group) == 1:
+            module = BertEncoder(self.spec, compute_dtype=self.compute_dtype)
+            module.load_state_dict(state_dict)
+            return module.to(group[0]).eval()
+        module = TensorParallelEncoder(self.spec, group, compute_dtype=self.compute_dtype)
+        module.load_state_dict(state_dict)
+        return module.eval()
 
     @property
     def dim(self) -> int:
@@ -157,7 +165,7 @@ class BiEncoder:
     def _bucket(self, n: int) -> int:
         # power-of-two batch ladder up to self.batch, each a multiple of
         # the data axis
-        unit = max(1, len(self._data_devices))
+        unit = max(1, len(self._groups))
         for b in (8, 16, 32, 64, 128, 256, 512):
             if n <= b <= self.batch and b % unit == 0:
                 return b
@@ -180,14 +188,14 @@ class BiEncoder:
     def forward_ids(self, ids) -> torch.Tensor:
         """(B, T) ids (numpy or tensor, any int dtype) -> (B, dim) f32
         L2-normalized embeddings on the device; mask = ids != pad_id.  On a
-        data mesh each data device embeds a contiguous slice of
-        ceil(B / shards) rows."""
-        if not self._data_devices:
+        mesh with a data axis each data position embeds a contiguous slice
+        of ceil(B / positions) rows through its group."""
+        if len(self._groups) <= 1:
             return self._forward_on(self.module, ids, self.device)
         ids_t = torch.as_tensor(ids)
-        step = -(-ids_t.shape[0] // len(self._data_devices))
-        parts = [self._forward_on(self._replicas[dev], ids_t[i * step:(i + 1) * step], dev)
-                 for i, dev in enumerate(self._data_devices) if i * step < ids_t.shape[0]]
+        step = -(-ids_t.shape[0] // len(self._groups))
+        parts = [self._forward_on(self._replicas[g], ids_t[i * step:(i + 1) * step], g[0])
+                 for i, g in enumerate(self._groups) if i * step < ids_t.shape[0]]
         return torch.cat([p.to(self.device) for p in parts], dim=0)
 
     def _assemble(self, toks: list[list[int]], b: int, t: int) -> np.ndarray:

@@ -7,6 +7,10 @@ pass a list that names one device several times: each entry is a shard of
 its own, and the shards of one device run one after another.  That is the
 port's counterpart of XLA's virtual host devices, and how a mesh is
 rehearsed on one card (or on the CPU: ["cpu"] * 8).
+
+`axis_devices("data")` places row shards (parallel/sharded.py) and
+`model_groups()` the tensor-parallel groups of the encoder and its trainer
+(parallel/tensor.py): one group a data position, one device a model rank.
 """
 
 from __future__ import annotations
@@ -39,6 +43,19 @@ class Mesh:
         pos = self.axis_names.index(axis)
         grid = np.moveaxis(self.devices, pos, 0).reshape(self.devices.shape[pos], -1)
         return [grid[i, 0] for i in range(grid.shape[0])]
+
+    def model_groups(self) -> list[list[torch.device]]:
+        """For each position on "data" (one position where the mesh has no
+        "data" axis), the devices along "model" in rank order (one device
+        where it has no "model" axis): the port's counterpart of a
+        NamedSharding over ("data", "model").  Over any other axis, the
+        first position's devices, as in axis_devices.  A device named more
+        than once stays one device: the ranks on it run one after another."""
+        names = list(self.axis_names)
+        lead = [names.index(a) for a in ("data", "model") if a in names]
+        grid = np.transpose(self.devices, lead + [i for i in range(len(names)) if i not in lead])
+        grid = grid.reshape(self.shape.get("data", 1), self.shape.get("model", 1), -1)
+        return [list(grid[i, :, 0]) for i in range(grid.shape[0])]
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, devices={[str(d) for d in self.devices.reshape(-1)]})"

@@ -12,8 +12,15 @@ supervision, but enough to adapt the embedder to the corpus vocabulary.
 
 --out is a HF BertModel directory (model.safetensors + config.json,
 models/hf_export.py) that EMBEDDING_WEIGHTS serves.  Training runs on
---device (cuda unless told otherwise; cuda without a card raises) and on one
-device: --mesh takes "" or "data:1,model:1", any larger mesh raises.
+--device (cuda unless told otherwise; cuda without a card raises).
+--mesh data:N,model:M trains data x tensor parallel over a parallel.Mesh
+(train/contrastive.py) of the devices --device names: "cuda" is every
+card; one named device ("cuda:0", "cpu") fills every entry of the mesh,
+whose ranks then run one after another on it; or a comma-separated list.
+The gathered checkpoint serves unsharded.
+
+  python -m tpu_rag_torch.scripts.train_biencoder --pairs pairs.jsonl \
+      --out ckpt --mesh data:2,model:2 --device cuda:0
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ from __future__ import annotations
 import argparse
 import glob
 import json
+import math
 import os
 
 
@@ -54,6 +62,15 @@ def parse_mesh(text: str) -> dict[str, int]:
     return mesh
 
 
+def mesh_devices(device: str, size: int) -> list[str] | None:
+    """The device list of a mesh of `size` entries: None (every card) for
+    "cuda", one named device repeated, or the comma-separated list."""
+    names = [d.strip() for d in device.split(",") if d.strip()]
+    if names == ["cuda"]:
+        return None
+    return names * size if len(names) == 1 else names
+
+
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--pairs", default=None, help="pairs.jsonl ({'q','d'} per line)")
@@ -63,19 +80,25 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--lr", type=float, default=2e-5)
     ap.add_argument("--tau", type=float, default=0.05)
-    ap.add_argument("--mesh", default="", help='"" or "data:1,model:1" (one device; multi-card '
-                    'training is ROADMAP.md queue 1 item 3)')
-    ap.add_argument("--device", default="cuda", help="cuda or cpu")
+    ap.add_argument("--mesh", default="", help='e.g. "data:4,model:2" ("" = one device)')
+    ap.add_argument("--device", default="cuda",
+                    help='cuda, cpu, cuda:N, or a comma-separated list for --mesh')
     args = ap.parse_args(argv)
 
     from tpu_rag_torch.config import config_from_env
     from tpu_rag_torch.device import resolve
     from tpu_rag_torch.models.biencoder import spec_for_model
     from tpu_rag_torch.models.tokenizer import encode_batch, load_tokenizer
+    from tpu_rag_torch.parallel.mesh import mesh_from_spec
     from tpu_rag_torch.train.contrastive import ContrastiveTrainer
 
-    mesh = parse_mesh(args.mesh)
-    device = resolve(args.device)
+    sizes = parse_mesh(args.mesh)
+    size = math.prod(sizes.values())
+    if size > 1:
+        mesh = mesh_from_spec(args.mesh, mesh_devices(args.device, size))
+        device = mesh.devices.flat[0]
+    else:
+        mesh, device = None, resolve(args.device)
     cfg = config_from_env()
 
     if args.pairs:

@@ -1,5 +1,5 @@
-"""Contrastive (InfoNCE) training of the bi-encoder on one device, port of
-tpu_rag/train/contrastive.py.
+"""Contrastive (InfoNCE) training of the bi-encoder, on one device or over
+a ("data", "model") mesh; port of tpu_rag/train/contrastive.py.
 
 - In-batch negatives: logits = q @ d^T / tau with labels on the diagonal,
   symmetric cross-entropy.
@@ -12,10 +12,17 @@ tpu_rag/train/contrastive.py.
   LayerNorm scales and biases decay too).  The schedule's value is written
   into the lr before each step, the first step at count 0, as optax counts.
 
-tpu_rag shards the batch over a mesh "data" axis and the FFN and heads over
-"model"; the port trains on one device, and a mesh of more than one device
-raises (multi-card DP/TP comes with torch.distributed, ROADMAP.md queue 1
-item 4).  Initial weights are `init_params(spec, seed)`: flax's init cannot
+Over a mesh (parallel/mesh.py), as tpu_rag shards the batch over "data"
+and the FFN and heads over "model": the master parameters are a
+TensorParallelEncoder on the first data position's group (one model rank a
+device, parallel/tensor.py's rules; one rank without a "model" axis).  Each
+data position embeds its contiguous slice of the batch through its group,
+with the masters copied to its devices inside the step (autograd sums
+their gradients into the masters; on a device that names the masters' own,
+nothing is copied).  The q and d embeddings are gathered in data order on
+the first device for the loss, and one AdamW steps the masters.  One
+process drives every device, as tpu_rag's single controller does.  Initial
+weights are `init_params(spec, seed)`: flax's init cannot
 be redrawn in torch, so parity with tpu_rag starts from shared parameters
 (`params_from_flax` loaded into `trainer.module`).  Checkpoints are HF
 BertModel directories (models/hf_export.py), which `BiEncoder(weights_path=)`
@@ -34,10 +41,13 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from tpu_rag_torch.device import resolve
-from tpu_rag_torch.models.bert import BertEncoder, BertSpec, l2_normalize, mean_pool
+from tpu_rag_torch.models.bert import (BertEncoder, BertSpec, TensorParallelEncoder,
+                                       l2_normalize, mean_pool)
 from tpu_rag_torch.models.biencoder import init_params
 from tpu_rag_torch.models.hf_export import save_bert
 from tpu_rag_torch.models.hf_import import load_bert_params
+from tpu_rag_torch.parallel.mesh import Mesh
+from tpu_rag_torch.parallel.tensor import gather_rows
 
 
 def info_nce_loss(q_emb: torch.Tensor, d_emb: torch.Tensor, tau: float = 0.05) -> torch.Tensor:
@@ -82,20 +92,28 @@ class ContrastiveTrainer:
     def __init__(self, spec: BertSpec, *, lr: float | Callable[[int], float] = 2e-5,
                  tau: float = 0.05, compute_dtype: torch.dtype = torch.float32,
                  seed: int = 0, device: str | torch.device = "cuda",
-                 mesh: dict[str, int] | None = None) -> None:
-        """mesh: axis name -> size, as tpu_rag's ("data", "model") mesh; only
-        one device in all is supported."""
-        if mesh and math.prod(mesh.values()) > 1:
-            raise NotImplementedError(
-                f"mesh {mesh}: the port trains on one device; multi-card "
-                "data/tensor parallel training is ROADMAP.md queue 1 item 3")
-        self.device = resolve(device)
+                 mesh: Mesh | dict[str, int] | None = None) -> None:
+        """mesh: a parallel.Mesh with "data" and/or "model" axes (its
+        devices replace `device`), or, for one device, None or a dict of
+        axis sizes whose product is 1."""
+        if isinstance(mesh, dict):
+            if math.prod(mesh.values()) > 1:
+                raise TypeError(f"mesh {mesh}: a mesh of more than one device is a "
+                                f"parallel.Mesh (parallel.mesh_from_spec)")
+            mesh = None
+        self._groups = [tuple(g) for g in mesh.model_groups()] if mesh is not None else []
+        self.device = self._groups[0][0] if self._groups else resolve(device)
         self.spec = spec
         self.tau = tau
         self.schedule = lr if callable(lr) else (lambda _step: lr)
-        self.module = BertEncoder(spec, flash=False, remat=True, compute_dtype=compute_dtype)
+        if self._groups:
+            self.module = TensorParallelEncoder(spec, self._groups[0], flash=False, remat=True,
+                                                compute_dtype=compute_dtype)
+        else:
+            self.module = BertEncoder(spec, flash=False, remat=True,
+                                      compute_dtype=compute_dtype).to(self.device)
         self.module.load_state_dict(init_params(spec, seed))
-        self.module.to(self.device).train()
+        self.module.train()
         self._reset_optimizer()
 
     def _reset_optimizer(self) -> None:
@@ -103,12 +121,27 @@ class ContrastiveTrainer:
         self.optimizer = adamw(self.module.parameters())
 
     def _embed(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        hidden = self.module(ids, mask)
-        return l2_normalize(mean_pool(hidden, mask).to(torch.float32))
+        """(B, L) ids and mask -> (B, H) f32 embeddings on self.device; over a
+        mesh, data position j embeds the j-th of len(groups) equal slices."""
+        if not self._groups:
+            hidden = self.module(ids, mask)
+            return l2_normalize(mean_pool(hidden, mask).to(torch.float32))
+        if ids.shape[0] % len(self._groups):
+            raise ValueError(f"batch {ids.shape[0]} is not a multiple of the data axis "
+                             f"({len(self._groups)})")
+        step = ids.shape[0] // len(self._groups)
+        parts = []
+        for j, group in enumerate(self._groups):
+            ids_j = ids[j * step:(j + 1) * step].to(group[0])
+            mask_j = mask[j * step:(j + 1) * step].to(group[0])
+            hidden = self.module(ids_j, mask_j, devices=group)
+            parts.append(l2_normalize(mean_pool(hidden, mask_j).to(torch.float32)))
+        return gather_rows(parts, self.device)
 
     def train_step(self, batch: dict[str, Any]) -> float:
-        """batch: {q_ids, q_mask, d_ids, d_mask}, int (B, L) numpy arrays.
-        One AdamW update; returns the loss before it."""
+        """batch: {q_ids, q_mask, d_ids, d_mask}, int (B, L) numpy arrays
+        (B a multiple of the data axis).  One AdamW update; returns the loss
+        before it."""
         t = {k: torch.as_tensor(np.asarray(v)).to(self.device, torch.int64)
              for k, v in batch.items()}
         for group in self.optimizer.param_groups:
@@ -127,13 +160,15 @@ class ContrastiveTrainer:
         return float(loss.detach())
 
     def save(self, path: str | Path) -> None:
-        """The encoder as a HF BertModel directory (models/hf_export.py)."""
+        """The encoder as a HF BertModel directory (models/hf_export.py);
+        over a mesh, the model ranks' shares gathered into one model."""
         save_bert(self.module.state_dict(), self.spec, path)
 
     def load(self, path: str | Path) -> None:
-        """Restore the PARAMETERS only: AdamW's moments and the schedule's
-        count start again from zero, as tpu_rag's load re-initializes its
-        optimizer state (checkpoints hold the parameters alone)."""
+        """Restore the PARAMETERS only (over a mesh, each rank takes its
+        share): AdamW's moments and the schedule's count start again from
+        zero, as tpu_rag's load re-initializes its optimizer state
+        (checkpoints hold the parameters alone)."""
         sd = load_bert_params(path, self.spec)
         if sd is None:
             raise FileNotFoundError(f"no checkpoint of {self.spec} at {path}")
