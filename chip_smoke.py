@@ -98,9 +98,12 @@ Phases, each printing one JSON line (any failure exits non-zero):
   (rerank_train and scripts read what train writes: run them with it.)
   Every WordPiece tokenizer a phase builds must run natively.
 
-Then the seconds of each phase, the kernels summary line, the card's name
-and power limit as nvidia-smi reports them, and, last, {"ok": true,
-"device": {...}}.  Without a CUDA device, or without the repository beside
+Then the seconds of each phase with, per phase, bf16 #5's launches and
+the share of their 64-key chunks whose keys are all masked in a row with
+a real key (work a kernel could skip; --save-masks PATH keeps the first
+masks of each shape for kernel_ab.py --masks), the kernels summary
+line, the card's name and power limit as nvidia-smi reports them, and,
+last, {"ok": true, "device": {...}}.  Without a CUDA device, or without the repository beside
 this file, it exits non-zero and prints no result.
 """
 
@@ -129,9 +132,8 @@ SEED = 0
 # card (bf16) against CPU (f32) cross-encoder logits: this share of the
 # largest CPU logit's magnitude (or of 1), set before any chip run
 RERANK_LOGIT_TOL = 0.05
-# the f32 kernels' names in a torch.profiler trace: the scan (#1-#3) and
-# the per-list probe (#6)
-F32_SCAN_KERNEL, F32_PROBE_KERNEL = "f32_scan_kernel", "probe_f32_kernel"
+# the f32 per-list probe's (#6) name in a torch.profiler trace
+F32_PROBE_KERNEL = "probe_f32_kernel"
 
 
 def emit(obj) -> None:
@@ -165,14 +167,21 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3, batch: int = 1) -> float:
     return statistics.median(times)
 
 
+class _LostRecords(AssertionError):
+    """The profiler saw the named kernel, but in no window all of its
+    launches."""
+
+
 def kernel_ms(fn, name: str, reps: int = 10) -> float:
     """Device time a call of fn spends in the kernels whose name holds
     `name` (kernel_ab.py's torch.profiler window over `reps` calls): the
     kernel's own time, which calls back to back (cuda_ms with batch > 1)
-    give only where the device, not the host's launches, sets the pace."""
+    give only where the device, not the host's launches, sets the pace.
+    Raises AssertionError where no window held a kernel of that name, and
+    _LostRecords where every window held only a part of its launches."""
     from kernel_ab import _profile
 
-    seen = {}
+    seen, named = {}, False
     for _ in range(3):
         # CUPTI now and then delivers none or only some of a window's
         # records of the kernel (a time under the kernel's bound): every
@@ -182,12 +191,34 @@ def kernel_ms(fn, name: str, reps: int = 10) -> float:
         prof = _profile(fn, reps)
         seen = prof["by_kernel_ms"]
         keys = [key for key in seen if name in key]
+        named = named or bool(keys)
         ms = sum(seen[key] for key in keys)
         launches = sum(prof["by_kernel_count"][key] for key in keys)
         if ms > 0.0 and launches % reps == 0:
             return ms
-    raise AssertionError(f"the profiler saw no whole window of {name} in three; "
-                         f"it saw {sorted(seen)[:6]}")
+    if not named:
+        raise AssertionError(f"no kernel named {name} in three profiler windows; "
+                             f"they held {sorted(seen)[:6]}")
+    raise _LostRecords(f"the profiler saw no whole window of {name} in three")
+
+
+def _device_ms(fn, name: str, bound_ms: float, lost_ok: bool = False) -> dict:
+    """The kernel's own time (kernel_ms), where it came from, and its share
+    of the bound.  Where the profiler saw the kernel but lost a part of its
+    launches in all three windows, 10 calls back to back timed by CUDA
+    events (the wrapper's other kernels included) and no share of the
+    bound; with lost_ok (the shard rows: full runs lose whole windows
+    there, PERF.md section 7) also where it saw none of the kernel's."""
+    try:
+        ms = kernel_ms(fn, name)
+        return {"device_ms": ms, "device_ms_from": "torch.profiler",
+                "pct_of_bound": 100.0 * bound_ms / ms}
+    except AssertionError as err:
+        if not (lost_ok or isinstance(err, _LostRecords)):
+            raise
+        return {"device_ms": cuda_ms(fn, iters=5, batch=10), "pct_of_bound": None,
+                "device_ms_from": "CUDA events over 10 calls back to back (the profiler "
+                                  f"lost records: {err})"}
 
 
 # ------------------------------------------------------------------ phases
@@ -290,7 +321,8 @@ def _scan_rows(g, n: int, d: int, cases, smem_of, sms: int, floor_of) -> tuple[l
     `cases`, with and without filters; the ties of _corpus go to the
     lowest row.  f32 exact rows by _f32_id_check (1e-4), packed rows by
     _packed_check (a sum in another order can round one 18-bit step the
-    other way), f32 rows also with the kernel's own device time; the
+    other way); every row with the kernel's own device time and the kernel
+    its plan launches (box_scan_kernel or pipe_scan_kernel); the
     composite is torch.matmul (bf16, or f32 with TF32 off as main() sets
     it) + torch.topk.  Returns the rows and the database (bf16 rows, int8
     rows, their scales, ns, canon) for the rows after them."""
@@ -361,17 +393,16 @@ def _scan_rows(g, n: int, d: int, cases, smem_of, sms: int, floor_of) -> tuple[l
         b_ms, b_by = bound(nbytes, 2.0 * n * d * nq, dtype)
         ms = cuda_ms(lambda: kernel(*args))
         floor = floor_of(xx)
+        kname = "box_scan_kernel" if tk._box_route(xx.dtype) else "pipe_scan_kernel"
         row = {"name": f"{mode}_scan[{dtype},n={n},d={d},q={nq},k={k}]", "route": "cuda",
                "plan": plan._asdict(),
                "source": "tpu_rag_torch/csrc/topk.cu", "replaces": replaces,
                "counter": f"{mode}_f32" if f32 else f"{mode}_bf16_int8", **chk, "ms": ms,
+               "kernel": kname, **_device_ms(lambda: kernel(*args), kname, b_ms),
                "plain_ms": cuda_ms(lambda: plain(*args), iters=5),
                "library_ms": cuda_ms(library, iters=5),
                "bound_ms": b_ms, "bound_by": b_by,
                "floor_ms": floor, "pct_of_floor": 100.0 * floor / ms}
-        if f32:
-            row["device_ms"] = kernel_ms(lambda: kernel(*args), F32_SCAN_KERNEL)
-            row["pct_of_bound"] = 100.0 * b_ms / row["device_ms"]
         if packed:
             row["exact_ms_same_shape"] = cuda_ms(lambda: tk._exact_scan_cuda(*args))
             row["library"] = "composite: torch.matmul + round18 + torch.topk"
@@ -434,10 +465,10 @@ def phase_kernels() -> list[dict]:
     torch.cuda.empty_cache()
 
     # ---- d 768 (bge-base, rehearse_scale's 1M rows): #1 exact at q 1, 8
-    # and 64, bf16 (k_scan 20: k 10, bf16 refine 2x, the rehearsal's path)
-    # and int8 (k_scan 40: int8 refine 4x); #1 and #2 bf16 at q 8, k_scan
-    # 512 (RERANK_CANDIDATES 256 refined 2x; packed_k_scan(128)): 32-row
-    # stages; #1 f32 at q 8 (k 20); #3 bucketed int8 at 2M x 768
+    # and 64, bf16 (k_scan 20: k 10, bf16 refine 2x, the rehearsal's path;
+    # box_scan_kernel) and int8 (k_scan 40: int8 refine 4x); #1 and #2 bf16
+    # at q 8, k_scan 512 (RERANK_CANDIDATES 256 refined 2x;
+    # packed_k_scan(128)); #1 f32 at q 8 (k 20); #3 bucketed int8 at 2M x 768
     n = 1_000_000
     cases = tuple(("exact", dt, nq, k) for dt, k in (("bf16", 20), ("int8", 40))
                   for nq in (1, 8, 64)) + (("exact", "bf16", 8, 512), ("packed", "bf16", 8, 512),
@@ -471,14 +502,15 @@ def phase_kernels() -> list[dict]:
     # shape (20 rerank candidates -> batch 32, T 256), the trained
     # reranker's eval (B 256 at T 160: a ragged last 64-key chunk); then
     # head dim 64 (bge-base: 768 wide, 12 heads): mha_tc_kernel<64> at
-    # T 128 (rehearse_scale's documents) and 512 (the largest T); and the
+    # T 128 (rehearse_scale's documents), 256 (the default EMBED_SEQ_LEN)
+    # and 512 (the largest T); and the
     # f32 kernel (prove_checkpoint's f32 encoder), D 32 and 64, at B 64, T
     # 256, 512 and 160 (a ragged last chunk)
     for t in (256, 128, 512):
         rows.append(_attention_row(g, 64, t, 12, 32))
     rows.append(_attention_row(g, 32, 256, 12, 32))
     rows.append(_attention_row(g, 256, 160, 12, 32))
-    for t in (128, 512):
+    for t in (128, 256, 512):
         rows.append(_attention_row(g, 64, t, 12, 64))
     for hd in (32, 64):
         for t in (256, 512, 160):
@@ -542,8 +574,8 @@ def _attention_row(g, b: int, t: int, h: int, hd: int, dtype=None) -> dict:
             "counter": "mha_f32" if f32 else "mha_bf16", "tolerance": tol,
             "max_abs_err": err, "all_pad_row_err": pad_err,
             "ms": cuda_ms(lambda: att._fused_mha_cuda(q, k_, v, mask)),
-            "device_ms": kernel_ms(lambda: att._fused_mha_cuda(q, k_, v, mask),
-                                   "mha_f32_kernel" if f32 else "mha_tc_kernel"),
+            **_device_ms(lambda: att._fused_mha_cuda(q, k_, v, mask),
+                         "mha_f32_kernel" if f32 else "mha_tc_kernel", b_ms),
             "plain_ms": cuda_ms(lambda: att.fused_mha_plain(q, k_, v, mask)),
             "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
                 qh, kh, vh, attn_mask=bool_mask)),
@@ -557,8 +589,8 @@ def _bucketed_row(g, x, scale, ns, canon, nq: int, k: int, smem_of, sms: int,
     bucket's winner the plain one's, exactly for int8 (integer sums) and,
     for bf16 and f32 (sums in another order), but where the two rows'
     scores, summed again in f64, lie within 1e-4 of each other; times
-    beside the matmul + bucket max composite and the read floor of x.  f32
-    rows also report the kernel's own device time (torch.profiler)."""
+    beside the matmul + bucket max composite and the read floor of x, and
+    the kernel's own device time (torch.profiler)."""
     import torch
 
     from tpu_rag_torch.ops import topk as tk
@@ -606,19 +638,19 @@ def _bucketed_row(g, x, scale, ns, canon, nq: int, k: int, smem_of, sms: int,
     nbytes = n * d * elt + n * 8 + (n * 4 if int8 else 0) + nq * d * elt + nq * nb * 8
     b_ms, b_by = bound(nbytes, 2.0 * n * d * nq, kind)
     ms = cuda_ms(lambda: tk._bucketed_scan_cuda(*bargs))
+    kname = "box_scan_kernel" if tk._box_route(x.dtype) else "pipe_scan_kernel"
     row = {"name": f"bucketed_scan[{kind},n={n},d={d},q={nq}]", "route": "cuda",
            "source": "tpu_rag_torch/csrc/topk.cu",
            "replaces": "tpu_rag/ops/topk.py:284",
            "counter": "bucketed_f32" if f32 else "bucketed_bf16_int8",
            "plan": plan._asdict(), "max_abs_err": chk["max_abs_err"],
            "winners_differing_in_ties": len(differ), "ms": ms,
+           "kernel": kname, **_device_ms(lambda: tk._bucketed_scan_cuda(*bargs), kname, b_ms),
            "plain_ms": cuda_ms(lambda: tk._bucketed_scan_plain(*bargs), iters=5),
            "library_ms": cuda_ms(library, iters=5),
            "bound_ms": b_ms, "bound_by": b_by,
            "floor_ms": floor, "pct_of_floor": 100.0 * floor / ms}
     if f32:
-        row["device_ms"] = kernel_ms(lambda: tk._bucketed_scan_cuda(*bargs), F32_SCAN_KERNEL)
-        row["pct_of_bound"] = 100.0 * b_ms / row["device_ms"]
         row["library"] = "composite: torch.matmul (f32, no TF32) + 128-row max + torch.topk"
     return row
 
@@ -679,7 +711,8 @@ def _plan_sweep(smem_of, sms: int) -> dict:
     """Every scan plan (bf16/int8/f32 x exact/packed/bucketed x q 1-80 x the
     test's depths) and every IVF probe plan (#6 at q 1/3, k 1/40/128, f32
     lists too; #7 at q 8/64/80, on f32 lists at q 4-256) at d 384 and 768,
-    and #5's f32 block, held against the kernels' own byte counts (tr_scan_smem_bytes,
+    and #5's f32 block and bf16 block (at T 1-512, at least two an SM),
+    held against the kernels' own byte counts (tr_scan_smem_bytes,
     tr_probe_smem_bytes, tr_mha_smem_bytes); a scan plan that does not fit
     raises ValueError in _scan_plan and is counted, not launched."""
     import torch
@@ -688,7 +721,7 @@ def _plan_sweep(smem_of, sms: int) -> dict:
     from tpu_rag_torch.ops import ivf_probe as ip
     from tpu_rag_torch.ops import topk as tk
 
-    out = {"scan_plans": 0, "scan_refused": [], "probe_plans": 0}
+    out = {"scan_plans": 0, "box_scan_plans": 0, "scan_refused": [], "probe_plans": 0}
     for d in (384, 768):
         for dtype in (torch.bfloat16, torch.int8, torch.float32):
             for mode in ("exact", "packed", "bucketed"):
@@ -702,6 +735,7 @@ def _plan_sweep(smem_of, sms: int) -> dict:
                             continue
                         smem_of(dtype, plan, k, mode, d)
                         out["scan_plans"] += 1
+                        out["box_scan_plans"] += tk._box_route(dtype)
             for nq in (1, 3):
                 for k in (1, 40, 128):
                     plan = ip._list_plan(nq, IVF_NPROBE, IVF_CAP, d, dtype, k, sms)
@@ -722,13 +756,19 @@ def _plan_sweep(smem_of, sms: int) -> dict:
             if got != plan.smem or got > tk._SMEM_MAX:
                 raise AssertionError(f"f32 bucket plan {plan} at d {d}: kernel {got}")
             out["probe_plans"] += 1
-    out["attention_f32_smem"] = {}
+    out["attention_f32_smem"], out["attention_bf16_smem"] = {}, {}
     for hd in (32, 64):                                     # #5 in f32
         got = att._smem_bytes(torch.float32, hd, 512)
         if got != att._f32_smem(hd) or got > tk._SMEM_MAX:
             raise AssertionError(f"mha_f32_kernel<{hd}>: kernel {got} bytes, the mirror "
                                  f"{att._f32_smem(hd)}")
         out["attention_f32_smem"][hd] = got
+        for t in (1, 64, 65, 128, 160, 256, 320, 384, 512):  # #5 in bf16
+            got = att._smem_bytes(torch.bfloat16, hd, t)
+            if got != att._tc_smem(hd, t) or att._blocks_per_sm(got) < 2:
+                raise AssertionError(f"mha_tc_kernel<{hd}> at T {t}: kernel {got} bytes, "
+                                     f"the mirror {att._tc_smem(hd, t)}")
+            out["attention_bf16_smem"][f"D {hd}, T {t}"] = got
     return out
 
 
@@ -3170,6 +3210,60 @@ def _wordpiece_backends():
         tz.WordPieceTokenizer.__init__ = init
 
 
+# with --save-masks: the masks kept of each (B, T, H, D) shape in a phase
+MASKS_KEPT = 8
+
+
+@contextlib.contextmanager
+def _attention_masks(keep: int = 0):
+    """Record the key masks of every bf16 #5 call on the card in the block
+    (the encoders' fused_mha, mha_tc_kernel): yields a dict that, once the
+    block ends, holds the launches, the key chunks of their work (64 keys
+    a chunk, counted once a 128-query tile and head) and those chunks
+    whose keys are all masked in a batch row that has a real key: work
+    that adds nothing to the output (mha_tc_kernel computes it).  `shapes` counts the launches of each
+    (B, T, H, D); with keep > 0, `masks` holds the first `keep` masks of
+    each (int8, on the CPU) for kernel_ab.py --masks."""
+    import torch
+
+    from tpu_rag_torch.models import bert
+
+    fused, lock, chunks, skipped, kept = bert.fused_mha, threading.Lock(), [], [], {}
+
+    def recorded(q, k, v, mask):
+        if q.device.type == "cuda" and q.dtype == torch.bfloat16:
+            b, t, h, hd = q.shape
+            real = mask > 0
+            if t % 64:
+                real = torch.cat([real, real.new_zeros(b, -t % 64)], 1)
+            real = real.view(b, -1, 64).any(-1)             # (B, chunks): a real key
+            tiles = h * -(-t // 128)
+            gone = (~real & real.any(-1, keepdim=True)).sum() * tiles
+            with lock:
+                chunks.append(real.numel() * tiles)
+                skipped.append(gone)
+                shape = kept.setdefault(f"{b},{t},{h},{hd}", {"calls": 0, "masks": []})
+                shape["calls"] += 1
+                if len(shape["masks"]) < keep:
+                    shape["masks"].append(mask.detach().to(torch.int8).clone())
+        return fused(q, k, v, mask)
+
+    out = {}
+    bert.fused_mha = recorded
+    try:
+        yield out
+    finally:
+        bert.fused_mha = fused
+        gone = int(torch.stack(skipped).sum()) if skipped else 0
+        out.update({"launches": len(chunks), "chunks": sum(chunks), "chunks_all_masked": gone,
+                    "share_all_masked": gone / sum(chunks) if chunks else None,
+                    "shapes": {key: r["calls"] for key, r in sorted(
+                        kept.items(), key=lambda kv: -kv[1]["calls"])}})
+        if keep:
+            out["masks"] = {key: {"calls": r["calls"], "masks": [m.cpu() for m in r["masks"]]}
+                            for key, r in kept.items()}
+
+
 # rehearse: scripts/rehearse_scale.py's defaults (1M rows, 20,000 real
 # documents, 16 queries, k 10, bge-base at T 128, batch 128)
 REHEARSE_RECALL_MIN = 0.99
@@ -3244,17 +3338,6 @@ def _tie_check(got, plain, what: str) -> int:
     return differ
 
 
-def _device_ms(fn, name: str) -> tuple[float, str]:
-    """The kernel's own time (kernel_ms) and where it came from; where the
-    profiler lost records in all three windows, 10 calls back to back timed
-    by CUDA events (the wrapper's other kernels included)."""
-    try:
-        return kernel_ms(fn, name), "torch.profiler"
-    except AssertionError:
-        return (cuda_ms(fn, iters=5, batch=10),
-                "CUDA events over 10 calls back to back (the profiler lost records)")
-
-
 def _shard_scan_row(x, scale, ns, canon, nq: int, k: int, g) -> dict:
     """#1 (exact, int8) on one shard's own snapshot tensors: kernel against
     plain version (_id_check), times, bound, and the kernel's device time."""
@@ -3276,18 +3359,18 @@ def _shard_scan_row(x, scale, ns, canon, nq: int, k: int, g) -> dict:
 
     nbytes = n * d + n * 8 + n * 4 + nq * d + nq * k * 8
     b_ms, b_by = bound(nbytes, 2.0 * n * d * nq, "int8")
-    dev_ms, dev_src = _device_ms(lambda: tk._exact_scan_cuda(*args), "pipe_scan_kernel")
     return {"name": f"exact_scan[int8,shard of {SHARD_COUNT},n={n},d={d},q={nq},k={k}]",
             "route": "cuda", "source": "tpu_rag_torch/csrc/topk.cu",
             "replaces": "tpu_rag/ops/topk.py:96", "counter": "exact_bf16_int8",
             "plan": tk._scan_plan(n, d, nq, k, x.dtype, tk._sm_count(x.device),
                                   "exact")._asdict(),
-            **chk, "ms": cuda_ms(lambda: tk._exact_scan_cuda(*args)), "device_ms": dev_ms,
-            "device_ms_from": dev_src,
+            **chk, "ms": cuda_ms(lambda: tk._exact_scan_cuda(*args)),
+            **_device_ms(lambda: tk._exact_scan_cuda(*args), "pipe_scan_kernel", b_ms,
+                         lost_ok=True),
             "plain_ms": cuda_ms(lambda: tk._exact_scan_plain(*args), iters=5),
             "library_ms": cuda_ms(library, iters=5),
             "library": "composite: torch.matmul + torch.topk",
-            "bound_ms": b_ms, "bound_by": b_by, "pct_of_bound": 100.0 * b_ms / dev_ms}
+            "bound_ms": b_ms, "bound_by": b_by}
 
 
 def _shard_probe_row(snap, s: int, q, k_eff: int, nprobe: int) -> dict:
@@ -3322,7 +3405,6 @@ def _shard_probe_row(snap, s: int, q, k_eff: int, nprobe: int) -> dict:
     nbytes = (n_lists * cap * 4 + live * (d + 4) + nq * d + lists.numel() * 4
               + nq * nprobe * k_eff * 8)
     b_ms, b_by = bound(nbytes, 2.0 * live_pairs * d, "int8")
-    dev_ms, dev_src = _device_ms(lambda: ip._probe_list_cuda(*args), "probe_split_kernel")
     return {"name": f"ivf_probe_per_list[int8,shard of {SHARD_COUNT},q={nq},nprobe={nprobe},"
                     f"cap={cap},d={d},k={k_eff}]", "route": "cuda",
             "source": "tpu_rag_torch/csrc/ivf_probe.cu",
@@ -3330,11 +3412,12 @@ def _shard_probe_row(snap, s: int, q, k_eff: int, nprobe: int) -> dict:
             "plan": ip._list_plan(nq, nprobe, cap, d, torch.int8, k_eff,
                                   ip._sm_count(vec.device))._asdict(),
             "max_abs_err": 0.0, "ms": cuda_ms(lambda: ip._probe_list_cuda(*args)),
-            "device_ms": dev_ms, "device_ms_from": dev_src,
+            **_device_ms(lambda: ip._probe_list_cuda(*args), "probe_split_kernel", b_ms,
+                         lost_ok=True),
             "plain_ms": cuda_ms(lambda: ip._probe_list_plain(*args), iters=5),
             "library_ms": cuda_ms(library, iters=5),
             "library": "composite: list gather + torch.bmm + torch.topk",
-            "bound_ms": b_ms, "bound_by": b_by, "pct_of_bound": 100.0 * b_ms / dev_ms}
+            "bound_ms": b_ms, "bound_by": b_by}
 
 
 def _shard_flat(work: Path) -> dict:
@@ -4050,6 +4133,9 @@ def main() -> int:
     ap.add_argument("--phases", default=all_phases,
                     help=f"comma-separated subset of {all_phases}; rerank_train and "
                          f"scripts read what train writes")
+    ap.add_argument("--save-masks", metavar="PATH",
+                    help="save the first masks of each shape that bf16 #5 is given "
+                         "in each phase (torch.save) for kernel_ab.py --masks")
     args = ap.parse_args()
     phases = args.phases.split(",")
     unknown = set(phases) - set(all_phases.split(","))
@@ -4092,6 +4178,7 @@ def main() -> int:
             trained = Path(stack.enter_context(tempfile.TemporaryDirectory(
                 prefix="chip_smoke_train_", dir=REPO / "build")))
         seconds, backends, threads_left, sharded, tp_counts = {}, {}, {}, {}, {}
+        att_masks = {}
         if "build" in phases:
             t0 = time.perf_counter()
             phase_build()
@@ -4117,7 +4204,8 @@ def main() -> int:
                 t0 = time.perf_counter()
                 with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{name}_",
                                                  dir=REPO / "build") as work, \
-                        _wordpiece_backends() as built:
+                        _wordpiece_backends() as built, \
+                        _attention_masks(MASKS_KEPT if args.save_masks else 0) as masks:
                     for kern, count in run(Path(work)).items():
                         launches[kern] = launches.get(kern, 0) + count
                         if name == "shard":
@@ -4125,12 +4213,15 @@ def main() -> int:
                         if name == "tp":
                             tp_counts[kern] = count
                 seconds[name] = time.perf_counter() - t0
+                att_masks[name] = masks
                 backends[name] = sorted(set(built))
                 threads_left[name] = _threads(before)  # started and left running
                 if set(built) - {"native"}:
                     raise AssertionError(f"the {name} phase tokenized in Python: {built}")
+    if args.save_masks:
+        torch.save({name: m.pop("masks") for name, m in att_masks.items()}, args.save_masks)
     emit({"phase_seconds": seconds, "wordpiece_backends": backends,
-          "threads_left": threads_left})
+          "threads_left": threads_left, "attention_masks": att_masks})
     for counts in (launches, sharded, tp_counts):
         for name, (whole, f32) in _SPLIT_COUNTERS.items():
             if whole in counts:

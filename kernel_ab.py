@@ -2,7 +2,8 @@
 """A/B timing of the port's scan (#1 #2 #3), attention (#5) and IVF probe
 (#6 #7) kernels between checkouts of this repository, on one GPU.
 
-    python3 kernel_ab.py [--profile] [--f32 | --bucket | --list] PARENT_DIR . . PARENT_DIR
+    python3 kernel_ab.py [--profile] [--f32 | --bucket | --list | --wide | --masks FILE] \
+        PARENT_DIR . . PARENT_DIR
 
 Each argument is the root of a checkout: its tpu_rag_torch/ is imported in
 a subprocess of its own and builds its kernels into its own build/.  The
@@ -19,7 +20,8 @@ lists (k 40), #7 at 8 and 64 queries (m 2).  The data is the same in
 every run (seeded on the card), as in chip_smoke.py.
 With --profile each shape also gets its device time per kernel and its
 wall time, per call (torch.profiler over 5 calls): where a wrapper's time
-goes between its kernels, the library calls around them and the host.
+goes between its kernels, the library calls around them and the host;
+`kernel_ms` is the port's own kernels' share (a library row: 0).
 With --f32 only the f32 kernels run: the f32 scans (#1 exact at 1M x 384,
 q 1, 8 and 64, k 20, and at 1M x 768, q 8; #2 packed, q 8, k 64; #3
 bucketed at 2M x 384, q 64), #5 in f32 (B 64, H 12, D 32 and 64, T 160,
@@ -28,7 +30,23 @@ bucketed at 2M x 384, q 64), #5 in f32 (B 64, H 12, D 32 and 64, T 160,
 d 384 and 768).  With --bucket only #7 runs: on int8 and bf16 lists seeded
 as above (q 8 and 64) and on --f32's f32 lists.  With --list only #6 runs:
 on int8 and bf16 lists seeded as above (q 1 and 3) and on --f32's f32
-lists.
+lists.  With --wide only #1 #2 and #5 run, each shape beside one library
+call on the same inputs (its `library:` row, the same in every checkout:
+the yardstick of that run): the scans at d 384 (the default rows) and at
+bge-base's d 768 over 1M rows (bf16 exact at q 1, 8 and 64, k 20; exact and
+packed at q 8, k 512; int8 exact at q 64, k 40), beside matmul + topk;
+#5 in bf16 at D 32 (B 64, H 12, T 128, 256 and 512; the reranker's B 32,
+T 256 and its eval's B 256, T 160), at D 64 (B 64, H 12, T 128, 256 and
+512) and on one tensor-parallel rank's heads (B 64, T 256, D 64 at H 6 and
+3; B 32, T 256, D 32 at H 6), on ragged rows (lengths uniform in 1..T),
+and at B 64, T 256, D 32, at B 256, T 160 and at B 64, T 512, D 64 with
+every key real (`dense`), beside SDPA; and #3 bucketed on bf16 rows at d
+384, q 32 (eval_recall's).  With --masks FILE only #5 in bf16 runs, on the
+masks that `chip_smoke.py --save-masks FILE` kept of each phase's launches:
+each (B, T, H, D) shape on its kept masks in turn (`masks:` rows) and with
+every key real (`dense:` rows), and per phase the sum over its shapes of
+launches x time (`phase:` rows; a shape's launches are the phase's, its
+time that of its kept masks).
 """
 
 from __future__ import annotations
@@ -103,10 +121,17 @@ def _profile(fn, reps: int = 5, warmup: bool = True) -> dict:
             "by_kernel_ms": by_kernel, "by_kernel_count": counts, "spans_ms": spans}
 
 
+# the port's kernels in a torch.profiler trace (names hold one of these)
+PORT_KERNELS = ("scan_kernel", "mha_tc_kernel", "mha_f32_kernel", "probe_split_kernel",
+                "probe_f32_kernel", "bucket_kernel", "read_sum_kernel")
+
+
 def _both(fn, profile: bool) -> dict:
     out = {"ms": _ms(fn, 20, 1), "device_ms": _ms(fn, 5, 10)}
     if profile:
         prof = _profile(fn)
+        out["kernel_ms"] = sum(ms for key, ms in prof["by_kernel_ms"].items()
+                               if any(name in key for name in PORT_KERNELS))
         top = sorted(prof["by_kernel_ms"].items(), key=lambda kv: -kv[1])[:6]
         out["profile"] = {**prof, "by_kernel_ms": {key[:60]: ms for key, ms in top}}
     return out
@@ -294,8 +319,122 @@ def list_worker(profile: bool) -> dict:
     return {**out, **_f32_list_rows(g, profile)}
 
 
+WIDE_SCANS = tuple((384,) + case for case in SCANS) + (
+    (768, "exact", "bf16", 1, 20), (768, "exact", "bf16", 8, 20), (768, "exact", "bf16", 64, 20),
+    (768, "exact", "bf16", 8, 512), (768, "packed", "bf16", 8, 512),
+    (768, "exact", "int8", 64, 40))
+# (B, T, H, D, dense) of #5 in bf16: ragged rows (lengths uniform in 1..T),
+# or every key real
+WIDE_ATTENTION = tuple((64, t, 12, 32, False) for t in ATTENTION_T) + (
+    (32, 256, 12, 32, False), (256, 160, 12, 32, False), (64, 128, 12, 64, False),
+    (64, 256, 12, 64, False), (64, 512, 12, 64, False), (64, 256, 6, 64, False),
+    (64, 256, 3, 64, False), (32, 256, 6, 32, False), (64, 256, 12, 32, True),
+    (256, 160, 12, 32, True), (64, 512, 12, 64, True))
+
+
+def wide_worker(profile: bool) -> dict:
+    """#1 #2 at d 384 and 768 and #5 in bf16 at D 32 and 64, each beside
+    its library call (matmul + topk; SDPA) on the same inputs."""
+    import math
+
+    import torch
+    import torch.nn.functional as F
+
+    from tpu_rag_torch.ops import attention as att
+    from tpu_rag_torch.ops import topk as tk
+    from tpu_rag_torch.ops.quant import quantize_int8_rows
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    kernels = {"exact": tk._exact_scan_cuda, "packed": tk._packed_scan_cuda}
+    out = {}
+    for d in (384, 768):
+        x = torch.randn((1_000_000, d), generator=g, device=dev)
+        x /= x.norm(dim=1, keepdim=True)
+        ns = torch.randint(0, 4, (x.shape[0],), generator=g, device=dev, dtype=torch.int32)
+        ns[-1000:] = tk.PAD_TAG
+        canon = torch.zeros_like(ns)
+        xb = x.to(torch.bfloat16)
+        x8, s8 = quantize_int8_rows(x)
+        del x
+        for dd, mode, dtype, nq, k in WIDE_SCANS:
+            if dd != d:
+                continue
+            qf = torch.randn((nq, d), generator=g, device=dev)
+            if dtype == "bf16":
+                args = (qf.to(torch.bfloat16), xb, None, ns, canon, None, -1, -1, k)
+            else:
+                q8, qs = quantize_int8_rows(qf)
+                args = (q8, x8, s8, ns, canon, qs, -1, -1, k)
+
+            def library(q=args[0], xx=args[1], sc=args[2], qs=args[5], k=k, packed=mode == "packed"):
+                s = torch.matmul(q.to(torch.bfloat16), xx.to(torch.bfloat16).T).float()
+                if sc is not None:
+                    s = s * qs[:, None] * sc[None, :]
+                s = torch.where((ns != tk.PAD_TAG)[None, :], s, -math.inf)
+                return torch.topk(tk.round18(s) if packed else s, k, dim=1)
+
+            name = f"{mode}_scan[{dtype},d={d},q={nq},k={k}]"
+            out[name] = _both(lambda: kernels[mode](*args), profile)
+            out[f"library:{name}"] = _both(library, profile)
+        if d == 384:                              # #3 bf16 (eval_recall bucketed)
+            qb = torch.randn((32, d), generator=g, device=dev).to(torch.bfloat16)
+            out["bucketed_scan[bf16,d=384,q=32]"] = _both(
+                lambda: tk._bucketed_scan_cuda(qb, xb, None, ns, canon, -1, -1), profile)
+        del xb, x8, s8, ns, canon
+        torch.cuda.empty_cache()
+    for b, t, h, hd, dense in WIDE_ATTENTION:
+        q, k_, v = (torch.randn((b, t, h, hd), generator=g, device=dev).to(torch.bfloat16)
+                    for _ in range(3))
+        lens = torch.randint(1, t + 1, (b,), generator=g, device=dev)
+        if dense:
+            lens.fill_(t)
+        mask = (torch.arange(t, device=dev)[None, :] < lens[:, None]).to(torch.int32)
+        qh, kh, vh = (z.permute(0, 2, 1, 3) for z in (q, k_, v))
+        keep = (mask > 0)[:, None, None, :]
+        name = f"fused_mha[bf16,B={b},T={t},H={h},D={hd}{',dense' if dense else ''}]"
+        out[name] = _both(lambda: att._fused_mha_cuda(q, k_, v, mask), profile)
+        out[f"library:{name}"] = _both(
+            lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=keep), profile)
+        del q, k_, v, qh, kh, vh
+    return out
+
+
+def masks_worker(path: Path, profile: bool) -> dict:
+    """#5 in bf16 on the masks chip_smoke.py --save-masks kept (module
+    docstring); q/k/v seeded the same in every checkout."""
+    import itertools
+
+    import torch
+
+    from tpu_rag_torch.ops import attention as att
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    out = {}
+    for phase, shapes in torch.load(path).items():
+        totals = {"device_ms": 0.0, "kernel_ms": 0.0, "ms": 0.0}
+        for shape, rec in shapes.items():
+            b, t, h, hd = (int(x) for x in shape.split(","))
+            q, k_, v = (torch.randn((b, t, h, hd), generator=g, device=dev).to(torch.bfloat16)
+                        for _ in range(3))
+            masks = [m.to(dev, torch.int32) for m in rec["masks"]]
+            ring = itertools.cycle(masks)
+            kept = _both(lambda: att._fused_mha_cuda(q, k_, v, next(ring)), profile)
+            dense = torch.ones_like(masks[0])
+            out[f"masks:{phase}[B={b},T={t},H={h},D={hd}]"] = {**kept, "calls": rec["calls"],
+                                                              "kept": len(masks)}
+            out[f"dense:{phase}[B={b},T={t},H={h},D={hd}]"] = _both(
+                lambda: att._fused_mha_cuda(q, k_, v, dense), profile)
+            for key in totals:
+                totals[key] += rec["calls"] * kept.get(key, 0.0)
+            del q, k_, v
+        out[f"phase:{phase}"] = {**totals, "calls": sum(r["calls"] for r in shapes.values())}
+    return out
+
+
 def worker(root: Path, profile: bool, f32: bool = False, bucket: bool = False,
-           lists: bool = False) -> dict:
+           lists: bool = False, wide: bool = False, masks: Path | None = None) -> dict:
     import torch
 
     sys.path.insert(0, str(root))
@@ -311,6 +450,10 @@ def worker(root: Path, profile: bool, f32: bool = False, bucket: bool = False,
         return bucket_worker(profile)
     if lists:
         return list_worker(profile)
+    if wide:
+        return wide_worker(profile)
+    if masks is not None:
+        return masks_worker(masks, profile)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED)
     n, d = 1_000_000, 384
@@ -388,13 +531,19 @@ def worker(root: Path, profile: bool, f32: bool = False, bucket: bool = False,
 
 def main() -> int:
     args = sys.argv[1:]
-    profile, f32, bucket, lists = ("--profile" in args, "--f32" in args, "--bucket" in args,
-                                   "--list" in args)
-    flags = [a for a in ("--profile", "--f32", "--bucket", "--list") if a in args]
+    profile, f32, bucket, lists, wide = ("--profile" in args, "--f32" in args,
+                                         "--bucket" in args, "--list" in args, "--wide" in args)
+    flags = [a for a in ("--profile", "--f32", "--bucket", "--list", "--wide") if a in args]
     args = [a for a in args if a not in flags]
+    masks = None
+    if "--masks" in args:
+        i = args.index("--masks")
+        masks = Path(args[i + 1]).resolve()
+        flags += ["--masks", str(masks)]
+        del args[i:i + 2]
     if len(args) == 2 and args[0] == "--worker":
-        print(json.dumps(worker(Path(args[1]).resolve(), profile, f32, bucket, lists)),
-              flush=True)
+        print(json.dumps(worker(Path(args[1]).resolve(), profile, f32, bucket, lists, wide,
+                                masks)), flush=True)
         return 0
     roots = [Path(a).resolve() for a in args]
     if not roots:
@@ -413,7 +562,8 @@ def main() -> int:
     # a checkout's own chip_smoke.py rows may be named differently (a union
     # size in the name): a shape missing from a run reads None there
     names = list(dict.fromkeys(name for r in runs for name in r))
-    summary = {name: {key: [r.get(name, {}).get(key) for r in runs] for key in ("ms", "device_ms")}
+    summary = {name: {key: [r.get(name, {}).get(key) for r in runs]
+                      for key in ("ms", "device_ms", "kernel_ms")}
                for name in names}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()

@@ -1,7 +1,8 @@
 """The launch plans and the arithmetic of the f32 kernels on the CPU:
-f32_scan_kernel (#1-#3 on f32 rows, csrc/topk.cu), mha_f32_kernel (#5 in
-f32, csrc/attention.cu), probe_f32_kernel and batched_bucket_kernel (#6
-and #7 on f32 lists, csrc/ivf_probe.cu).
+box_scan_kernel (#1-#3 on f32 rows, and on bf16 rows at d 768,
+csrc/topk.cu), mha_f32_kernel (#5 in f32, csrc/attention.cu),
+probe_f32_kernel and batched_bucket_kernel (#6 and #7 on f32 lists,
+csrc/ivf_probe.cu).
 
 The CUDA kernels run only on the card (chip_smoke.py holds them against
 their plain versions there).  Here the Python mirrors of their launch
@@ -218,8 +219,8 @@ def test_f32_attention_order_matches_jax(t, d):
 
 
 def test_f32_attention_takes_any_t_in_f32_only(monkeypatch):
-    """The f32 kernel streams K and V, so its wrapper takes T past 512;
-    bf16 keeps the head's K and V in shared memory and stops at 512.  (The
+    """The f32 kernel's wrapper takes T past 512; bf16 stops at 512, the
+    encoders' longest bucket, as far as its kernel is checked.  (The
     wrapper's checks, up to the point where it would build the kernel.)"""
     class Built(Exception):
         pass
@@ -243,7 +244,7 @@ INT_MAX = 2**31 - 1
 
 
 def _f32_scan_emulation(q, x, ns, canon, want_ns, want_canon, k, mode, sms=SMS, seed=None):
-    """f32_scan_kernel as it selects, in Python, on the plain version's
+    """box_scan_kernel as it selects, in Python, on the plain version's
     scores: each block of _scan_plan's contiguous ranges walks its rows in
     128-row tiles.  exact/packed: a row is a candidate of a query if it
     beats the query's threshold (its sorted list's k-th entry, never below
@@ -253,7 +254,7 @@ def _f32_scan_emulation(q, x, ns, canon, want_ns, want_canon, k, mode, sms=SMS, 
     its max and the lowest row holding it."""
     n, d = x.shape
     nq = q.shape[0]
-    plan = tk._scan_plan(n, d, nq, k if mode != "bucketed" else 0, torch.float32, sms, mode)
+    plan = tk._scan_plan(n, d, nq, k if mode != "bucketed" else 0, x.dtype, sms, mode)
     s = tk._scan_scores_plain(q, x, None, ns, canon, None, want_ns, want_canon,
                               apply_qscale=True)
     if mode == "packed":
@@ -336,6 +337,48 @@ def test_f32_scan_emulation_matches_the_plain_version(mode, k, sms, filt):
         if filt == (-1, -1):
             assert got_id[0, :5].tolist() == [3, 7, 700, 4000, x.shape[0] - 1]   # ties
     assert torch.equal(got_sc, want_sc)
+
+
+def _check_bf16_scan_emulation(d: int, mode: str, nq: int, seed: int) -> None:
+    """box_scan_kernel's selection on bf16 rows of width d under their own
+    plan (a chunk of max(8, nq) queries, blocks over contiguous 128-aligned
+    ranges), on the plain bf16 arithmetic's scores, equals the plain
+    version, ties across tiles and blocks to the lowest row."""
+    assert tk._box_route(torch.bfloat16)
+    x, q, ns, canon = (torch.from_numpy(a) for a in _scan_inputs(seed, d=d, nq=nq))
+    x, q = x.to(torch.bfloat16), q.to(torch.bfloat16)
+    k = 20
+    kk = k if mode != "bucketed" else 0
+    plan = tk._scan_plan(5000, d, nq, kk, torch.bfloat16, 4, mode)
+    assert plan.qc == max(8, nq) and plan.blocks > 1
+    assert plan.smem == tk._box_scan_smem(2, d, plan.qc, kk, mode, plan.stages)
+    got_sc, got_id = _f32_scan_emulation(q, x, ns, canon, -1, -1, k, mode, 4)
+    if mode == "bucketed":
+        want_sc, want_id = tk._bucketed_scan_plain(q, x, None, ns, canon, -1, -1)
+        fin = torch.isfinite(want_sc)
+        assert torch.equal(got_id[fin], want_id[fin])
+    else:
+        plain = tk._exact_scan_plain if mode == "exact" else tk._packed_scan_plain
+        want_sc, want_id = plain(q, x, None, ns, canon, None, -1, -1, k)
+        assert torch.equal(got_id, want_id)
+        assert got_id[0, :5].tolist() == [3, 7, 700, 4000, 4999]    # ties
+    assert torch.equal(got_sc, want_sc)
+
+
+@pytest.mark.parametrize("mode", ["exact", "packed", "bucketed"])
+@pytest.mark.parametrize("nq", [1, 8, 64])
+def test_wide_bf16_scan_emulation_matches_the_plain_version(mode, nq):
+    """bf16 rows at bge-base's d 768 (tensor-core products, the f32
+    kernel's selection): a 64-query chunk fits beside the lists."""
+    _check_bf16_scan_emulation(768, mode, nq, 2)
+
+
+@pytest.mark.parametrize("mode", ["exact", "packed", "bucketed"])
+@pytest.mark.parametrize("nq", [1, 8, 64])
+def test_d384_bf16_scan_emulation_matches_the_plain_version(mode, nq):
+    """bf16 rows at MiniLM's d 384 take box_scan_kernel too (six boxes a
+    row)."""
+    _check_bf16_scan_emulation(384, mode, nq, 3)
 
 
 @pytest.mark.parametrize("mode", ["exact", "packed"])

@@ -38,26 +38,47 @@ def test_blocks_cover_rows_once_in_order(dtype, mode, n):
             plan.block_rows == tk.BUCKET
 
 
-def _check_f32_plan(plan, d: int, nq: int, k: int, mode: str) -> None:
-    """An f32 plan (f32_scan_kernel): the chunk is 1 for one query, else the
-    power of two 8..64 that covers nq unless two stages did not fit beside
-    the larger chunk; as many one-box stages as fit (at most 8)."""
-    assert plan.qc in (1, 8, 16, 32, 64)
+def _a128(x: int) -> int:
+    return -(-x // 128) * 128
+
+
+def _box_layout(elt: int, d: int, qc: int, k: int, mode: str, stages: int) -> int:
+    """box_scan_kernel's layout written out: slack, one-box stages, query
+    rows of whole 128-byte boxes + 16, lists + candidate scratch + masks +
+    merge maps + the lists' fill counts or the bucket tables, two
+    mbarriers a stage."""
+    ld = -(-d * elt // 128) * 128 + 16
+    tail = (_a128(qc * k * 8) + _a128(128 * (qc + 1) * 4) + _a128(qc * 16) + 1024 + _a128(qc * 4)
+            if mode != "bucketed" else _a128(2 * (4 if qc >= 16 else 8) * qc * 8))
+    return 1024 + stages * 16384 + _a128(qc * ld) + tail + 128
+
+
+def _pipe_layout(elt: int, d: int, qc: int, k: int, mode: str, stages: int, rows: int) -> int:
+    """pipe_scan_kernel's layout written out: query rows padded to 32 bytes
+    + 16, query scales, stages of full-depth rows with their ns, canon and
+    scale, lists + candidate scratch + masks + merge maps or the row tiles'
+    maxima, one mbarrier a possible stage."""
+    ld = -(-d * elt // 32) * 32 + 16
+    tail = (_a128(qc * k * 8) + _a128(rows * (qc + 1) * 4) + _a128(qc * rows // 32 * 4) + 1024
+            if mode != "bucketed" else _a128(rows // 16 * qc * 8))
+    return (_a128(qc * ld) + _a128(qc * 4) + stages * (_a128(rows * ld) + 12 * rows) + tail
+            + 64)
+
+
+def _check_box_plan(plan, d: int, nq: int, k: int, mode: str, elt: int = 4) -> None:
+    """An f32 or bf16 plan (box_scan_kernel): the chunk is 1 for one f32
+    query, else the power of two 8..64 that covers nq unless two stages did
+    not fit beside the larger chunk; as many one-box stages as fit (at most
+    8)."""
+    assert plan.qc in ((1, 8, 16, 32, 64) if elt == 4 else (8, 16, 32, 64))
     assert 2 <= plan.stages <= tk._PIPE_STAGES_MAX and plan.smem <= tk._SMEM_MAX
-    assert plan.smem == tk._f32_scan_smem(d, plan.qc, k, mode, plan.stages)
-    assert plan.stages == tk._PIPE_STAGES_MAX or tk._f32_scan_smem(
-        d, plan.qc, k, mode, plan.stages + 1) > tk._SMEM_MAX
-    want = 1 if nq == 1 else min(64, max(8, 1 << (nq - 1).bit_length()))
-    assert plan.qc == want or (plan.qc < want and tk._f32_scan_smem(
-        d, 2 * plan.qc, k, mode, 2) > tk._SMEM_MAX)
-    # the layout written out: slack, one-box stages, query rows of whole
-    # 32-float boxes + 4, lists + candidate scratch + masks + merge maps or
-    # the bucket tables, two mbarriers a stage
-    a128 = lambda x: -(-x // 128) * 128  # noqa: E731
-    ld = -(-d // 32) * 32 + 4
-    tail = (a128(plan.qc * k * 8) + a128(128 * (plan.qc + 1) * 4) + a128(plan.qc * 16)
-            + 1024 if mode != "bucketed" else a128(2 * (4 if plan.qc >= 16 else 8) * plan.qc * 8))
-    assert plan.smem == 1024 + plan.stages * 16384 + a128(plan.qc * ld * 4) + tail + 128
+    assert plan.smem == tk._box_scan_smem(elt, d, plan.qc, k, mode, plan.stages)
+    assert plan.stages == tk._PIPE_STAGES_MAX or tk._box_scan_smem(
+        elt, d, plan.qc, k, mode, plan.stages + 1) > tk._SMEM_MAX
+    want = 1 if nq == 1 and elt == 4 else min(64, max(8, 1 << (nq - 1).bit_length()))
+    assert plan.qc == want or (plan.qc < want and tk._box_scan_smem(
+        elt, d, 2 * plan.qc, k, mode, 2) > tk._SMEM_MAX)
+    assert plan.smem == _box_layout(elt, d, plan.qc, k, mode, plan.stages)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8, torch.float32])
@@ -66,8 +87,8 @@ def test_every_plan_fits_shared_memory(dtype, mode):
     for k in KS:
         for nq in range(1, 65):
             plan = tk._scan_plan(1_000_000, 384, nq, k, dtype, SMS, mode)
-            if dtype == torch.float32:
-                _check_f32_plan(plan, 384, nq, k, mode)
+            if dtype != torch.int8:
+                _check_box_plan(plan, 384, nq, k, mode, tk._ELT[dtype])
                 continue
             assert plan.qc in (8, 16, 32, 64)
             assert 2 <= plan.stages <= tk._PIPE_STAGES_MAX
@@ -87,8 +108,8 @@ def test_bucketed_plans_fit_and_fill_the_ring(dtype):
     for nq in range(1, 129):
         plan = tk._scan_plan(2_000_000, 384, nq, 0, dtype, SMS, "bucketed")
         assert plan.smem <= tk._SMEM_MAX
-        if dtype == torch.float32:
-            _check_f32_plan(plan, 384, nq, 0, "bucketed")
+        if dtype != torch.int8:
+            _check_box_plan(plan, 384, nq, 0, "bucketed", tk._ELT[dtype])
             stage = 128 * 128                                # one box
         else:
             stage = tk._pipe_rows(tk._ELT[dtype], 384, plan.qc, 0, "bucketed") * 384 * tk._ELT[dtype]
@@ -111,15 +132,15 @@ def test_f32_query_chunk_is_not_padded_past_nq():
 
 def test_ring_keeps_loads_in_flight_at_main_path_shapes():
     """At the main path's shapes at least 64 KB of the ring is in flight
-    (all stages but the one being multiplied); f32 stages are one box, and
-    bytes bound the f32 scan at 1-8 queries."""
+    (all stages but the one being multiplied); f32 and bf16 stages are one
+    box, and bytes bound the f32 scan at 1-8 queries."""
     for dtype, nq, k in ((torch.bfloat16, 1, 20), (torch.bfloat16, 8, 20),
                          (torch.bfloat16, 64, 20), (torch.int8, 64, 40),
                          (torch.int8, 8, 1024), (torch.bfloat16, 8, 64),
                          (torch.int8, 64, 80), (torch.float32, 1, 20),
                          (torch.float32, 8, 20), (torch.float32, 8, 64)):
         plan = tk._scan_plan(1_000_000, 384, nq, k, dtype, SMS, "exact")
-        tile = (128 * 128 if dtype == torch.float32 else
+        tile = (128 * 128 if dtype != torch.int8 else
                 tk._pipe_rows(tk._ELT[dtype], 384, plan.qc, k, "exact") * 384 * tk._ELT[dtype])
         assert (plan.stages - 1) * tile >= 64 * 1024 or plan.stages == tk._PIPE_STAGES_MAX
 
@@ -188,40 +209,96 @@ def test_d768_blocks_cover_rows_once_in_order(dtype, mode, n):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8, torch.float32])
 @pytest.mark.parametrize("mode", ["exact", "packed", "bucketed"])
 def test_d768_every_plan_fits_shared_memory(dtype, mode):
-    """At d 768 a 128-row bf16 stage is 198,656 bytes: a plan falls back to
-    64-row stages, and for a chunk of 8 queries whose lists leave no room
-    for two of those (bf16 above k 252) to 32-row stages; every depth up to
-    K_MAX fits, with the kernel's own arithmetic (_pipe_smem; f32:
-    _f32_scan_smem, whose 64-query chunk halves at d 768)."""
+    """At d 768 a 64-row bf16 stage is 100,096 bytes: bf16 (like f32) takes
+    box_scan_kernel, whose stages are one box of 128 rows x 128 bytes
+    whatever d, and int8 keeps pipe_scan_kernel's 64- or 128-row stages;
+    every depth up to K_MAX fits, with the kernel's own arithmetic
+    (_box_scan_smem, _pipe_smem; f32's 64-query chunk halves at d 768)."""
     elt = tk._ELT[dtype]
     for k in (KS if mode != "bucketed" else (0,)):
         for nq in (1, 2, 7, 8, 9, 16, 31, 32, 33, 63, 64, 80, 128):
             plan = tk._scan_plan(1_000_000, 768, nq, k, dtype, SMS, mode)
             if dtype == torch.float32:
-                _check_f32_plan(plan, 768, min(nq, 64), k, mode)
+                _check_box_plan(plan, 768, min(nq, 64), k, mode)
                 assert plan.qc <= 32                   # 64 query rows: 197,632 bytes
                 continue
-            rows = tk._pipe_rows(elt, 768, plan.qc, k, mode)
             assert 2 <= plan.stages <= tk._PIPE_STAGES_MAX and plan.smem <= tk._SMEM_MAX
-            assert plan.smem == tk._pipe_smem(elt, 768, plan.qc, k, mode, plan.stages, rows)
-            assert rows in (32, 64, 128) and (rows != 64) <= (plan.qc == 8)
-            if dtype == torch.bfloat16:
-                assert rows != 128                     # one 128-row stage: 198,656 bytes
-                assert (rows == 32) == (tk._pipe_fit(elt, 768, plan.qc, k, mode, 64) < 2)
             want = max(8, 1 << (nq - 1).bit_length())
+            if dtype == torch.bfloat16:
+                assert tk._box_route(dtype)
+                assert plan.smem == tk._box_scan_smem(elt, 768, plan.qc, k, mode, plan.stages)
+                assert plan.stages == tk._PIPE_STAGES_MAX or tk._box_scan_smem(
+                    elt, 768, plan.qc, k, mode, plan.stages + 1) > tk._SMEM_MAX
+                assert plan.qc == min(want, 64) or (plan.qc < want and tk._box_scan_smem(
+                    elt, 768, 2 * plan.qc, k, mode, 2) > tk._SMEM_MAX)
+                continue
+            rows = tk._pipe_rows(elt, 768, plan.qc, k, mode)
+            assert plan.smem == tk._pipe_smem(elt, 768, plan.qc, k, mode, plan.stages, rows)
+            assert rows in (64, 128) and (rows == 128) <= (plan.qc == 8)
             assert plan.qc == min(want, 64) or (plan.qc < want and tk._pipe_smem(
                 elt, 768, 2 * plan.qc, k, mode, 2, 64) > tk._SMEM_MAX)
-    # the rehearsal's shapes (k 10: bf16 refine scans 20, int8 40) keep 64 rows
+    # the rehearsal's shapes (k 10: bf16 refine scans 20, int8 40) take a
+    # chunk that covers the queries: the rows are read once
     for nq in (1, 8, 64):
         plan = tk._scan_plan(1_000_000, 768, nq, 20, torch.bfloat16, SMS, "exact")
-        assert tk._pipe_rows(2, 768, plan.qc, 20, "exact") == 64
+        assert plan.qc == max(8, nq)
+
+
+@pytest.mark.parametrize("k", [k for k in KS if k <= 256])
+def test_d768_bf16_q64_reads_the_rows_at_most_twice(k):
+    """bge-base's scans of a 64-query window (rehearse_scale's index API,
+    HTTP windows at microbatch_max): the box ring leaves a 64-query chunk
+    room beside its lists up to the main path's k_scan 80, and a 32-query
+    one up to k 256, so the rows are read once or twice (64-row stages took
+    chunks of 8: eight reads)."""
+    for mode in ("exact", "packed", "bucketed"):
+        kk = k if mode != "bucketed" else 0
+        plan = tk._scan_plan(1_000_000, 768, 64, kk, torch.bfloat16, SMS, mode)
+        assert plan.qc >= 32 and -(-64 // plan.qc) <= 2
+        assert plan.qc == 64 or k > 80
+
+
+@pytest.mark.parametrize("d", [384, 768])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8, torch.float32])
+@pytest.mark.parametrize("mode", ["exact", "packed", "bucketed"])
+def test_every_plan_fits_by_the_mirrored_layout(d, dtype, mode):
+    """Every plan at d 384 and 768, for every depth of KS and chunk size:
+    its kernel's layout (_box_route: box or pipe) written out equals the
+    plan's bytes and fits 232,448, and its blocks cover the rows once, in
+    order, 128-aligned."""
+    elt, n = tk._ELT[dtype], 2_000_000
+    for k in (KS if mode != "bucketed" else (0,)):
+        for nq in (1, 2, 8, 9, 33, 64, 80):
+            plan = tk._scan_plan(n, d, nq, k, dtype, SMS, mode)
+            assert 2 <= plan.stages <= tk._PIPE_STAGES_MAX and plan.smem <= tk._SMEM_MAX
+            if tk._box_route(dtype):
+                assert plan.smem == _box_layout(elt, d, plan.qc, k, mode, plan.stages)
+            else:
+                rows = tk._pipe_rows(elt, d, plan.qc, k, mode)
+                assert plan.smem == _pipe_layout(elt, d, plan.qc, k, mode, plan.stages, rows)
+            ranges = _ranges(n, plan)
+            assert plan.block_rows % tk.BUCKET == 0
+            assert ranges[0][0] == 0 and ranges[-1][1] == n
+            assert all(e == b for (_, e), (b, _) in zip(ranges, ranges[1:]))
+            assert all(b < e for b, e in ranges)
+
+
+def test_box_route_takes_bf16_and_f32_rows():
+    """bf16 and f32 scans take box_scan_kernel at every width (MiniLM's
+    384, bge-base's 768), int8 scans pipe_scan_kernel."""
+    assert tk._box_route(torch.bfloat16) and tk._box_route(torch.float32)
+    assert not tk._box_route(torch.int8)
+    for d in (384, 768):
+        for nq in (1, 8, 64):
+            plan = tk._scan_plan(1_000_000, d, nq, 20, torch.bfloat16, SMS, "exact")
+            assert plan.smem == tk._box_scan_smem(2, d, plan.qc, 20, "exact", plan.stages)
 
 
 def test_d384_plans_never_take_32_row_stages():
-    """The 32-row stage exists for wide rows and deep lists only: at d 384
-    every plan keeps the rows it had."""
-    for dtype in (torch.bfloat16, torch.int8):
-        for mode in ("exact", "packed", "bucketed"):
-            for k in (KS if mode != "bucketed" else (0,)):
-                for qc in (8, 16, 32, 64):
-                    assert tk._pipe_rows(tk._ELT[dtype], 384, qc, k, mode) in (64, 128)
+    """pipe_scan_kernel's stages (int8 rows) are 64 or 128 rows: at d 384
+    every plan keeps the rows it had (the 32-row stage, once taken by bf16
+    at d 768 above k 252, went with bf16 to box_scan_kernel)."""
+    for mode in ("exact", "packed", "bucketed"):
+        for k in (KS if mode != "bucketed" else (0,)):
+            for qc in (8, 16, 32, 64):
+                assert tk._pipe_rows(1, 384, qc, k, mode) in (64, 128)

@@ -15,12 +15,18 @@
 //
 // bf16 (the encoder's dtype on the card), D in {32, 64}, T <= 512:
 //   - one block of 8 warps per (b, h, 128-query tile), each warp owning 16
-//     query rows (rather than 4 warps and 64 rows: each head's K and V are
-//     fetched half as often, which T 512 needs); the head's whole K and V
-//     (at most 64 KB each) sit in shared memory, fetched with 16-byte
-//     cp.async in chunks of 64 keys, one
-//     commit group per chunk, so the first chunk's math starts while the
-//     rest is in flight (the query tile rides in the first group);
+//     query rows; K and V stream through a ring of 64-key chunks, copied
+//     by 16-byte cp.async (one commit group a chunk; the query tile rides
+//     in the first group; one barrier a chunk).  The ring holds T's chunks
+//     up to as many as leave room for two blocks an SM (tc_stages): at D 32
+//     all of T <= 512, every copy in flight from the start; at D 64 five
+//     (113 KB), each refilled above T 320 once its chunk's products are
+//     done (mha_tc_kernel<64, true>; holding T 512's whole K and V, 168 KB,
+//     would leave one block an SM, its copies and products in turn);
+//   - at a ragged T (B 256, T 160: a second tile of 32 real rows), a warp
+//     whose 16 rows all lie past T only feeds the ring (a branch around
+//     the whole chunk; one inside its unrolled products, to skip the key
+//     tiles past T, cost more than it saved);
 //   - S = Q . K^T on the tensor cores (mma.sync m16n8k16, operands by
 //     ldmatrix; rows padded by 16 bytes so the eight rows of a matrix fall
 //     in distinct banks);
@@ -72,18 +78,41 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 // ---------------------------------------------------------------- bf16
 constexpr int kWarps = 8;
-constexpr int kQTile = 16 * kWarps;  // query rows per block
-constexpr int kChunk = 64;           // keys per softmax step
+constexpr int kQTile = 16 * kWarps;  // query rows per block (128)
+constexpr int kChunk = 64;           // keys per softmax step and ring stage
 constexpr int kTMax = 512;
+constexpr int kSmemTwo = 233472 / 2 - 1024;  // a block's share when two share an SM
 
 __host__ __device__ constexpr int row_ld(int D) { return D + 8; }  // + 16 bytes
-__host__ __device__ inline size_t tc_smem_bytes(int D, int T) {
-  const int tp = (T + kChunk - 1) / kChunk * kChunk;
-  return size_t(kQTile + 2 * tp) * row_ld(D) * 2 + size_t(tp) * 4;
+__host__ __device__ constexpr int tc_imin(int a, int b) { return a < b ? a : b; }
+__host__ __device__ constexpr int tc_imax(int a, int b) { return a > b ? a : b; }
+
+// Ring stages of mha_tc_kernel<D> (mirrored by ops/attention.py's
+// _tc_stages): one a 64-key chunk of T, at most as many as leave room for
+// two blocks an SM (the kernel's registers allow two): 8 at D 32, so T <=
+// 512 is held whole; 5 at D 64 (a block holding T 512's whole K and V
+// took 167,936 bytes, one block an SM).
+__host__ __device__ constexpr int tc_stages(int D, int T) {
+  return tc_imin((T + kChunk - 1) / kChunk,
+                 tc_imin(8, (kSmemTwo - 128 * row_ld(D) * 2 - kTMax * 4) /
+                                (2 * kChunk * row_ld(D) * 2)));
 }
 
-template <int D>
-__global__ void __launch_bounds__(kWarps * 32)
+// Shared-memory layout of mha_tc_kernel<D> (mirrored by ops/attention.py's
+// _tc_smem): the Q tile, then the ring's chunks of K and of V (rows of D +
+// 8 bf16), then every key's flag over T's chunks.
+__host__ __device__ constexpr size_t tc_smem_bytes(int D, int T) {
+  return size_t(kQTile + 2 * tc_stages(D, T) * kChunk) * row_ld(D) * 2 +
+         size_t((T + kChunk - 1) / kChunk) * kChunk * 4;
+}
+
+// kRing: T's chunks outnumber the ring's stages (D 64 above T 320), so a
+// stage is refilled once its chunk's products are done; else every chunk
+// has a stage of its own and every copy is issued up front (no refill code
+// in the loop: it cost registers and time where it never ran).  D 64 is
+// held to 128 registers, two blocks an SM (left free, it took 146: one).
+template <int D, bool kRing>
+__global__ void __launch_bounds__(kWarps * 32, D == 64 ? 2 : 1)
 mha_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v, const int* __restrict__ mask,
               __nv_bfloat16* __restrict__ o, int T_, int H, float scale_log2) {
@@ -91,35 +120,44 @@ mha_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   constexpr int kPieces = D / 8;  // 16-byte pieces of a head row
   constexpr int kDT = D / 8;      // 8-column tiles of the output
   extern __shared__ __align__(16) unsigned char smem[];
-  const int tp = (T_ + kChunk - 1) / kChunk * kChunk;
+  const int stages = tc_stages(D, T_);
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Ks = Qs + kQTile * LD;
-  __nv_bfloat16* Vs = Ks + tp * LD;
-  int* keep = reinterpret_cast<int*>(Vs + tp * LD);  // 1 real, 0 masked, -1 past T
+  __nv_bfloat16* Ks = Qs + kQTile * LD;                 // [stages][kChunk][LD]
+  __nv_bfloat16* Vs = Ks + stages * kChunk * LD;
+  int* keep = reinterpret_cast<int*>(Vs + stages * kChunk * LD);  // [T]: 1 real, 0 masked, -1 past T
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kQTile;
   const size_t rs = size_t(H) * D;  // between consecutive tokens
   const size_t base = size_t(b) * T_ * rs + size_t(h) * D;
-  const int nchunks = tp / kChunk;
+  const int nchunks = (T_ + kChunk - 1) / kChunk;
+  // a warp whose 16 query rows all lie past T only feeds the ring
+  const bool live = q0 + warp * 16 < T_;
+
+  // chunk c -> ring stage c % stages: its K and V (zero past T)
+  auto fetch = [&](int c) {
+    const int st = c % stages;
+    for (int i = tid; i < kChunk * kPieces; i += kWarps * 32) {
+      const int r = i / kPieces, cc = (i % kPieces) * 8, key = c * kChunk + r;
+      const bool ok = key < T_;
+      const size_t off = base + size_t(ok ? key : 0) * rs + cc;
+      cp_async16(Ks + (st * kChunk + r) * LD + cc, k + off, ok);
+      cp_async16(Vs + (st * kChunk + r) * LD + cc, v + off, ok);
+    }
+    cp_commit();
+  };
 
   for (int i = tid; i < kQTile * kPieces; i += kWarps * 32) {
     const int r = i / kPieces, c = (i % kPieces) * 8;
     const bool ok = q0 + r < T_;
     cp_async16(Qs + r * LD + c, q + base + size_t(ok ? q0 + r : 0) * rs + c, ok);
   }
-  for (int ch = 0; ch < nchunks; ++ch) {
-    for (int i = tid; i < kChunk * kPieces; i += kWarps * 32) {
-      const int r = ch * kChunk + i / kPieces, c = (i % kPieces) * 8;
-      const bool ok = r < T_;
-      const size_t off = base + size_t(ok ? r : 0) * rs + c;
-      cp_async16(Ks + r * LD + c, k + off, ok);
-      cp_async16(Vs + r * LD + c, v + off, ok);
-    }
-    cp_commit();
-  }
-  for (int i = tid; i < tp; i += kWarps * 32)
+  for (int c = 0; c < stages; ++c) fetch(c);  // the Q tile rides in chunk 0's group
+  // every key's flag, once, while the copies fly (read inside fetch, a
+  // flag would stall its warp on the mask load before the warp's next
+  // copies)
+  for (int i = tid; i < nchunks * kChunk; i += kWarps * 32)
     keep[i] = i < T_ ? (mask[size_t(b) * T_ + i] > 0 ? 1 : 0) : -1;
 
   uint32_t qf[D / 16][4];
@@ -129,19 +167,31 @@ mha_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // rows g and g + 8
 
   for (int ch = 0; ch < nchunks; ++ch) {
-    cp_wait_dyn(nchunks - 1 - ch);  // this thread's copies of chunk ch landed
-    __syncthreads();                // and everyone's
-    if (ch == 0) {
+    // the chunks issued after ch may stay in flight: all of T's where the
+    // ring holds T whole (every copy was issued up front)
+    cp_wait_dyn(kRing ? min(nchunks - 1 - ch, stages - 1 - (ch > 0)) : nchunks - 1 - ch);
+    __syncthreads();  // chunk ch landed for all; chunk ch - 1's products are done
+    if constexpr (kRing) {
+      if (ch > 0 && ch - 1 + stages < nchunks) fetch(ch - 1 + stages);  // where ch - 1 was
+    }
+    if (!live) continue;
+    const int st = kRing ? ch % stages : ch;
+    const __nv_bfloat16* Kc = Ks + st * kChunk * LD;
+    const __nv_bfloat16* Vc = Vs + st * kChunk * LD;
+    const int* fl = keep + ch * kChunk;
+    if (ch == 0) {  // the Q tile landed with chunk 0
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
         ldsm_x4(qf[kk], Qs + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
     }
-    // ---- S = Q . K^T for 64 keys: 8 tiles of 8 keys
+    // ---- S = Q . K^T for 64 keys: 8 tiles of 8 keys (straight-line: a
+    // branch per tile would keep the compiler from interleaving the tiles'
+    // loads and products)
     float s[8][4];
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
       s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const __nv_bfloat16* kr = Ks + (ch * kChunk + nt * 8 + (lane & 7)) * LD + (lane >> 3) * 8;
+      const __nv_bfloat16* kr = Kc + (nt * 8 + (lane & 7)) * LD + (lane >> 3) * 8;
 #pragma unroll
       for (int kp = 0; kp < D / 32; ++kp) {
         uint32_t r[4];
@@ -154,9 +204,10 @@ mha_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
     float mx0 = m0, mx1 = m1;
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
+      const int2 f2 = *reinterpret_cast<const int2*>(fl + nt * 8 + 2 * t);  // keys 2t, 2t + 1
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int f = keep[ch * kChunk + nt * 8 + 2 * t + (j & 1)];
+        const int f = (j & 1) ? f2.y : f2.x;
         const float x = f > 0 ? s[nt][j] * scale_log2 : (f == 0 ? kMaskValue : -INFINITY);
         s[nt][j] = x;
         if (j < 2) mx0 = fmaxf(mx0, x);
@@ -197,7 +248,7 @@ mha_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
                              pack_bf16(s[2 * kj + 1][0], s[2 * kj + 1][1]),
                              pack_bf16(s[2 * kj + 1][2], s[2 * kj + 1][3])};
       const __nv_bfloat16* vr =
-          Vs + (ch * kChunk + kj * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8;
+          Vc + (kj * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8;
 #pragma unroll
       for (int dn = 0; dn < D / 16; ++dn) {
         uint32_t r[4];
@@ -207,6 +258,7 @@ mha_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
       }
     }
   }
+  if (!live) return;
 #pragma unroll
   for (int off = 1; off <= 2; off <<= 1) {
     l0 += __shfl_xor_sync(0xffffffffu, l0, off);
@@ -226,22 +278,30 @@ mha_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   }
 }
 
-template <int D>
-int launch_tc(const void* q, const void* k, const void* v, const void* mask, void* o, int B,
-              int T_, int H, cudaStream_t stream) {
-  if (T_ > kTMax) return int(cudaErrorInvalidValue);
-  static bool configured = false;  // the largest T's shared memory, once
-  if (!configured) {
-    cudaFuncSetAttribute(mha_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         int(tc_smem_bytes(D, kTMax)));
-    configured = true;
-  }
+template <int D, bool kRing>
+int launch_tc_kernel(const void* q, const void* k, const void* v, const void* mask, void* o,
+                     int B, int T_, int H, cudaStream_t stream) {
+  static const cudaError_t set =  // once, for the largest T: above 48 KB only by this attribute
+      cudaFuncSetAttribute(mha_tc_kernel<D, kRing>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           int(tc_smem_bytes(D, kTMax)));
+  if (set != cudaSuccess) return int(set);
   dim3 grid((T_ + kQTile - 1) / kQTile, H, B);
-  mha_tc_kernel<D><<<grid, kWarps * 32, tc_smem_bytes(D, T_), stream>>>(
+  mha_tc_kernel<D, kRing><<<grid, kWarps * 32, tc_smem_bytes(D, T_), stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(mask),
       static_cast<__nv_bfloat16*>(o), T_, H, kLog2e / sqrtf(float(D)));
   return int(cudaGetLastError());
+}
+
+template <int D>
+int launch_tc(const void* q, const void* k, const void* v, const void* mask, void* o, int B,
+              int T_, int H, cudaStream_t stream) {
+  if (T_ > kTMax) return int(cudaErrorInvalidValue);
+  if constexpr (tc_stages(D, kTMax) < kTMax / kChunk) {
+    if ((T_ + kChunk - 1) / kChunk > tc_stages(D, T_))
+      return launch_tc_kernel<D, true>(q, k, v, mask, o, B, T_, H, stream);
+  }
+  return launch_tc_kernel<D, false>(q, k, v, mask, o, B, T_, H, stream);
 }
 
 // ---------------------------------------------------------------- f32
@@ -459,7 +519,7 @@ int launch_f32(const void* q, const void* k, const void* v, const void* mask, vo
 
 }  // namespace
 
-// Shared-memory bytes of one block of #5 (dtype TR_F32 or TR_BF16).
+// Shared-memory bytes of one block of #5 (dtype TR_F32 or TR_BF16) at T.
 extern "C" size_t tr_mha_smem_bytes(int dtype, int D, int T_) {
   return dtype == TR_F32 ? size_t(f32_smem(D).total) * 4 : tc_smem_bytes(D, T_);
 }

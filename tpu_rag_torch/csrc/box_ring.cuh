@@ -1,31 +1,35 @@
-// The ring of 128-byte row boxes that the TMA kernels read, and the f32
-// products over it shared by the three f32 kernels: the f32 scan (#1 #2 #3
-// on f32 rows, topk.cu's f32_scan_kernel), the f32 per-list probe (#6,
-// ivf_probe.cu's probe_f32_kernel) and the f32 batched probe (#7,
-// ivf_probe.cu's batched_bucket_kernel).
+// The ring of 128-byte row boxes that the TMA kernels read, and the
+// products over it: f32 ones shared by the three f32 kernels (the scan,
+// #1 #2 #3 on f32 rows, topk.cu's box_scan_kernel<float>; the per-list
+// probe, #6, ivf_probe.cu's probe_f32_kernel; the batched probe, #7,
+// ivf_probe.cu's batched_bucket_kernel), and a bf16 one on the tensor
+// cores (the scan of bf16 rows, box_scan_kernel).
 //
 // A box is 128 rows x 128 bytes of a row-major matrix read through a 2-D
 // tensor map (the TMA unit computes the addresses and reports the bytes on
 // an mbarrier), stored with the 128-byte swizzle: the 16-byte chunk c of
 // box row r sits at r * 128 + (c ^ (r & 7)) * 16, so the eight rows a
-// quarter warp reads at one chunk fall in eight distinct bank groups.  An
-// f32 row of d floats is ceil(d / 32) boxes deep; columns past d read as
-// zero.  The f32 kernels keep one box a ring stage (16 KB; a whole 128-row
-// f32 tile is 192 KB at d 384) and their partial sums in registers over a
-// row tile's boxes.
+// quarter warp (or an ldmatrix matrix) reads at one chunk fall in eight
+// distinct bank groups.  A row of d * elt bytes is ceil(d * elt / 128)
+// boxes deep; columns past it read as zero.  The kernels keep one box a
+// ring stage (16 KB; a whole 128-row f32 tile is 192 KB at d 384, a bf16
+// one at d 768) and their partial sums in registers over a row tile's
+// boxes.
 //
-// Two products over one box, both on the CUDA cores in f32 (the reference
-// is f32: no TF32):
-//   box_tile       register micro-tiles in mma.sync's m16n8 accumulator
+// Three products over one box:
+//   box_tile       f32 on the CUDA cores (the reference is f32: no TF32),
+//                  register micro-tiles in mma.sync's m16n8 accumulator
 //                  layout: a thread's rows 16 mi + g + 8 h and queries
 //                  8 j + 2 t + e, each row and query read as a float4 per
 //                  chunk (12 float4 loads feed 128 FMAs at 4 x 8);
-//   box_one_query  one query, whose slice of the box each lane reads once:
-//                  lane (g, t) sums chunks 2t and 2t + 1 of rows g and
-//                  g + 8, every row float4 read once by one lane (so the
-//                  box is read once, not 8 times as a column of an n8
+//   box_one_query  f32, one query, whose slice of the box each lane reads
+//                  once: lane (g, t) sums chunks 2t and 2t + 1 of rows g
+//                  and g + 8, every row float4 read once by one lane (so
+//                  the box is read once, not 8 times as a column of an n8
 //                  tile would), and sum_quarters completes a row's sum
-//                  over the four lanes t after the tile's last box.
+//                  over the four lanes t after the tile's last box;
+//   box_tile_bf16  bf16 on the tensor cores, mma.sync m16n8k16 in the
+//                  same accumulator layout, f32 sums.
 #pragma once
 
 #include <cuda.h>
@@ -109,6 +113,47 @@ __device__ inline void box_one_query(float (&acc)[2], const unsigned char* st, i
       acc[h] = fmaf(a.y, qv.y, acc[h]);
       acc[h] = fmaf(a.z, qv.z, acc[h]);
       acc[h] = fmaf(a.w, qv.w, acc[h]);
+    }
+  }
+}
+
+// acc[mi][j][2 h + e] += the box's 64 bf16 columns of row r_lo + 16 mi + g
+// + 8 h times those of query 8 j + 2 t + e, by four m16n8k16 steps of 16
+// columns.  The rows' A fragments come by ldmatrix from the swizzled box:
+// lane l names row r_lo + 16 mi + (l & 15) at chunk 2 ks + (l >> 4), and r_lo
+// is a multiple of 16, so the row's swizzle is l & 7 and a matrix's eight
+// rows read eight distinct physical chunks.  The queries' B fragments come
+// by ldmatrix from rows of ld bytes (an odd number of 16-byte units:
+// conflict-free); qbox is the warp's first query row at the box's first
+// byte.
+template <int kMTW, int kNTW>
+__device__ inline void box_tile_bf16(float (&acc)[kMTW][kNTW][4], const unsigned char* st,
+                                     int r_lo, const unsigned char* qbox, int ld, int lane) {
+  const unsigned char* bq =
+      qbox + ((lane & 7) + (kNTW > 1 ? (lane >> 4) << 3 : 0)) * ld + ((lane >> 3) & 1) * 16;
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    uint32_t a[kMTW][4];
+    const int chunk = 2 * ks + (lane >> 4);
+#pragma unroll
+    for (int mi = 0; mi < kMTW; ++mi)
+      tr_mma::ldsm_x4(a[mi], st + (r_lo + mi * 16 + (lane & 15)) * 128 + ((chunk ^ (lane & 7)) << 4));
+    if constexpr (kNTW == 1) {
+      uint32_t b[2];
+      tr_mma::ldsm_x2(b, bq + ks * 32);
+#pragma unroll
+      for (int mi = 0; mi < kMTW; ++mi) tr_mma::mma_bf16(acc[mi][0], a[mi], b[0], b[1]);
+    } else {
+#pragma unroll
+      for (int p = 0; p < kNTW / 2; ++p) {
+        uint32_t b[4];
+        tr_mma::ldsm_x4(b, bq + p * 16 * ld + ks * 32);
+#pragma unroll
+        for (int mi = 0; mi < kMTW; ++mi) {
+          tr_mma::mma_bf16(acc[mi][2 * p], a[mi], b[0], b[1]);
+          tr_mma::mma_bf16(acc[mi][2 * p + 1], a[mi], b[2], b[3]);
+        }
+      }
     }
   }
 }

@@ -1,5 +1,5 @@
 // Sorted top-k lists in shared memory, shared by the exact and packed scans
-// (pipe_scan_kernel and f32_scan_kernel, topk.cu: #1 #2) and the split
+// (pipe_scan_kernel and box_scan_kernel, topk.cu: #1 #2) and the split
 // per-list IVF probes (probe_split_kernel and probe_f32_kernel,
 // ivf_probe.cu: #6).
 //
@@ -36,12 +36,16 @@ __device__ inline bool better(float s, int r, float s2, int r2) {
 // the map): an entry only ever moves up, so with the chunks of 32 taken
 // from the top no entry is overwritten before it is read.  Whatever lands
 // at k or beyond drops out: the list that inserting the candidates one at a
-// time gives.
-__device__ inline void warp_merge(float* Ls, int* Li, int k, float s, int row, unsigned* bm) {
+// time gives.  A caller that knows the list's real entries (`filled`; the
+// rest are empty) starts the moves at the last place a real entry can take,
+// filled + placed - 1, not at the top: past the real entries an empty entry
+// would only move onto an empty one.  Returns the candidates placed.
+__device__ inline int warp_merge(float* Ls, int* Li, int k, float s, int row, unsigned* bm,
+                                 int filled = INT_MAX) {
   const int lane = threadIdx.x & 31;
   const bool real = s > -INFINITY && better(s, row, Ls[k - 1], Li[k - 1]);
   const unsigned cand = __ballot_sync(kFull, real);
-  if (!cand) return;
+  if (!cand) return 0;
   int rank = 0;  // candidates better than this one
   for (unsigned m = cand; m; m &= m - 1) {
     const int src = __ffs(m) - 1;
@@ -62,8 +66,10 @@ __device__ inline void warp_merge(float* Ls, int* Li, int k, float s, int row, u
   }
   const int pmin = __reduce_min_sync(kFull, pos);
   int below = __popc(__ballot_sync(kFull, pos < k));  // candidates placed under the chunk
+  const int placed = below;
+  const int top = filled >= k - placed ? k - 1 : filled + placed - 1;  // the last real place
   __syncwarp();
-  for (int w = (k - 1) >> 5; w >= (pmin >> 5) && pmin < k; --w) {
+  for (int w = top >> 5; w >= (pmin >> 5) && pmin < k; --w) {
     const unsigned bits = bm[w];
     below -= __popc(bits);
     const int o = (w << 5) + lane;
@@ -88,6 +94,7 @@ __device__ inline void warp_merge(float* Ls, int* Li, int k, float s, int row, u
     bm[pos >> 5] = 0u;
   }
   __syncwarp();
+  return placed;
 }
 
 // Entries of the sorted list (Ls, Li) of k that are better than (s, r): a

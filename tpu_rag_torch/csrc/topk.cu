@@ -24,24 +24,24 @@
 // so bytes bound it: loads must stay in flight all the time, and the
 // selection must stay off the critical path.
 //
-// bf16 and int8 (pipe_scan_kernel):
+// int8 rows (pipe_scan_kernel):
 //   - a persistent grid: one block of 8 warps per SM (per query chunk),
 //     each walking one contiguous range of rows (a multiple of 128, so a
 //     bucket never straddles two blocks, and candidates come out in row
 //     order for the caller's stable merge);
 //   - a ring of 2-8 stages in shared memory, each a full-depth tile of 64
-//     rows (48 KB bf16, 24 KB int8 at d 384; 128 rows for a chunk of 8
-//     queries where that keeps 64 KB in flight) plus the rows' ns, canon
+//     rows (24 KB at d 384; 128 rows for a chunk of 8 queries where that
+//     keeps 64 KB in flight) plus the rows' ns, canon
 //     and scale, filled while the block multiplies the tile that landed
 //     `stages - 1` tiles earlier: each row by one bulk copy (the TMA unit;
 //     thread r copies row r, thread 0 announces the tile's bytes on the
 //     stage's mbarrier), the tags by cp.async.  With 16-byte cp.async the
 //     copying warps stalled on the SM's outstanding-load limit, so the
 //     selection never overlapped the loads;
-//   - the product on the tensor cores with mma.sync (m16n8k16 bf16 -> f32,
-//     m16n8k32 s8 -> s32), rows on the M side (16 a warp) and queries on the
-//     N side in tiles of 8, so 1 or 8 queries waste no MMA work; operands
-//     by ldmatrix from rows padded by 16 bytes (conflict-free);
+//   - the product on the tensor cores with mma.sync (m16n8k32 s8 -> s32),
+//     rows on the M side (16 a warp) and queries on the N side in tiles of
+//     8, so 1 or 8 queries waste no MMA work; operands by ldmatrix from
+//     rows padded by 16 bytes (conflict-free);
 //   - exact/packed: each thread compares its scores, straight from the
 //     accumulator registers, with its queries' thresholds (the sorted
 //     list's last entry, kept in registers, never below the caller's seed),
@@ -54,22 +54,32 @@
 //   - bucketed: each warp reduces its 16 rows per query with shuffles, and
 //     one thread per query folds the row tiles of a stage, in row order,
 //     and closes a 128-row bucket at its last row.
-// f32 (f32_scan_kernel): 1.5 GB at 1M x 384, and at 64 queries 49 GFLOP
-// on the CUDA cores (the reference is f32: no TF32), 0.73 ms at the 67
-// TFLOP/s f32 peak against 0.46 ms of bytes, so operations bound it from
-// ~40 queries and bytes below:
+// f32 and bf16 rows (box_scan_kernel).  f32: 1.5 GB at
+// 1M x 384, and at 64 queries 49 GFLOP on the CUDA cores (the reference is
+// f32: no TF32), 0.73 ms at the 67 TFLOP/s f32 peak against 0.46 ms of
+// bytes, so operations bound it from ~40 queries and bytes below.  bf16
+// at bge-base's d 768: 1.5 GB at 1M rows against 98 GFLOP at 64 queries
+// (0.1 ms on the tensor cores), so bytes bound it, but full-depth stages
+// (a 64-row bf16 tile is 97 KB there) left a 64-query chunk no room
+// beside its queries: the plan took chunks of 8 and read the rows 8
+// times.  At MiniLM's d 384 too, bf16 scans take less device time on the
+// box ring than they did on full-depth stages, most at 32-64 queries.  A
+// stage here is one box, whatever d:
 //   - the same persistent grid of contiguous 128-aligned row ranges, one
-//     block per SM for each query chunk (1, 8, 16, 32 or 64 queries: a
-//     single query is not padded to 16), the chunks one wave after another;
-//   - a TMA ring of 2-8 one-box stages (128 rows x 32 floats, 16 KB; a
-//     whole f32 row tile is 192 KB at d 384) kept in flight by a producer
-//     warp, released per stage by the 8 consumer warps on `empty`
-//     mbarriers; a tile's rows' tags are read by the threads that own the
-//     rows when the tile starts and used at its last box;
-//   - the product in registers over a tile's boxes (box_ring.cuh): one
+//     block per SM for each query chunk (f32: 1, 8, 16, 32 or 64 queries,
+//     a single query not padded to 16, the chunks one wave after another;
+//     bf16: 8-64, the chunks sharing one wave as pipe_scan_kernel's do);
+//   - a TMA ring of 2-8 one-box stages (128 rows x 128 bytes, 16 KB: 32
+//     floats or 64 bf16 columns) kept in flight by a producer warp,
+//     released per stage by the 8 consumer warps on `empty` mbarriers; a
+//     tile's rows' tags are read by the threads that own the rows when the
+//     tile starts and used at its last box;
+//   - the product in registers over a tile's boxes (box_ring.cuh): f32 one
 //     query as box_one_query (each row float4 read by one lane), 8-64 as
 //     box_tile micro-tiles in mma.sync's accumulator layout (a thread 4
-//     rows x 8 queries at 64);
+//     rows x 8 queries at 64); bf16 as box_tile_bf16, mma.sync m16n8k16
+//     with the rows' fragments by ldmatrix from the swizzled box, in the
+//     same accumulator layout (a warp 32 rows x 32 queries at 64);
 //   - pipe_scan_kernel's selection from those registers: thresholds,
 //     candidates, warp_merge by the list owners, and the bucketed fold of
 //     a tile (one bucket) per query.  The consumers' named barrier at a
@@ -146,25 +156,21 @@ __host__ __device__ inline size_t pipe_fit(int elt, int d, int qc, int k, int mo
 // Rows of one ring stage: 128 (one m16 tile a warp) for a chunk of 8
 // queries where the stages that fit beside the lists keep 64 KB of rows in
 // flight, else 64, the 8 warps then splitting the queries in two halves (a
-// chunk of 8: 4 warps multiply); 32 (2 warps multiply) for a chunk of 8
-// where two 64-row stages do not fit beside the lists (bf16 at d 768 and
-// k above 252: a 64-row stage is 100,096 bytes there).
+// chunk of 8: 4 warps multiply).
 __host__ __device__ inline int pipe_rows(int elt, int d, int qc, int k, int mode) {
   if (qc != 8) return 64;
   const size_t stages = pipe_fit(elt, d, qc, k, mode, 128);
-  if (stages >= 2 && (stages - 1) * 128 * d * elt >= 65536) return 128;
-  return pipe_fit(elt, d, qc, k, mode, 64) >= 2 ? 64 : 32;
+  return stages >= 2 && (stages - 1) * 128 * d * elt >= 65536 ? 128 : 64;
 }
 
-template <typename T, int kMode, int NT, int kRows>
+template <int kMode, int NT, int kRows>
 __global__ void __launch_bounds__(kPipeThreads, 1)
-pipe_scan_kernel(const T* __restrict__ q, const T* __restrict__ x,
+pipe_scan_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ x,
                  const float* __restrict__ scale, const int* __restrict__ ns,
                  const int* __restrict__ canon, const float* __restrict__ qscale,
                  int n, int d, int nq, int want_ns, int want_canon, int block_rows,
                  int k, int stages, const float* __restrict__ seed,
                  float* __restrict__ out_sc, int* __restrict__ out_id) {
-  constexpr bool kInt8 = std::is_same<T, int8_t>::value;
   constexpr bool kList = kMode != kBucketed;
   constexpr int qc = 8 * NT;
   constexpr int kMT = kRows / 16;              // m16 row tiles of a stage
@@ -172,9 +178,8 @@ pipe_scan_kernel(const T* __restrict__ q, const T* __restrict__ x,
   constexpr int NTW = NT / kGroups;            // n8 query tiles of one warp
   constexpr int kSld = qc + 1;                 // score scratch row stride
   constexpr int kWords = kRows / 32;           // candidate bit mask words of a query
-  using Acc = typename std::conditional<kInt8, int, float>::type;
   extern __shared__ __align__(128) unsigned char smem[];
-  const PipeSmem lay = pipe_smem(sizeof(T), d, qc, k, kMode, stages, kRows);
+  const PipeSmem lay = pipe_smem(1, d, qc, k, kMode, stages, kRows);
   const int ld = lay.ld, kbytes = lay.kbytes;
   unsigned char* Qs = smem;
   float* qsS = reinterpret_cast<float*>(smem + lay.qs);
@@ -195,7 +200,7 @@ pipe_scan_kernel(const T* __restrict__ q, const T* __restrict__ x,
   const int row_begin = blockIdx.x * block_rows;
   const int row_end = min(n, row_begin + block_rows);
   const int ntiles = (row_end - row_begin + kRows - 1) / kRows;
-  const int row_bytes = d * int(sizeof(T));
+  const int row_bytes = d;
   const unsigned char* xb = reinterpret_cast<const unsigned char*>(x);
 
   // queries (zero past nql and past d), query scales, lists; the ring's
@@ -209,7 +214,7 @@ pipe_scan_kernel(const T* __restrict__ q, const T* __restrict__ x,
     *reinterpret_cast<uint4*>(Qs + r * ld + c) = v;
   }
   for (int i = tid; i < qc; i += kPipeThreads)
-    qsS[i] = (kInt8 && kList && i < nql) ? qscale[q0 + i] : 1.f;
+    qsS[i] = (kList && i < nql) ? qscale[q0 + i] : 1.f;
   if (kbytes > row_bytes)
     for (int i = tid; i < stages * kRows; i += kPipeThreads)
       *reinterpret_cast<uint4*>(smem + lay.ring + size_t(i / kRows) * lay.stage +
@@ -247,7 +252,7 @@ pipe_scan_kernel(const T* __restrict__ q, const T* __restrict__ x,
       int* meta = reinterpret_cast<int*>(st + lay.meta);
       for (int i = tid; i < 3 * kRows; i += kPipeThreads) {
         const int a = i / kRows, row = r0 + i % kRows;
-        const bool ok = row < row_end && (a < 2 || kInt8);
+        const bool ok = row < row_end;
         const void* m = !ok ? static_cast<const void*>(ns)
                         : a == 0 ? static_cast<const void*>(ns + row)
                         : a == 1 ? static_cast<const void*>(canon + row)
@@ -285,9 +290,9 @@ pipe_scan_kernel(const T* __restrict__ q, const T* __restrict__ x,
     const int r0 = row_begin + it * kRows;
 
     // ---- the product: rows [16 mt, 16 mt + 16) x queries [qb, qb + 8 NTW)
-    Acc acc[NTW][4];
+    int acc[NTW][4];
 #pragma unroll
-    for (int j = 0; j < NTW; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = Acc(0);
+    for (int j = 0; j < NTW; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0;
     const unsigned char* arow = st + (mt * 16 + (lane & 15)) * ld + (lane >> 4) * 16;
     const unsigned char* bq =
         Qs + (qb + (lane & 7) + (NTW > 1 ? (lane >> 4) << 3 : 0)) * ld + ((lane >> 3) & 1) * 16;
@@ -298,20 +303,14 @@ pipe_scan_kernel(const T* __restrict__ q, const T* __restrict__ x,
       if constexpr (NTW == 1) {
         uint32_t b[2];
         ldsm_x2(b, bq + kb);
-        if constexpr (kInt8) mma_s8(acc[0], a, b[0], b[1]);
-        else mma_bf16(acc[0], a, b[0], b[1]);
+        mma_s8(acc[0], a, b[0], b[1]);
       } else {
 #pragma unroll
         for (int p = 0; p < NTW / 2; ++p) {
           uint32_t b[4];
           ldsm_x4(b, bq + p * 16 * ld + kb);
-          if constexpr (kInt8) {
-            mma_s8(acc[2 * p], a, b[0], b[1]);
-            mma_s8(acc[2 * p + 1], a, b[2], b[3]);
-          } else {
-            mma_bf16(acc[2 * p], a, b[0], b[1]);
-            mma_bf16(acc[2 * p + 1], a, b[2], b[3]);
-          }
+          mma_s8(acc[2 * p], a, b[0], b[1]);
+          mma_s8(acc[2 * p + 1], a, b[2], b[3]);
         }
       }
     }
@@ -324,7 +323,7 @@ pipe_scan_kernel(const T* __restrict__ q, const T* __restrict__ x,
       const int tg = meta[lr[h]], c = meta[kRows + lr[h]];
       ok[h] = r0 + lr[h] < row_end && tg != kPadTag && (want_ns < 0 || tg == want_ns) &&
               (want_canon < 0 || c == want_canon);
-      rs[h] = kInt8 ? __int_as_float(meta[2 * kRows + lr[h]]) : 1.f;
+      rs[h] = __int_as_float(meta[2 * kRows + lr[h]]);
     }
     float sc[NTW][4];
 #pragma unroll
@@ -332,15 +331,10 @@ pipe_scan_kernel(const T* __restrict__ q, const T* __restrict__ x,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int qi = qb + j * 8 + 2 * t + (e & 1), h = e >> 1;
-        float s;
-        if constexpr (kInt8) {
-          // exact/packed: (acc * query scale) * row scale, in the reference's
-          // order; bucketed: the caller applies the query scale after selection
-          const float a = float(acc[j][e]);
-          s = kList ? (a * qsS[qi]) * rs[h] : a * rs[h];
-        } else {
-          s = acc[j][e];
-        }
+        // exact/packed: (acc * query scale) * row scale, in the reference's
+        // order; bucketed: the caller applies the query scale after selection
+        const float a = float(acc[j][e]);
+        float s = kList ? (a * qsS[qi]) * rs[h] : a * rs[h];
         s = (ok[h] && qi < nql && mma_warp) ? s : -INFINITY;
         sc[j][e] = kMode == kPacked ? round18(s) : s;
       }
@@ -453,33 +447,34 @@ pipe_scan_kernel(const T* __restrict__ q, const T* __restrict__ x,
   }
 }
 
-template <typename T, int kMode, int NT, int kRows>
+template <int kMode, int NT, int kRows>
 int launch_pipe(const void* q, const void* x, const void* scale, const void* ns,
                 const void* canon, const void* qscale, int n, int d, int nq, int want_ns,
                 int want_canon, int block_rows, int k, int stages, const void* seed,
                 void* out_sc, void* out_id, cudaStream_t stream) {
-  const size_t smem = pipe_smem(sizeof(T), d, 8 * NT, k, kMode, stages, kRows).total;
-  auto kern = pipe_scan_kernel<T, kMode, NT, kRows>;
+  const size_t smem = pipe_smem(1, d, 8 * NT, k, kMode, stages, kRows).total;
+  auto kern = pipe_scan_kernel<kMode, NT, kRows>;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   dim3 grid((n + block_rows - 1) / block_rows, (nq + 8 * NT - 1) / (8 * NT));
   kern<<<grid, kPipeThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(x), static_cast<const float*>(scale),
-      static_cast<const int*>(ns), static_cast<const int*>(canon),
+      static_cast<const int8_t*>(q), static_cast<const int8_t*>(x),
+      static_cast<const float*>(scale), static_cast<const int*>(ns),
+      static_cast<const int*>(canon),
       static_cast<const float*>(qscale), n, d, nq, want_ns, want_canon, block_rows, k, stages,
       static_cast<const float*>(seed), static_cast<float*>(out_sc), static_cast<int*>(out_id));
   return int(cudaGetLastError());
 }
 
-template <typename T, int kMode>
+template <int kMode>
 int launch_pipe_qc(int qc, int rows, const void* q, const void* x, const void* scale,
                    const void* ns, const void* canon, const void* qscale, int n, int d,
                    int nq, int want_ns, int want_canon, int block_rows, int k, int stages,
                    const void* seed, void* out_sc, void* out_id, cudaStream_t stream) {
 #define TR_PIPE(NT, R) \
-  launch_pipe<T, kMode, NT, R>(q, x, scale, ns, canon, qscale, n, d, nq, want_ns, want_canon, \
-                               block_rows, k, stages, seed, out_sc, out_id, stream)
+  launch_pipe<kMode, NT, R>(q, x, scale, ns, canon, qscale, n, d, nq, want_ns, want_canon, \
+                            block_rows, k, stages, seed, out_sc, out_id, stream)
   switch (qc) {
-    case 8: return rows == 128 ? TR_PIPE(1, 128) : rows == 64 ? TR_PIPE(1, 64) : TR_PIPE(1, 32);
+    case 8: return rows == 128 ? TR_PIPE(1, 128) : TR_PIPE(1, 64);
     case 16: return TR_PIPE(2, 64);
     case 32: return TR_PIPE(4, 64);
     case 64: return TR_PIPE(8, 64);
@@ -490,10 +485,18 @@ int launch_pipe_qc(int qc, int rows, const void* q, const void* x, const void* s
 
 int elt_of(int dtype) { return dtype == TR_F32 ? 4 : dtype == TR_BF16 ? 2 : 1; }
 
-// ---- f32: the pipelined scan on the CUDA cores
-constexpr int kF32Warps = 8;                           // consumer warps
-constexpr int kF32Consumers = 32 * kF32Warps;
-constexpr int kF32Threads = kF32Consumers + 32;        // and the producer warp
+// ---- f32 and bf16 rows: the box ring
+// A ring stage is one box of 128 rows x 128 bytes, whatever d: a whole
+// 128-row tile is 192 KB of f32 at d 384 and of bf16 at d 768, and a
+// 64-row bf16 stage at d 768 left a 64-query chunk no room beside its
+// queries (the plan fell back to chunks of 8, eight passes over the rows).
+constexpr int kBoxWarps = 8;                           // consumer warps
+constexpr int kBoxConsumers = 32 * kBoxWarps;
+constexpr int kBoxThreads = kBoxConsumers + 32;        // and the producer warp
+
+// The scan's kernel: f32 and bf16 rows take box_scan_kernel, int8 rows
+// pipe_scan_kernel (mirrored by ops/topk.py's _box_route).
+__host__ __device__ inline bool box_route(int dtype) { return dtype != TR_I8; }
 
 // The consumer warps' own barrier (id 1, `threads` threads): a producer
 // warp that only feeds the ring never waits on it.
@@ -518,71 +521,80 @@ __device__ inline bool consumers_sync_or(bool p, int threads) {
 }
 
 // Warp tiling of a 128-row tile for a chunk of QC queries: a warp
-// multiplies kMTW m16 row tiles by kNTW n8 query tiles (QC 1: the one
-// query, box_one_query); the 8 warps are kWR row groups x kWQ query groups.
-__host__ __device__ constexpr int f32_mtw(int qc) { return qc >= 16 ? 2 : 1; }
-__host__ __device__ constexpr int f32_wr(int qc) { return kSub / (16 * f32_mtw(qc)); }
+// multiplies kMTW m16 row tiles by kNTW n8 query tiles (QC 1, f32 only:
+// the one query, box_one_query); the 8 warps are kWR row groups x kWQ
+// query groups.
+__host__ __device__ constexpr int box_mtw(int qc) { return qc >= 16 ? 2 : 1; }
+__host__ __device__ constexpr int box_wr(int qc) { return kSub / (16 * box_mtw(qc)); }
 
-// Shared-memory layout of f32_scan_kernel (mirrored by ops/topk.py's
-// _f32_scan_smem), from a 1024-byte aligned base (1024 bytes of slack):
-// `stages` ring stages of one box (128 rows x 32 floats, the tensor map's
-// swizzle); the queries (qc rows of f32_query_ld floats); exact/packed:
-// the sorted lists (qc x k scores, then slots), the candidates' scores
-// ([128 rows][qc + 1]), their rows' bit masks ([qc][4 words]) and a
-// 1024-bit merge map a warp; bucketed: two tables of the row groups'
-// maxima ([2][kWR][qc] scores, then rows); two mbarriers per possible stage
-// (its box landed; its consumers are done with it).
-struct F32ScanSmem { int boxes, ld; size_t q, list, scratch, cmask, bmap, bar, total; };
+// Shared-memory layout of box_scan_kernel (mirrored by ops/topk.py's
+// _box_scan_smem), from a 1024-byte aligned base (1024 bytes of slack):
+// `stages` ring stages of one box (128 rows x 128 bytes, the tensor map's
+// swizzle); the queries (qc rows of whole boxes plus 16 bytes, so the rows
+// a quarter warp reads fall in distinct bank groups); exact/packed: the
+// sorted lists (qc x k scores, then slots), the candidates' scores ([128
+// rows][qc + 1]), their rows' bit masks ([qc][4 words]), a 1024-bit merge
+// map a warp and each list's count of real entries ([qc]); bucketed: two
+// tables of the row groups' maxima ([2][kWR][qc] scores, then rows); two
+// mbarriers per possible stage (its box landed; its consumers are done
+// with it).
+struct BoxScanSmem { int boxes, ld; size_t q, list, scratch, cmask, bmap, fill, bar, total; };
 
-__host__ __device__ inline F32ScanSmem f32_scan_smem(int d, int qc, int k, int mode, int stages) {
-  F32ScanSmem o;
+__host__ __device__ inline BoxScanSmem box_scan_smem(int elt, int d, int qc, int k, int mode,
+                                                     int stages) {
+  BoxScanSmem o;
   const bool list = mode != kBucketed;
-  o.boxes = tr_box::f32_boxes(d);
-  o.ld = tr_box::f32_query_ld(d);
+  o.boxes = (d * elt + 127) / 128;
+  o.ld = o.boxes * 128 + 16;                                         // bytes of a query row
   o.q = size_t(stages) * tr_box::kBoxBytes;                         // the ring at 0
-  o.list = o.q + tr_align128(size_t(qc) * o.ld * 4);
+  o.list = o.q + tr_align128(size_t(qc) * o.ld);
   o.scratch = o.list + (list ? tr_align128(size_t(qc) * k * 8) : 0);
   o.cmask = o.scratch + tr_align128(list ? size_t(kSub) * (qc + 1) * 4
-                                         : 2 * size_t(f32_wr(qc)) * qc * 8);
+                                         : 2 * size_t(box_wr(qc)) * qc * 8);
   o.bmap = o.cmask + (list ? tr_align128(size_t(qc) * (kSub / 32) * 4) : 0);
-  o.bar = o.bmap + (list ? size_t(kF32Warps) * 32 * 4 : 0);
+  o.fill = o.bmap + (list ? size_t(kBoxWarps) * 32 * 4 : 0);
+  o.bar = o.fill + (list ? tr_align128(size_t(qc) * 4) : 0);
   o.total = 1024 + o.bar + 2 * size_t(kMaxStages) * 8;
   return o;
 }
 
 // Grid: blockIdx.y the query chunk, blockIdx.x a contiguous range of
 // block_rows rows (a multiple of 128), walked in 128-row tiles of
-// ceil(d / 32) boxes.  The producer warp's lane 0 keeps `stages` boxes in
-// flight (a stage refilled once its 8 consumer warps released it); the
-// consumer warps multiply each box as it lands, with partial sums in
-// registers over a tile's boxes, and select after the tile's last box:
-// the only barrier of the walk is the consumers' one at the selection.
-template <int kMode, int QC>
-__global__ void __launch_bounds__(kF32Threads, 1)
-f32_scan_kernel(const float* __restrict__ q, const __grid_constant__ CUtensorMap x_map,
+// ceil(d * elt / 128) boxes.  The producer warp's lane 0 keeps `stages`
+// boxes in flight (a stage refilled once its 8 consumer warps released
+// it); the consumer warps multiply each box as it lands, with partial sums
+// in registers over a tile's boxes (f32 on the CUDA cores, bf16 on the
+// tensor cores), and select after the tile's last box: the only barrier of
+// the walk is the consumers' one at the selection.
+template <typename T, int kMode, int QC>
+__global__ void __launch_bounds__(kBoxThreads, 1)
+box_scan_kernel(const T* __restrict__ q, const __grid_constant__ CUtensorMap x_map,
                 const int* __restrict__ ns, const int* __restrict__ canon, int n, int d, int nq,
                 int want_ns, int want_canon, int block_rows, int k, int stages,
                 const float* __restrict__ seed, float* __restrict__ out_sc,
                 int* __restrict__ out_id) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
   constexpr bool kList = kMode != kBucketed;
   constexpr bool kOneQ = QC == 1;
-  constexpr int kMTW = f32_mtw(QC);
-  constexpr int kWR = f32_wr(QC);
-  constexpr int kWQ = kF32Warps / kWR;
+  constexpr int kMTW = box_mtw(QC);
+  constexpr int kWR = box_wr(QC);
+  constexpr int kWQ = kBoxWarps / kWR;
   constexpr int kNTW = QC >= 8 ? QC / 8 / kWQ : 1;
   constexpr int kSld = QC + 1;                 // candidate scratch row stride
   constexpr int kWords = kSub / 32;            // candidate bit mask words of a query
   static_assert(kWR * 16 * kMTW == kSub && (kOneQ || kWQ * kNTW * 8 == QC), "warp tiling");
+  static_assert(kF32 || !kOneQ, "a tensor-core chunk is whole n8 query tiles");
   extern __shared__ __align__(128) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);  // swizzle unit
-  const F32ScanSmem lay = f32_scan_smem(d, QC, k, kMode, stages);
+  const BoxScanSmem lay = box_scan_smem(int(sizeof(T)), d, QC, k, kMode, stages);
   const int ld = lay.ld, boxes = lay.boxes;
-  float* Qs = reinterpret_cast<float*>(smem + lay.q);
+  unsigned char* Qs = smem + lay.q;
   float* Lsc = reinterpret_cast<float*>(smem + lay.list);
   int* Lid = reinterpret_cast<int*>(Lsc + QC * k);
   float* Sc = reinterpret_cast<float*>(smem + lay.scratch);  // exact: [kSub][kSld]
   int* Sr = reinterpret_cast<int*>(Sc + 2 * kWR * QC);        // bucketed: [2][kWR][QC] rows
   unsigned* cmask = reinterpret_cast<unsigned*>(smem + lay.cmask);  // [QC][kWords]
+  int* Lfill = reinterpret_cast<int*>(smem + lay.fill);              // [QC] real entries
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.bar);     // a stage's box landed
   uint64_t* empty = full + kMaxStages;                               // its consumers are done
 
@@ -592,31 +604,35 @@ f32_scan_kernel(const float* __restrict__ q, const __grid_constant__ CUtensorMap
   const int row_begin = blockIdx.x * block_rows;
   const int row_end = min(n, row_begin + block_rows);
   const int ntiles = (row_end - row_begin + kSub - 1) / kSub;
+  const int row_bytes = d * int(sizeof(T));
 
-  // queries (zero past nql and past d), lists, masks, barriers
-  for (int i = tid; i < QC * (ld / 4); i += kF32Threads) {
-    const int r = i / (ld / 4), c = (i % (ld / 4)) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < nql && c < d) v = *reinterpret_cast<const float4*>(q + size_t(q0 + r) * d + c);
-    *reinterpret_cast<float4*>(Qs + r * ld + c) = v;
+  // queries (zero past nql and past the row's bytes), lists, masks, barriers
+  for (int i = tid; i < QC * (ld / 16); i += kBoxThreads) {
+    const int r = i / (ld / 16), c = (i % (ld / 16)) * 16;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (r < nql && c < row_bytes)
+      v = *reinterpret_cast<const uint4*>(reinterpret_cast<const unsigned char*>(q) +
+                                          size_t(q0 + r) * row_bytes + c);
+    *reinterpret_cast<uint4*>(Qs + r * ld + c) = v;
   }
   if constexpr (kList) {
-    for (int i = tid; i < QC * k; i += kF32Threads) {
+    for (int i = tid; i < QC * k; i += kBoxThreads) {
       Lsc[i] = -INFINITY;
       Lid[i] = INT_MAX;
     }
-    for (int i = tid; i < QC * kWords; i += kF32Threads) cmask[i] = 0u;
-    for (int i = tid; i < kF32Warps * 32; i += kF32Threads)
+    for (int i = tid; i < QC * kWords; i += kBoxThreads) cmask[i] = 0u;
+    for (int i = tid; i < kBoxWarps * 32; i += kBoxThreads)
       reinterpret_cast<unsigned*>(smem + lay.bmap)[i] = 0u;
+    for (int i = tid; i < QC; i += kBoxThreads) Lfill[i] = 0;
   }
-  // the producer (warp kF32Warps, lane 0): box `it` of the walk -> stage
+  // the producer (warp kBoxWarps, lane 0): box `it` of the walk -> stage
   // it % stages once its consumers released it; a tile's box past the
   // block's rows reads the next block's rows (masked below as row >=
   // row_end), past n zeros.  It sets up the barriers and issues the ring's
   // first fill before the block's barrier, so the loads start while the
   // block stages the queries.
   const int nsteps = ntiles * boxes;
-  const bool producer = warp == kF32Warps && lane == 0;
+  const bool producer = warp == kBoxWarps && lane == 0;
   auto fill = [&](int it) {
     const int stg = it % stages;
     mbar_arrive_expect_tx(full + stg, tr_box::kBoxBytes);
@@ -628,14 +644,14 @@ f32_scan_kernel(const float* __restrict__ q, const __grid_constant__ CUtensorMap
     prefetch_tensormap(&x_map);
     for (int s = 0; s < stages; ++s) {
       mbar_init(full + s, 1);
-      mbar_init(empty + s, kF32Warps);
+      mbar_init(empty + s, kBoxWarps);
     }
     mbar_fence_init();
     for (int it = 0; it < min(stages, nsteps); ++it) fill(it);
   }
   __syncthreads();
 
-  if (warp == kF32Warps) {
+  if (warp == kBoxWarps) {
     if (producer) {
       for (int it = stages; it < nsteps; ++it) {
         mbar_wait(empty + it % stages, (it / stages - 1) & 1);
@@ -647,6 +663,7 @@ f32_scan_kernel(const float* __restrict__ q, const __grid_constant__ CUtensorMap
     const int r_lo = wr * 16 * kMTW;            // this warp's first row of a tile
     const bool mma_warp = qb < nql;             // else its query group is empty
     unsigned* bmap = reinterpret_cast<unsigned*>(smem + lay.bmap) + 32 * warp;
+    const float* Qf = reinterpret_cast<const float*>(Qs);  // f32 query rows: ld / 4 floats
     // thresholds of this thread's queries (qb + 8 j + 2t + e): the lists'
     // last entries, never below the seed (a lower bound of each query's
     // k-th score over all rows, or -inf), which a row scoring at least it
@@ -684,11 +701,15 @@ f32_scan_kernel(const float* __restrict__ q, const __grid_constant__ CUtensorMap
         const int stg = it % stages;
         mbar_wait(full + stg, (it / stages) & 1);
         const unsigned char* st = smem + size_t(stg) * tr_box::kBoxBytes;
-        if constexpr (kOneQ) {
-          tr_box::box_one_query(acc1, st, r_lo, Qs + box * tr_box::kBoxFloats, g, t);
+        if constexpr (!kF32) {
+          if (mma_warp)
+            tr_box::box_tile_bf16<kMTW, kNTW>(acc, st, r_lo, Qs + qb * ld + box * 128, ld, lane);
+        } else if constexpr (kOneQ) {
+          tr_box::box_one_query(acc1, st, r_lo, Qf + box * tr_box::kBoxFloats, g, t);
         } else if (mma_warp) {
           tr_box::box_tile<kMTW, kNTW>(acc, st, r_lo,
-                                       Qs + (qb + 2 * t) * ld + box * tr_box::kBoxFloats, ld, g);
+                                       Qf + (qb + 2 * t) * (ld / 4) + box * tr_box::kBoxFloats,
+                                       ld / 4, g);
         }
         __syncwarp();
         if (lane == 0) mbar_arrive(empty + stg);
@@ -738,22 +759,28 @@ f32_scan_kernel(const float* __restrict__ q, const __grid_constant__ CUtensorMap
                   mine = true;
                 }
               }
-        if (consumers_sync_or(mine, kF32Consumers)) {
+        if (consumers_sync_or(mine, kBoxConsumers)) {
           // list owners: warp w keeps queries w, w + 8, ...; lane l reads
           // the mask word l % kWords of its (l / kWords)-th query, and each
-          // word that holds a candidate is one merge
-          const int nown = (nql - warp + kF32Warps - 1) / kF32Warps;
-          const int wi = (warp + kF32Warps * (lane / kWords)) * kWords + lane % kWords;
+          // word that holds a candidate is one merge, its moves bounded by
+          // the list's real entries (a list filling from empty, as a seeded
+          // one over a deep k does, moves only what it holds)
+          const int nown = (nql - warp + kBoxWarps - 1) / kBoxWarps;
+          const int wi = (warp + kBoxWarps * (lane / kWords)) * kWords + lane % kWords;
           const unsigned wb = lane < nown * kWords ? cmask[wi] : 0u;
           for (unsigned todo = __ballot_sync(kFull, wb != 0u); todo; todo &= todo - 1) {
             const int src = __ffs(todo) - 1;
             const unsigned bits = __shfl_sync(kFull, wb, src);
-            const int qi = warp + kF32Warps * (src / kWords), l = (src % kWords) * 32 + lane;
-            warp_merge(Lsc + qi * k, Lid + qi * k, k,
-                       (bits >> lane) & 1u ? Sc[l * kSld + qi] : -INFINITY, r0 + l, bmap);
+            const int qi = warp + kBoxWarps * (src / kWords), l = (src % kWords) * 32 + lane;
+            const int filled = Lfill[qi];
+            const int placed =
+                warp_merge(Lsc + qi * k, Lid + qi * k, k,
+                           (bits >> lane) & 1u ? Sc[l * kSld + qi] : -INFINITY, r0 + l, bmap, filled);
+            if (lane == 0) Lfill[qi] = min(k, filled + placed);
+            __syncwarp();
           }
           if (wb) cmask[wi] = 0u;
-          consumers_sync(kF32Consumers);
+          consumers_sync(kBoxConsumers);
 #pragma unroll
           for (int i = 0; i < 2 * kNTW; ++i) {
             const int qi = qb + (i >> 1) * 8 + 2 * t + (i & 1);
@@ -804,7 +831,7 @@ f32_scan_kernel(const float* __restrict__ q, const __grid_constant__ CUtensorMap
               tR[wr * QC + qi] = bro;
             }
           }
-        consumers_sync(kF32Consumers);
+        consumers_sync(kBoxConsumers);
         if (tid < nql) {  // the bucket (this tile) closes: its row groups in row order
           float bbest = tS[tid];
           int brow = tR[tid];
@@ -825,7 +852,7 @@ f32_scan_kernel(const float* __restrict__ q, const __grid_constant__ CUtensorMap
 
   if constexpr (kList) {
     __syncthreads();  // every list complete
-    for (int i = tid; i < nql * k; i += kF32Threads) {
+    for (int i = tid; i < nql * k; i += kBoxThreads) {
       const int qi = i / k, j = i % k;
       const float s = Lsc[qi * k + j];
       const size_t o = (size_t(q0 + qi) * gridDim.x + blockIdx.x) * k + j;
@@ -835,39 +862,41 @@ f32_scan_kernel(const float* __restrict__ q, const __grid_constant__ CUtensorMap
   }
 }
 
-template <int kMode, int QC>
-int launch_f32(const CUtensorMap& map, const void* q, const void* ns, const void* canon, int n,
+template <typename T, int kMode, int QC>
+int launch_box(const CUtensorMap& map, const void* q, const void* ns, const void* canon, int n,
                int d, int nq, int want_ns, int want_canon, int block_rows, int k, int stages,
                const void* seed, void* out_sc, void* out_id, cudaStream_t stream) {
-  const size_t smem = f32_scan_smem(d, QC, k, kMode, stages).total;
-  auto kern = f32_scan_kernel<kMode, QC>;
+  const size_t smem = box_scan_smem(int(sizeof(T)), d, QC, k, kMode, stages).total;
+  auto kern = box_scan_kernel<T, kMode, QC>;
   if (int e = int(cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        int(smem))))
     return e;
   dim3 grid((n + block_rows - 1) / block_rows, (nq + QC - 1) / QC);
-  kern<<<grid, kF32Threads, smem, stream>>>(
-      static_cast<const float*>(q), map, static_cast<const int*>(ns),
-      static_cast<const int*>(canon), n, d, nq, want_ns, want_canon, block_rows, k, stages,
-      static_cast<const float*>(seed), static_cast<float*>(out_sc), static_cast<int*>(out_id));
+  kern<<<grid, kBoxThreads, smem, stream>>>(
+      static_cast<const T*>(q), map, static_cast<const int*>(ns), static_cast<const int*>(canon),
+      n, d, nq, want_ns, want_canon, block_rows, k, stages, static_cast<const float*>(seed),
+      static_cast<float*>(out_sc), static_cast<int*>(out_id));
   return int(cudaGetLastError());
 }
 
-template <int kMode>
-int launch_f32_qc(int qc, const CUtensorMap& map, const void* q, const void* ns,
+template <typename T, int kMode>
+int launch_box_qc(int qc, const CUtensorMap& map, const void* q, const void* ns,
                   const void* canon, int n, int d, int nq, int want_ns, int want_canon,
                   int block_rows, int k, int stages, const void* seed, void* out_sc,
                   void* out_id, cudaStream_t stream) {
-#define TR_F32(QC) \
-  launch_f32<kMode, QC>(map, q, ns, canon, n, d, nq, want_ns, want_canon, block_rows, k, stages, \
-                        seed, out_sc, out_id, stream)
+#define TR_BOX(QC) \
+  launch_box<T, kMode, QC>(map, q, ns, canon, n, d, nq, want_ns, want_canon, block_rows, k, \
+                           stages, seed, out_sc, out_id, stream)
   switch (qc) {
-    case 1: return TR_F32(1);
-    case 8: return TR_F32(8);
-    case 16: return TR_F32(16);
-    case 32: return TR_F32(32);
-    case 64: return TR_F32(64);
+    case 1:
+      if constexpr (std::is_same<T, float>::value) return TR_BOX(1);
+      break;
+    case 8: return TR_BOX(8);
+    case 16: return TR_BOX(16);
+    case 32: return TR_BOX(32);
+    case 64: return TR_BOX(64);
   }
-#undef TR_F32
+#undef TR_BOX
   return int(cudaErrorInvalidValue);
 }
 
@@ -941,11 +970,11 @@ read_sum_kernel(const T* __restrict__ x, long long n_elems, float* __restrict__ 
 
 }  // namespace
 
-// Shared-memory bytes of one scan block: f32_scan_kernel (f32) or
-// pipe_scan_kernel (bf16, int8) with `stages` ring stages.
+// Shared-memory bytes of one scan block: box_scan_kernel (f32, bf16) or
+// pipe_scan_kernel (int8) with `stages` ring stages.
 extern "C" size_t tr_scan_smem_bytes(int dtype, int d, int qc, int k, int mode, int stages) {
-  if (dtype == TR_F32) return f32_scan_smem(d, qc, k, mode, stages).total;
   const int elt = elt_of(dtype);
+  if (box_route(dtype)) return box_scan_smem(elt, d, qc, k, mode, stages).total;
   return pipe_smem(elt, d, qc, k, mode, stages, pipe_rows(elt, d, qc, k, mode)).total;
 }
 
@@ -956,8 +985,8 @@ extern "C" size_t tr_scan_smem_bytes(int dtype, int d, int qc, int k, int mode, 
 // block scans tile_rows consecutive rows (a multiple of 128) for qc queries
 // through a ring of 2 <= stages <= 8 stages; exact/packed take an optional
 // seed (nq,) f32: a lower bound of each query's k-th score, below which no
-// row is a candidate.  bf16 and int8 (pipe_scan_kernel) take qc in {8, 16,
-// 32, 64}, f32 (f32_scan_kernel) qc in {1, 8, 16, 32, 64}.
+// row is a candidate.  pipe_scan_kernel and bf16 box_scan_kernel take qc in
+// {8, 16, 32, 64}, f32 box_scan_kernel qc in {1, 8, 16, 32, 64}.
 extern "C" int tr_scan(const void* q, const void* x, const void* scale,
                        const void* ns, const void* canon, const void* qscale,
                        int n, int d, int nq, int want_ns, int want_canon,
@@ -970,28 +999,29 @@ extern "C" int tr_scan(const void* q, const void* x, const void* scale,
       !tr_box::aligned16(q) || !tr_box::aligned16(x))
     return int(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == TR_F32) {
-    if ((qc != 1 && qc != 8 && qc != 16 && qc != 32 && qc != 64) ||
-        f32_scan_smem(d, qc, k, mode, stages).total > size_t(kSmemMax))
+  const int elt = elt_of(dtype);
+  if (box_route(dtype)) {
+    const bool f32 = dtype == TR_F32;
+    if ((qc != 8 && qc != 16 && qc != 32 && qc != 64 && !(f32 && qc == 1)) ||
+        box_scan_smem(elt, d, qc, k, mode, stages).total > size_t(kSmemMax))
       return int(cudaErrorInvalidValue);
     CUtensorMap map;
-    if (!tr_box::rows_tensor_map(&map, x, n, d * 4, tr_box::kBoxRows))
+    if (!tr_box::rows_tensor_map(&map, x, n, d * elt, tr_box::kBoxRows))
       return int(cudaErrorInvalidValue);
-#define TR_F32(M) \
-  launch_f32_qc<M>(qc, map, q, ns, canon, n, d, nq, want_ns, want_canon, tile_rows, k, stages, seed, out_sc, out_id, s)
-    return mode == kExact ? TR_F32(kExact) : mode == kPacked ? TR_F32(kPacked) : TR_F32(kBucketed);
-#undef TR_F32
-  }
-  const int elt = elt_of(dtype), rows = pipe_rows(elt, d, qc, k, mode);
-  if ((dtype != TR_BF16 && dtype != TR_I8) ||
-      pipe_smem(elt, d, qc, k, mode, stages, rows).total > size_t(kSmemMax))
-    return int(cudaErrorInvalidValue);
-#define TR_PIPE(T, M) \
-  launch_pipe_qc<T, M>(qc, rows, q, x, scale, ns, canon, qscale, n, d, nq, want_ns, want_canon, tile_rows, k, stages, seed, out_sc, out_id, s)
+#define TR_BOX(T, M) \
+  launch_box_qc<T, M>(qc, map, q, ns, canon, n, d, nq, want_ns, want_canon, tile_rows, k, stages, seed, out_sc, out_id, s)
 #define TR_MODES(T) \
-  (mode == kExact ? TR_PIPE(T, kExact) : mode == kPacked ? TR_PIPE(T, kPacked) : TR_PIPE(T, kBucketed))
-  return dtype == TR_BF16 ? TR_MODES(__nv_bfloat16) : TR_MODES(int8_t);
+  (mode == kExact ? TR_BOX(T, kExact) : mode == kPacked ? TR_BOX(T, kPacked) : TR_BOX(T, kBucketed))
+    return f32 ? TR_MODES(float) : TR_MODES(__nv_bfloat16);
 #undef TR_MODES
+#undef TR_BOX
+  }
+  const int rows = pipe_rows(elt, d, qc, k, mode);
+  if (dtype != TR_I8 || pipe_smem(elt, d, qc, k, mode, stages, rows).total > size_t(kSmemMax))
+    return int(cudaErrorInvalidValue);
+#define TR_PIPE(M) \
+  launch_pipe_qc<M>(qc, rows, q, x, scale, ns, canon, qscale, n, d, nq, want_ns, want_canon, tile_rows, k, stages, seed, out_sc, out_id, s)
+  return mode == kExact ? TR_PIPE(kExact) : mode == kPacked ? TR_PIPE(kPacked) : TR_PIPE(kBucketed);
 #undef TR_PIPE
 }
 

@@ -8,10 +8,11 @@ masked: pad query rows come out as values the callers' masked mean-pool
 drops.  Forward only: on the card a q/k/v that requires grad raises (the
 kernel has no backward; training uses the encoder's plain attention).  On a
 CUDA tensor it launches csrc/attention.cu (kernel #5: for
-bf16, Q.K^T and P.V on the tensor cores with the head's K and V in shared
-memory and an online softmax over chunks of 64 keys, T <= 512; for f32,
-register micro-tiles on the CUDA cores over a cp.async ring of 64-key K/V
-chunks, one block per 128-query tile, any T) or raises; on a CPU tensor it
+bf16, Q.K^T and P.V on the tensor cores over a cp.async ring of 64-key K/V
+chunks (all of T at D 32, five at D 64) and an online softmax a chunk,
+T <= 512; for f32, register
+micro-tiles on the CUDA cores over the same kind of ring, any T; both one
+block per 128-query tile) or raises; on a CPU tensor it
 runs the plain version below, which repeats the JAX kernel's arithmetic.
 """
 
@@ -27,10 +28,35 @@ from tpu_rag_torch import _build
 _MASK_VALUE = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64)
-_T_MAX = 512          # bf16: the head's whole K and V sit in shared memory
+_T_MAX = 512          # bf16: the encoders' longest sequence bucket, as far as it is checked
+_TC_ROWS = 128        # query rows of a bf16 block (kQTile)
+_TC_KEYS = 64         # keys of a bf16 ring chunk (kChunk)
 _F32_ROWS = 128       # query rows of an f32 block (kF32Rows)
 _F32_KEYS = 64        # keys of an f32 ring chunk (kF32Keys)
 _F32_STAGES = 3       # chunks in the f32 ring (kF32Stages)
+_SM_SMEM = 233_472     # shared memory of one H100 SM; each resident block also takes 1,024
+
+
+def _blocks_per_sm(smem: int) -> int:
+    """Blocks of `smem` bytes that one SM's shared memory holds at once."""
+    return _SM_SMEM // (smem + 1024)
+
+
+def _tc_stages(d: int, t: int) -> int:
+    """Ring stages of mha_tc_kernel<D> at T (tc_stages): one a 64-key chunk
+    of T, at most as many as leave room for two blocks an SM (8 at D 32:
+    T <= 512 held whole; 5 at D 64)."""
+    flags = 4 * _T_MAX
+    room = (_SM_SMEM // 2 - 1024 - 2 * _TC_ROWS * (d + 8) - flags) // (4 * _TC_KEYS * (d + 8))
+    return min(-(-t // _TC_KEYS), 8, room)
+
+
+def _tc_smem(d: int, t: int) -> int:
+    """Shared-memory bytes of one mha_tc_kernel<D> block at T
+    (tc_smem_bytes): the Q tile, the ring's K and V chunks in rows of D + 8
+    bf16, and one int flag per key of T's chunks."""
+    return (2 * (_TC_ROWS + 2 * _tc_stages(d, t) * _TC_KEYS) * (d + 8)
+            + 4 * _TC_KEYS * -(-t // _TC_KEYS))
 
 
 def _f32_smem(d: int) -> int:

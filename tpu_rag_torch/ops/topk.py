@@ -145,9 +145,9 @@ _SEED_ROWS_MIN = 32_768   # rows of the seeding scan (at least 32 k)
 class ScanPlan(NamedTuple):
     """Launch geometry of one scan: `qc` queries per block, each block
     scanning `block_rows` consecutive rows (a multiple of BUCKET) through a
-    ring of `stages` stages (bf16/int8: row tiles; f32: 128 x 32-float
-    boxes), `blocks` blocks per query chunk, `smem` bytes of shared memory
-    a block."""
+    ring of `stages` stages (pipe_scan_kernel: row tiles; box_scan_kernel:
+    boxes of 128 rows x 128 bytes), `blocks` blocks per query chunk, `smem`
+    bytes of shared memory a block."""
     qc: int
     stages: int
     block_rows: int
@@ -187,88 +187,82 @@ def _pipe_rows(elt: int, d: int, qc: int, k: int, mode: str) -> int:
     """Rows of one ring stage (pipe_rows): 128, one m16 tile a warp, for a
     chunk of 8 queries where the stages that fit beside the lists keep
     64 KB of rows in flight; else 64, the 8 warps splitting the queries in
-    two halves; 32 (two warps multiply) for a chunk of 8 where two 64-row
-    stages do not fit beside the lists (bf16 at d 768 above k 252)."""
+    two halves."""
     if qc != 8:
         return 64
     stages = _pipe_fit(elt, d, qc, k, mode, 128)
-    if stages >= 2 and (stages - 1) * 128 * d * elt >= 65536:
-        return 128
-    return 64 if _pipe_fit(elt, d, qc, k, mode, 64) >= 2 else 32
+    return 128 if stages >= 2 and (stages - 1) * 128 * d * elt >= 65536 else 64
 
 
-_F32_WARPS = 8          # consumer warps of f32_scan_kernel
-_BOX_BYTES = 128 * 128  # one f32 ring stage: 128 rows x 32 floats
+_BOX_WARPS = 8          # consumer warps of box_scan_kernel
+_BOX_BYTES = 128 * 128  # one ring stage: a box of 128 rows x 128 bytes
 
 
-def _f32_wr(qc: int) -> int:
-    """Row groups of f32_scan_kernel's warps (f32_wr): 16-row groups at 1
+def _box_route(dtype: torch.dtype) -> bool:
+    """csrc/topk.cu's box_route: f32 and bf16 rows take box_scan_kernel,
+    int8 rows pipe_scan_kernel."""
+    return dtype != torch.int8
+
+
+def _box_wr(qc: int) -> int:
+    """Row groups of box_scan_kernel's warps (box_wr): 16-row groups at 1
     and 8 queries, 32-row groups (two m16 tiles) from 16."""
     return BUCKET // (32 if qc >= 16 else 16)
 
 
-def _f32_scan_smem(d: int, qc: int, k: int, mode: str, stages: int) -> int:
-    """Shared-memory bytes of csrc/topk.cu's f32_scan_kernel (f32_scan_smem):
+def _box_scan_smem(elt: int, d: int, qc: int, k: int, mode: str, stages: int) -> int:
+    """Shared-memory bytes of csrc/topk.cu's box_scan_kernel (box_scan_smem):
     1024 bytes of slack to align the base to the swizzle unit, `stages`
-    one-box stages, the queries (rows of d floats rounded up to whole
-    32-float boxes, plus 4); exact/packed: the sorted lists, the
-    candidates' scores (128 rows x (qc + 1)), their rows' bit masks and a
-    1024-bit merge map a warp; bucketed: two tables of the row groups'
-    maxima; then two 8-byte mbarriers per possible stage."""
-    ld = _round_up(d, 32) + 4
+    one-box stages, the queries (rows of d * elt bytes rounded up to whole
+    128-byte boxes, plus 16); exact/packed: the sorted lists, the
+    candidates' scores (128 rows x (qc + 1)), their rows' bit masks, a
+    1024-bit merge map a warp and each list's count of real entries;
+    bucketed: two tables of the row groups' maxima; then two 8-byte
+    mbarriers per possible stage."""
+    ld = _round_up(d * elt, 128) + 16
     lists = mode != "bucketed"
     tail = (_align128(qc * k * 8) + _align128(BUCKET * (qc + 1) * 4)
-            + _align128(qc * BUCKET // 32 * 4) + _F32_WARPS * 32 * 4 if lists
-            else _align128(2 * _f32_wr(qc) * qc * 8))
-    return 1024 + stages * _BOX_BYTES + _align128(qc * ld * 4) + tail + 2 * _PIPE_STAGES_MAX * 8
+            + _align128(qc * BUCKET // 32 * 4) + _BOX_WARPS * 32 * 4 + _align128(qc * 4)
+            if lists else _align128(2 * _box_wr(qc) * qc * 8))
+    return 1024 + stages * _BOX_BYTES + _align128(qc * ld) + tail + 2 * _PIPE_STAGES_MAX * 8
 
 
 def _scan_plan(n: int, d: int, nq: int, k: int, dtype: torch.dtype, sms: int,
                mode: str = "exact") -> ScanPlan:
     """Launch geometry of the scan kernels, a pure function of the shapes.
 
-    bf16/int8: the query chunk is the power of two 8..64 that covers nq,
-    halved while fewer than two ring stages fit beside the lists; the ring
-    takes as many stages (at most 8) of _pipe_rows rows as the rest of the
-    232,448 bytes hold; one block per SM and query chunk, each over one
-    contiguous range of rows.  f32: the chunk is 1 for one query, else the
-    power of two 8..64 that covers nq, halved the same way, with one-box
-    stages; a wave of one block per SM for each chunk (the FMA pipes, not
-    the bytes, bound a chunk from ~40 queries)."""
+    The query chunk is the power of two 8..64 that covers nq (f32: 1 for one
+    query), halved while fewer than two ring stages fit beside the lists and
+    the queries; the ring takes as many stages (at most 8) as the rest of
+    the 232,448 bytes hold.  box_scan_kernel (_box_route: f32 and bf16) has
+    one-box stages, whatever d, so a 64-query chunk fits at d 768;
+    pipe_scan_kernel (int8) has stages of _pipe_rows full-depth rows.  Each
+    block scans one contiguous range of rows: one block per SM for all the
+    chunks together, or, for f32, a wave of one block per SM for each chunk
+    (the FMA pipes, not the bytes, bound a chunk from ~40 queries)."""
     kk = k if mode != "bucketed" else 0
-    if dtype == torch.float32:
-        qc = 1 if nq == 1 else 8
-        while 1 < qc < min(nq, 64):
-            qc *= 2
-        while True:
-            fixed = _f32_scan_smem(d, qc, kk, mode, 0)
-            stages = min(_PIPE_STAGES_MAX, max(0, _SMEM_MAX - fixed) // _BOX_BYTES)
-            if stages >= 2:
-                break
-            if qc <= 8:
-                raise ValueError(f"scan does not fit shared memory at d={d}, k={k}")
-            qc //= 2
-        smem = fixed + stages * _BOX_BYTES
-        per_chunk = sms
-    else:
-        elt = _ELT[dtype]
-        qc = 8
-        while qc < min(nq, 64):
-            qc *= 2
-        while True:
+    elt = _ELT[dtype]
+    box = _box_route(dtype)
+    qc = 1 if nq == 1 and dtype == torch.float32 else 8
+    while 1 < qc < min(nq, 64):
+        qc *= 2
+    while True:
+        if box:
+            fixed = _box_scan_smem(elt, d, qc, kk, mode, 0)
+            stage = _BOX_BYTES
+        else:
             rows = _pipe_rows(elt, d, qc, kk, mode)
             fixed = _pipe_smem(elt, d, qc, kk, mode, 0, rows)
             stage = _pipe_smem(elt, d, qc, kk, mode, 1, rows) - fixed
-            stages = min(_PIPE_STAGES_MAX, (_SMEM_MAX - fixed) // stage)
-            if stages >= 2:
-                break
-            if qc == 8:
-                raise ValueError(f"scan does not fit shared memory at d={d}, k={k}")
-            qc //= 2
-        smem = fixed + stages * stage
-        per_chunk = max(1, sms // -(-nq // qc))
+        stages = min(_PIPE_STAGES_MAX, max(0, _SMEM_MAX - fixed) // stage)
+        if stages >= 2:
+            break
+        if qc <= 8:
+            raise ValueError(f"scan does not fit shared memory at d={d}, k={k}")
+        qc //= 2
+    per_chunk = sms if dtype == torch.float32 else max(1, sms // -(-nq // qc))
     block_rows = _round_up(-(-n // per_chunk), BUCKET)
-    return ScanPlan(qc, stages, block_rows, -(-n // block_rows), smem)
+    return ScanPlan(qc, stages, block_rows, -(-n // block_rows), fixed + stages * stage)
 
 
 def _seed_rows(n: int, nq: int, k: int) -> int:
