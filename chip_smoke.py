@@ -2641,6 +2641,7 @@ def phase_train(work: Path, corpus_job: _CorpusJob) -> dict:
     from tpu_rag_torch.models.tokenizer import load_tokenizer
     from tpu_rag_torch.ops import attention
     from tpu_rag_torch.scripts import train_semantic as ts
+    from tpu_rag_torch.utils.timing import SPANS
 
     cuda = torch.device("cuda")
     corpus, corpus_s, corpus_wait_s = corpus_job.result()
@@ -2678,9 +2679,17 @@ def phase_train(work: Path, corpus_job: _CorpusJob) -> dict:
     t0 = time.perf_counter()
     while len(losses) < args.steps:
         if prof is None and len(losses) == args.steps // 2:
-            # a warm-up step and one profiled step, batches drawn beforehand
+            # a warm-up step and one profiled step, batches drawn beforehand;
+            # with the span recorder on, the trainer's spans (train.forward,
+            # train.backward, ...) are named ranges of the trace
             batches = [sample(), sample()]
-            prof = _profile(lambda: losses.append(trainer.train_step(batches.pop(0))), reps=1)
+            SPANS.enable()
+            try:
+                prof = _profile(lambda: losses.append(trainer.train_step(batches.pop(0))),
+                                reps=1)
+            finally:
+                SPANS.disable()
+                SPANS.drain()
             continue
         batch = sample()
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)

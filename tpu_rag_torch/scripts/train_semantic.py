@@ -212,6 +212,8 @@ def batch_sampler(train_docs: list[dict], tok, args) -> Callable[[], dict]:
     crop -> independent body crop) — fresh views every epoch, so 18K docs
     yield far more than 18K distinct pairs."""
     from tpu_rag_torch.models.tokenizer import PAD_ID
+    from tpu_rag_torch.utils.metrics import GLOBAL_METRICS
+    from tpu_rag_torch.utils.timing import span
 
     cls_id = getattr(tok, "cls_id", 1)
     sep_id = getattr(tok, "sep_id", 2)
@@ -222,10 +224,15 @@ def batch_sampler(train_docs: list[dict], tok, args) -> Callable[[], dict]:
     def assemble(rows: list[list[int]], seq: int):
         ids = np.full((len(rows), seq), pad_id, np.int32)
         mask = np.zeros((len(rows), seq), np.int32)
+        real = 0
         for i, r in enumerate(rows):
             row = [cls_id] + r[: seq - 2] + [sep_id]
             ids[i, : len(row)] = row
             mask[i, : len(row)] = 1
+            real += len(row)
+        # the padding of the batch: real tokens against the slots written
+        GLOBAL_METRICS.inc("train_sample_real_tokens_total", real)
+        GLOBAL_METRICS.inc("train_sample_token_slots_total", len(rows) * seq)
         return ids, mask
 
     rng = np.random.default_rng(args.seed)
@@ -238,18 +245,23 @@ def batch_sampler(train_docs: list[dict], tok, args) -> Callable[[], dict]:
         start = int(rng.integers(0, len(toks) - w + 1))
         return toks[start : start + w]
 
+    draws = 0
+
     def sample_batch() -> dict:
-        idx = rng.choice(len(train_docs), size=args.batch, replace=False)
-        q_rows, d_rows = [], []
-        for i in idx:
-            if rng.random() < args.crop_prob or not sum_toks[i]:
-                q_rows.append(crop(body_toks[i], 6, args.q_len - 2))
-            else:
-                q_rows.append(sum_toks[i])
-            d_rows.append(crop(body_toks[i], 32, args.seq_len - 2))
-        q_ids, q_mask = assemble(q_rows, args.q_len)
-        d_ids, d_mask = assemble(d_rows, args.seq_len)
-        return {"q_ids": q_ids, "q_mask": q_mask, "d_ids": d_ids, "d_mask": d_mask}
+        nonlocal draws
+        with span("train.sample", step=draws):
+            idx = rng.choice(len(train_docs), size=args.batch, replace=False)
+            q_rows, d_rows = [], []
+            for i in idx:
+                if rng.random() < args.crop_prob or not sum_toks[i]:
+                    q_rows.append(crop(body_toks[i], 6, args.q_len - 2))
+                else:
+                    q_rows.append(sum_toks[i])
+                d_rows.append(crop(body_toks[i], 32, args.seq_len - 2))
+            q_ids, q_mask = assemble(q_rows, args.q_len)
+            d_ids, d_mask = assemble(d_rows, args.seq_len)
+            draws += 1
+            return {"q_ids": q_ids, "q_mask": q_mask, "d_ids": d_ids, "d_mask": d_mask}
 
     return sample_batch
 

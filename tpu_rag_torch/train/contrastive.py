@@ -38,7 +38,6 @@ from typing import Any, Callable
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from tpu_rag_torch.device import resolve
 from tpu_rag_torch.models.bert import (BertEncoder, BertSpec, TensorParallelEncoder,
@@ -48,6 +47,7 @@ from tpu_rag_torch.models.hf_export import save_bert
 from tpu_rag_torch.models.hf_import import load_bert_params
 from tpu_rag_torch.parallel.mesh import Mesh
 from tpu_rag_torch.parallel.tensor import gather_rows
+from tpu_rag_torch.utils.timing import span
 
 
 def info_nce_loss(q_emb: torch.Tensor, d_emb: torch.Tensor, tau: float = 0.05) -> torch.Tensor:
@@ -106,15 +106,20 @@ class ContrastiveTrainer:
         self.spec = spec
         self.tau = tau
         self.schedule = lr if callable(lr) else (lambda _step: lr)
-        if self._groups:
-            self.module = TensorParallelEncoder(spec, self._groups[0], flash=False, remat=True,
-                                                compute_dtype=compute_dtype)
-        else:
-            self.module = BertEncoder(spec, flash=False, remat=True,
-                                      compute_dtype=compute_dtype).to(self.device)
-        self.module.load_state_dict(init_params(spec, seed))
-        self.module.train()
-        self._reset_optimizer()
+        with span("train.init"):
+            with span("train.init.module"):
+                if self._groups:
+                    self.module = TensorParallelEncoder(spec, self._groups[0], flash=False,
+                                                        remat=True, compute_dtype=compute_dtype)
+                else:
+                    self.module = BertEncoder(spec, flash=False, remat=True,
+                                              compute_dtype=compute_dtype).to(self.device)
+            with span("train.init.params"):
+                self.module.load_state_dict(init_params(spec, seed))
+            self.module.train()
+            # the first optimizer a process builds imports torch._dynamo
+            with span("train.init.optimizer"):
+                self._reset_optimizer()
 
     def _reset_optimizer(self) -> None:
         self.step = 0
@@ -141,23 +146,26 @@ class ContrastiveTrainer:
     def train_step(self, batch: dict[str, Any]) -> float:
         """batch: {q_ids, q_mask, d_ids, d_mask}, int (B, L) numpy arrays
         (B a multiple of the data axis).  One AdamW update; returns the loss
-        before it."""
-        t = {k: torch.as_tensor(np.asarray(v)).to(self.device, torch.int64)
-             for k, v in batch.items()}
-        for group in self.optimizer.param_groups:
-            group["lr"] = float(self.schedule(self.step))
-        self.optimizer.zero_grad(set_to_none=True)
-        # a named range for torch.profiler: chip_smoke.py's train phase
-        # reads its device span beside AdamW's own (Optimizer.step).  The
-        # backward's kernels are launched by autograd's device thread, which
-        # a range on this thread does not see
-        with record_function("contrastive.forward"):
-            loss = info_nce_loss(self._embed(t["q_ids"], t["q_mask"]),
-                                 self._embed(t["d_ids"], t["d_mask"]), self.tau)
-        loss.backward()
-        self.optimizer.step()
-        self.step += 1
-        return float(loss.detach())
+        before it.  Its spans (utils/timing.py) are tagged with the step
+        it takes; the backward's kernels are launched by autograd's device
+        thread while this one waits inside train.backward."""
+        with span("train.step", step=self.step):
+            with span("train.upload"):
+                t = {k: torch.as_tensor(np.asarray(v)).to(self.device, torch.int64)
+                     for k, v in batch.items()}
+            for group in self.optimizer.param_groups:
+                group["lr"] = float(self.schedule(self.step))
+            self.optimizer.zero_grad(set_to_none=True)
+            with span("train.forward"):
+                loss = info_nce_loss(self._embed(t["q_ids"], t["q_mask"]),
+                                     self._embed(t["d_ids"], t["d_mask"]), self.tau)
+            with span("train.backward"):
+                loss.backward()
+            with span("train.optimizer"):
+                self.optimizer.step()
+            self.step += 1
+            with span("train.readback"):
+                return float(loss.detach())
 
     def save(self, path: str | Path) -> None:
         """The encoder as a HF BertModel directory (models/hf_export.py);

@@ -25,6 +25,11 @@ class Metrics:
         with self._lock:
             self._counters[name] += value
 
+    def counter(self, name: str) -> float:
+        """A counter's value (0 before its first increment)."""
+        with self._lock:
+            return self._counters.get(name, 0.0)
+
     def observe(self, name: str, seconds: float) -> None:
         with self._lock:
             self._lat_sum[name] += seconds
