@@ -20,7 +20,8 @@ dicts of numpy arrays) into this module's state_dict.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
+from typing import ClassVar
 
 import numpy as np
 import torch
@@ -43,6 +44,54 @@ class BertSpec:
     max_len: int = 512
     type_vocab: int = 2
     ln_eps: float = 1e-12
+
+    # parallel/tensor.py's partition rules are this trunk's
+    tensor_parallel: ClassVar[bool] = True
+
+    def encoder(self, *, train: bool = False,
+                compute_dtype: torch.dtype = torch.float32) -> nn.Module:
+        """The trunk; for training, the plain attention (kernel #5 has no
+        backward) with each layer recomputed in the backward pass."""
+        if train:
+            return BertEncoder(self, flash=False, remat=True, compute_dtype=compute_dtype)
+        return BertEncoder(self, compute_dtype=compute_dtype)
+
+    def sized_for(self, vocab_size: int, positions: int) -> "BertSpec":
+        """This preset over a vocab of `vocab_size` ids, with a position
+        table of `positions` (at least 128)."""
+        return replace(self, vocab_size=vocab_size, max_len=max(positions, 128))
+
+    def record_attention(self, *masks) -> None:
+        """A training step's attention counters: BERT keeps none."""
+
+    def hf_names(self) -> dict[str, str]:
+        """encoder() state-dict name -> HF BertModel name."""
+        from tpu_rag_torch.models.hf_import import bert_hf_names
+
+        return bert_hf_names(self)
+
+    def hf_config(self) -> dict:
+        """HF BertModel config.json keys, with erf GELU ("gelu"), as the
+        trunk computes."""
+        return {"architectures": ["BertModel"], "model_type": "bert",
+                "vocab_size": self.vocab_size, "hidden_size": self.hidden,
+                "num_hidden_layers": self.layers, "num_attention_heads": self.heads,
+                "intermediate_size": self.ffn, "max_position_embeddings": self.max_len,
+                "type_vocab_size": self.type_vocab, "layer_norm_eps": self.ln_eps,
+                "hidden_act": "gelu"}
+
+    @classmethod
+    def from_hf_config(cls, cfg: dict) -> "BertSpec | None":
+        """The spec of a HF BertConfig dict, or None where keys are missing."""
+        try:
+            return cls(vocab_size=int(cfg["vocab_size"]), hidden=int(cfg["hidden_size"]),
+                       layers=int(cfg["num_hidden_layers"]),
+                       heads=int(cfg["num_attention_heads"]), ffn=int(cfg["intermediate_size"]),
+                       max_len=int(cfg.get("max_position_embeddings", 512)),
+                       type_vocab=int(cfg.get("type_vocab_size", 2)),
+                       ln_eps=float(cfg.get("layer_norm_eps", 1e-12)))
+        except (KeyError, ValueError, TypeError):
+            return None
 
 
 def _linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:

@@ -38,19 +38,22 @@ from tpu_rag_torch.device import compute_dtype, resolve
 from tpu_rag_torch.models.bert import (BertEncoder, BertSpec, TensorParallelEncoder,
                                        l2_normalize, mean_pool)
 from tpu_rag_torch.models.hf_import import load_bert_params, spec_from_hf_config
+from tpu_rag_torch.models.modernbert import ModernBertSpec
 from tpu_rag_torch.models.tokenizer import _special_ids, load_tokenizer
 
-MODEL_SPECS: dict[str, BertSpec] = {
+MODEL_SPECS: dict[str, BertSpec | ModernBertSpec] = {
     # parity default: all-MiniLM-L6-v2 (384-d)
     "minilm-l6": BertSpec(hidden=384, layers=6, heads=12, ffn=1536),
     "minilm-l12": BertSpec(hidden=384, layers=12, heads=12, ffn=1536),
     "bge-base": BertSpec(hidden=768, layers=12, heads=12, ffn=3072),
     "bge-small": BertSpec(hidden=384, layers=12, heads=12, ffn=1536),
     "tiny": BertSpec(vocab_size=1024, hidden=64, layers=2, heads=4, ffn=128, max_len=128),
+    # answerdotai/ModernBERT-large (models/modernbert.py)
+    "modernbert-large": ModernBertSpec(),
 }
 
 
-def spec_for_model(name: str) -> BertSpec:
+def spec_for_model(name: str) -> BertSpec | ModernBertSpec:
     low = name.lower()
     for key, spec in MODEL_SPECS.items():
         if key in low:
@@ -68,14 +71,14 @@ def seeded_state_dict(module: torch.nn.Module, hidden: int,
                       seed: int) -> dict[str, torch.Tensor]:
     """module's state dict refilled with seeded random weights on the CPU:
     LeCun-normal Linear weights (std 1/sqrt(fan_in)), embeddings with std
-    1/sqrt(hidden), zero biases, unit LayerNorm scales."""
+    1/sqrt(hidden), zero biases, unit LayerNorm scales (the 1-D weights)."""
     g = torch.Generator().manual_seed(seed)
     sd = module.state_dict()
     for name, p in sd.items():
-        if name.endswith("_ln.weight"):
-            p.fill_(1.0)
-        elif name.endswith("bias"):
+        if name.endswith("bias"):
             p.zero_()
+        elif p.dim() == 1:
+            p.fill_(1.0)
         elif "embeddings" in name:
             p.copy_(torch.randn(p.shape, generator=g) / hidden ** 0.5)
         else:
@@ -83,15 +86,19 @@ def seeded_state_dict(module: torch.nn.Module, hidden: int,
     return sd
 
 
-def init_params(spec: BertSpec, seed: int) -> dict[str, torch.Tensor]:
-    """Seeded random BertEncoder weights (seeded_state_dict)."""
-    return seeded_state_dict(BertEncoder(spec), spec.hidden, seed)
+def init_params(spec: BertSpec | ModernBertSpec, seed: int) -> dict[str, torch.Tensor]:
+    """Seeded random weights of the spec's trunk (seeded_state_dict, which
+    writes every tensor: the module is built without initialising it)."""
+    with torch.device("meta"):
+        module = spec.encoder()
+    return seeded_state_dict(module.to_empty(device="cpu"), spec.hidden, seed)
 
 
 class BiEncoder:
     # sequence-length buckets: a batch runs at the smallest bucket >= its
     # longest row; padding is masked in attention and in the mean pool
-    SEQ_BUCKETS = (32, 64, 128, 256, 512)
+    # (past 512 only ModernBERT's 8,192 positions reach)
+    SEQ_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048, 4096, 8192)
 
     def __init__(
         self,
@@ -102,7 +109,7 @@ class BiEncoder:
         seq_len: int = 256,
         batch: int = 64,
         dtype: str = "bfloat16",
-        spec: BertSpec | None = None,
+        spec: BertSpec | ModernBertSpec | None = None,
         device: str | torch.device = "cuda",
         state_dict: dict[str, torch.Tensor] | None = None,
         mesh=None,
@@ -151,9 +158,13 @@ class BiEncoder:
 
     def _encoder_on(self, group: tuple[torch.device, ...], state_dict) -> torch.nn.Module:
         if len(group) == 1:
-            module = BertEncoder(self.spec, compute_dtype=self.compute_dtype)
+            module = self.spec.encoder(compute_dtype=self.compute_dtype)
             module.load_state_dict(state_dict)
             return module.to(group[0]).eval()
+        if not self.spec.tensor_parallel:
+            raise ValueError(f"a mesh with a \"model\" axis of {len(group)}: "
+                             f"{type(self.spec).__name__} has no tensor-parallel partition "
+                             f"rules (parallel/tensor.py holds BERT's)")
         module = TensorParallelEncoder(self.spec, group, compute_dtype=self.compute_dtype)
         module.load_state_dict(state_dict)
         return module.eval()

@@ -1,5 +1,6 @@
 """The port's checkpoint format: a BertEncoder state dict written as a HF
-BertModel directory, and a CrossEncoderModule state dict as a HF
+BertModel directory (a ModernBertEncoder's as a HF ModernBertModel
+directory), and a CrossEncoderModule state dict as a HF
 BertForSequenceClassification directory (one label), the inverse of
 models/hf_import.py.
 
@@ -48,8 +49,7 @@ def write_safetensors(path: str | Path, tensors: dict[str, torch.Tensor]) -> Non
 def _save(state_dict: dict[str, torch.Tensor], names: dict[str, str], what: str,
           config: dict, spec, path: str | Path) -> None:
     """`state_dict` under the HF `names` (ours -> theirs) as
-    model.safetensors, beside a config.json of `spec` with erf GELU
-    ("gelu"), as the trunk computes, and the `config` keys."""
+    model.safetensors, beside a config.json of the `config` keys."""
     out = Path(path)
     out.mkdir(parents=True, exist_ok=True)
     if set(state_dict) != set(names):
@@ -57,20 +57,14 @@ def _save(state_dict: dict[str, torch.Tensor], names: dict[str, str], what: str,
                        f"{sorted(set(state_dict) ^ set(names))[:6]}")
     write_safetensors(out / "model.safetensors",
                       {names[k]: state_dict[k] for k in names})
-    config = {**config, "model_type": "bert",
-              "vocab_size": spec.vocab_size, "hidden_size": spec.hidden,
-              "num_hidden_layers": spec.layers, "num_attention_heads": spec.heads,
-              "intermediate_size": spec.ffn, "max_position_embeddings": spec.max_len,
-              "type_vocab_size": spec.type_vocab, "layer_norm_eps": spec.ln_eps,
-              "hidden_act": "gelu"}
     (out / "config.json").write_text(json.dumps(config, indent=2) + "\n")
 
 
 def save_bert(state_dict: dict[str, torch.Tensor], spec, path: str | Path) -> None:
-    """Write BertEncoder(spec)'s `state_dict` as a HF BertModel directory at
-    `path` (created if missing)."""
-    _save(state_dict, bert_hf_names(spec), "BertEncoder",
-          {"architectures": ["BertModel"]}, spec, path)
+    """Write spec.encoder()'s `state_dict` as a HF model directory at `path`
+    (created if missing): BertModel's, or ModernBertModel's for a
+    ModernBertSpec (spec.hf_names(), spec.hf_config())."""
+    _save(state_dict, spec.hf_names(), "encoder", spec.hf_config(), spec, path)
 
 
 def save_cross_encoder(state_dict: dict[str, torch.Tensor], spec, path: str | Path) -> None:
@@ -85,5 +79,6 @@ def save_cross_encoder(state_dict: dict[str, torch.Tensor], spec, path: str | Pa
                   "classifier.weight": "classifier.weight",
                   "classifier.bias": "classifier.bias"})
     _save(state_dict, names, "CrossEncoderModule",
-          {"architectures": ["BertForSequenceClassification"], "num_labels": 1,
-           "id2label": {"0": "LABEL_0"}, "label2id": {"LABEL_0": 0}}, spec, path)
+          {**spec.hf_config(), "architectures": ["BertForSequenceClassification"],
+           "num_labels": 1, "id2label": {"0": "LABEL_0"}, "label2id": {"LABEL_0": 0}},
+          spec, path)

@@ -5,7 +5,9 @@ Lets the port serve the reference's models (all-MiniLM-L6-v2 bi-encoder,
 ms-marco-MiniLM-L-6-v2 cross-encoder) from a local `model.safetensors` or
 `pytorch_model.bin`.  HF names map straight onto `BertEncoder`'s state-dict
 names (the ones `params_from_flax` produces); HF Linear weights are already
-(out, in), so nothing is transposed.
+(out, in), so nothing is transposed.  A ModernBERT checkpoint
+(`model_type: modernbert`; ModernBertModel's names, or ModernBertForMaskedLM's
+under "model.") loads into `ModernBertEncoder`, whose names are HF's own.
 
 `model.safetensors` is read by `read_safetensors` below on every machine:
 the format is a little-endian u64 header length, a JSON header of
@@ -124,18 +126,18 @@ def bert_hf_names(spec) -> dict[str, str]:
 
 
 def map_bert_state_dict(sd: dict, spec) -> dict[str, torch.Tensor]:
-    """HF BertModel state dict -> state dict of the port's BertEncoder(spec).
-    Raises KeyError for a missing name, ValueError for a shape that does not
-    fit `spec`."""
-    from tpu_rag_torch.models.bert import BertEncoder
+    """HF model state dict (BertModel's, or ModernBertModel's for a
+    ModernBertSpec) -> state dict of the port's spec.encoder(), through
+    spec.hf_names().  Raises KeyError for a missing name, ValueError for a
+    shape that does not fit `spec`."""
+    return _take(_strip_prefix(sd), spec.hf_names(), _shapes(type(spec).encoder, spec))
 
-    return _take(_strip_prefix(sd), bert_hf_names(spec), _shapes(BertEncoder, spec))
 
-
-def _shapes(module_cls, spec) -> dict[str, torch.Size]:
-    """State-dict shapes of module_cls(spec), with no memory allocated."""
+def _shapes(build, spec) -> dict[str, torch.Size]:
+    """State-dict shapes of the module build(spec), with no memory
+    allocated."""
     with torch.device("meta"):
-        return {k: v.shape for k, v in module_cls(spec).state_dict().items()}
+        return {k: v.shape for k, v in build(spec).state_dict().items()}
 
 
 def _take(sd: dict, names: dict[str, str], want: dict) -> dict[str, torch.Tensor]:
@@ -151,8 +153,11 @@ def _take(sd: dict, names: dict[str, str], want: dict) -> dict[str, torch.Tensor
 
 
 def spec_from_hf_config(path: str | Path):
-    """BertSpec from a checkpoint dir's config.json (HF convention), or None
-    when no readable config.json is present."""
+    """BertSpec, or ModernBertSpec where `model_type` is "modernbert", from a
+    checkpoint dir's config.json (HF convention), or None when no readable
+    config.json is present.  A ModernBERT config with biases or another
+    activation than erf GELU raises ValueError: the port's trunk has
+    neither."""
     p = Path(path)
     if p.is_dir():
         cfg_file = p / "config.json"
@@ -167,24 +172,15 @@ def spec_from_hf_config(path: str | Path):
     except (OSError, ValueError):
         return None
     from tpu_rag_torch.models.bert import BertSpec
+    from tpu_rag_torch.models.modernbert import ModernBertSpec
 
-    try:
-        return BertSpec(
-            vocab_size=int(cfg["vocab_size"]),
-            hidden=int(cfg["hidden_size"]),
-            layers=int(cfg["num_hidden_layers"]),
-            heads=int(cfg["num_attention_heads"]),
-            ffn=int(cfg["intermediate_size"]),
-            max_len=int(cfg.get("max_position_embeddings", 512)),
-            type_vocab=int(cfg.get("type_vocab_size", 2)),
-            ln_eps=float(cfg.get("layer_norm_eps", 1e-12)),
-        )
-    except (KeyError, ValueError, TypeError):
-        return None
+    kind = ModernBertSpec if cfg.get("model_type") == "modernbert" else BertSpec
+    return kind.from_hf_config(cfg)
 
 
 def load_bert_params(path: str | Path, spec) -> dict[str, torch.Tensor] | None:
-    """HF BertModel checkpoint -> BertEncoder state dict, or None."""
+    """HF BertModel (or, for a ModernBertSpec, ModernBertModel) checkpoint
+    -> the port's encoder state dict, or None."""
     sd = _load_state_dict(path)
     if sd is None:
         return None

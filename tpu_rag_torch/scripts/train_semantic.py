@@ -20,7 +20,12 @@ seeded weights):
   python -m tpu_rag_torch.scripts.train_semantic --corpus corpus.jsonl \
       --steps 3000 --out semantic
 
-Artifacts in --out: vocab.txt, ckpt/ (a HF BertModel directory, served by
+MiniLM-L6 by default; `--model modernbert-large --batch 32 --seq-len 4096
+--q-len 64 --body-cut 8192 --lr 1e-4` trains ModernBERT-large on windows of
+long documents.
+
+Artifacts in --out: vocab.txt, ckpt/ (a HF BertModel, or ModernBertModel,
+directory, served by
 EMBEDDING_WEIGHTS=<out>/ckpt TOKENIZER_PATH=<out>/vocab.txt
 python -m tpu_rag_torch.serve), quality.json, QUALITY.md.
 
@@ -159,9 +164,16 @@ def eval_hybrid_rrf(docs: list[dict], holdout: list[dict],
 
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
+    from tpu_rag_torch.models.biencoder import MODEL_SPECS
+
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--corpus", required=True)
     ap.add_argument("--out", required=True)
+    ap.add_argument("--model", default="minilm-l6", choices=sorted(MODEL_SPECS),
+                    help="the encoder trained (biencoder.MODEL_SPECS); a BERT preset "
+                         "takes the corpus vocab's size")
+    ap.add_argument("--body-cut", type=int, default=320,
+                    help="document crops are drawn from a body's first this many tokens")
     ap.add_argument("--steps", type=int, default=3000)
     ap.add_argument("--batch", type=int, default=512)
     ap.add_argument("--seq-len", type=int, default=128)
@@ -189,11 +201,18 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
 
 
 def semantic_spec(args):
-    """MiniLM-L6 at full width over the corpus vocab."""
-    from tpu_rag_torch.models.bert import BertSpec
+    """The --model encoder at its published widths (spec.sized_for): a BERT
+    preset over the corpus vocab with a position table of the longer of
+    --seq-len and --q-len (at least 128); ModernBERT as published, whose
+    50,368-row table holds the corpus vocab's ids and whose RoPE reaches
+    8,192 positions."""
+    from tpu_rag_torch.models.biencoder import MODEL_SPECS
 
-    return BertSpec(hidden=384, layers=6, heads=12, ffn=1536,
-                    vocab_size=args.vocab_size, max_len=max(args.seq_len, 128))
+    try:
+        return MODEL_SPECS[args.model].sized_for(args.vocab_size, max(args.seq_len, args.q_len))
+    except ValueError as e:
+        raise SystemExit(f"--model {args.model}, --vocab-size {args.vocab_size}, "
+                         f"--seq-len {args.seq_len}: {e}") from None
 
 
 def build_vocab(docs: list[dict], args, vocab_path: str) -> list[str]:
@@ -206,7 +225,8 @@ def build_vocab(docs: list[dict], args, vocab_path: str) -> list[str]:
 
 
 def batch_sampler(train_docs: list[dict], tok, args) -> Callable[[], dict]:
-    """Pre-tokenizes the training docs (full-length token lists) and returns
+    """Pre-tokenizes the training docs (each body's first `args.body_cut`
+    tokens, 320 where args has none) and returns
     a function that draws one batch of numpy {q_ids, q_mask, d_ids, d_mask}.
     Positives: labeled (summary -> body crop) mixed with unsupervised (body
     crop -> independent body crop) — fresh views every epoch, so 18K docs
@@ -218,7 +238,8 @@ def batch_sampler(train_docs: list[dict], tok, args) -> Callable[[], dict]:
     cls_id = getattr(tok, "cls_id", 1)
     sep_id = getattr(tok, "sep_id", 2)
     pad_id = getattr(tok, "pad_id", PAD_ID)
-    body_toks = [tok.tokenize_ids(d["body"])[:320] for d in train_docs]
+    cut = getattr(args, "body_cut", 320)
+    body_toks = [tok.tokenize_ids(d["body"])[:cut] for d in train_docs]
     sum_toks = [tok.tokenize_ids(d["query"])[: args.q_len - 2] for d in train_docs]
 
     def assemble(rows: list[list[int]], seq: int):

@@ -3,10 +3,15 @@ a ("data", "model") mesh; port of tpu_rag/train/contrastive.py.
 
 - In-batch negatives: logits = q @ d^T / tau with labels on the diagonal,
   symmetric cross-entropy.
-- `BertEncoder(spec, flash=False, remat=True)` with f32 parameters: the
-  plain attention (kernel #5 has no backward, nor has tpu_rag's Pallas
-  kernel, whose trainer keeps XLA's attention), each layer recomputed in the
-  backward pass; forward in `compute_dtype` (bf16 on the card).
+- `spec.encoder(train=True)` with f32 parameters: for a BertSpec
+  `BertEncoder(spec, flash=False, remat=True)`, the plain attention (kernel
+  #5 has no backward, nor has tpu_rag's Pallas kernel, whose trainer keeps
+  XLA's attention), each layer recomputed in the backward pass; forward in
+  `compute_dtype` (bf16 on the card).  A ModernBertSpec trains
+  `ModernBertEncoder(spec, remat=True)` the same way (its banded and fused
+  attentions have backwards), on one device only: the tensor-parallel rules
+  are BERT's.  Each step adds the spec's attention counters
+  (spec.record_attention, from the batch's host masks), replayed steps too.
 - `torch.optim.AdamW` at `optax.adamw`'s defaults: betas 0.9/0.999, eps
   1e-8 and weight decay 1e-4 on every parameter (optax has no mask, so
   LayerNorm scales and biases decay too).  The schedule's value is written
@@ -33,10 +38,11 @@ their gradients into the masters; on a device that names the masters' own,
 nothing is copied).  The q and d embeddings are gathered in data order on
 the first device for the loss, and one AdamW steps the masters.  One
 process drives every device, as tpu_rag's single controller does.  Initial
-weights are `init_params(spec, seed)`: flax's init cannot
-be redrawn in torch, so parity with tpu_rag starts from shared parameters
-(`params_from_flax` loaded into `trainer.module`).  Checkpoints are HF
-BertModel directories (models/hf_export.py), which `BiEncoder(weights_path=)`
+weights are `state_dict` where given, else `init_params(spec, seed)`:
+flax's init cannot be redrawn in torch, so parity with tpu_rag starts from
+shared parameters (`params_from_flax` loaded into `trainer.module`, or
+given as `state_dict`).  Checkpoints are HF BertModel (or ModernBertModel)
+directories (models/hf_export.py), which `BiEncoder(weights_path=)`
 serves without a spec; tpu_rag writes orbax.
 """
 
@@ -52,11 +58,11 @@ import torch
 import torch.nn.functional as F
 
 from tpu_rag_torch.device import resolve
-from tpu_rag_torch.models.bert import (BertEncoder, BertSpec, TensorParallelEncoder,
-                                       l2_normalize, mean_pool)
+from tpu_rag_torch.models.bert import BertSpec, TensorParallelEncoder, l2_normalize, mean_pool
 from tpu_rag_torch.models.biencoder import init_params
 from tpu_rag_torch.models.hf_export import save_bert
 from tpu_rag_torch.models.hf_import import load_bert_params
+from tpu_rag_torch.models.modernbert import ModernBertSpec
 from tpu_rag_torch.parallel.mesh import Mesh
 from tpu_rag_torch.parallel.tensor import gather_rows
 from tpu_rag_torch.utils.metrics import GLOBAL_METRICS
@@ -132,10 +138,12 @@ class _Graph:
 
 
 class ContrastiveTrainer:
-    def __init__(self, spec: BertSpec, *, lr: float | Callable[[int], float] = 2e-5,
+    def __init__(self, spec: BertSpec | ModernBertSpec, *,
+                 lr: float | Callable[[int], float] = 2e-5,
                  tau: float = 0.05, compute_dtype: torch.dtype = torch.float32,
                  seed: int = 0, device: str | torch.device = "cuda",
-                 mesh: Mesh | dict[str, int] | None = None) -> None:
+                 mesh: Mesh | dict[str, int] | None = None,
+                 state_dict: dict[str, torch.Tensor] | None = None) -> None:
         """mesh: a parallel.Mesh with "data" and/or "model" axes (its
         devices replace `device`), or, for one device, None or a dict of
         axis sizes whose product is 1."""
@@ -144,6 +152,10 @@ class ContrastiveTrainer:
                 raise TypeError(f"mesh {mesh}: a mesh of more than one device is a "
                                 f"parallel.Mesh (parallel.mesh_from_spec)")
             mesh = None
+        if mesh is not None and not spec.tensor_parallel:
+            raise ValueError(f"{type(spec).__name__} trains on one device: a mesh {mesh.shape} "
+                             f"needs tensor-parallel partition rules, and parallel/tensor.py "
+                             f"holds BERT's")
         self._groups = [tuple(g) for g in mesh.model_groups()] if mesh is not None else []
         self.device = self._groups[0][0] if self._groups else resolve(device)
         # one CUDA device, no mesh: the step may be captured (module
@@ -161,10 +173,14 @@ class ContrastiveTrainer:
                     self.module = TensorParallelEncoder(spec, self._groups[0], flash=False,
                                                         remat=True, compute_dtype=compute_dtype)
                 else:
-                    self.module = BertEncoder(spec, flash=False, remat=True,
-                                              compute_dtype=compute_dtype).to(self.device)
+                    # built uninitialised on its device: the state dict
+                    # loaded below writes every tensor
+                    with torch.device("meta"):
+                        self.module = spec.encoder(train=True, compute_dtype=compute_dtype)
+                    self.module.to_empty(device=self.device)
             with span("train.init.params"):
-                self.module.load_state_dict(init_params(spec, seed))
+                self.module.load_state_dict(init_params(spec, seed) if state_dict is None
+                                            else state_dict)
             self.module.train()
             # the first optimizer a process builds imports torch._dynamo
             with span("train.init.optimizer"):
@@ -228,6 +244,7 @@ class ContrastiveTrainer:
                     loss = self._eager_step(batch)
                 current.wait_stream(self._side)
                 self._warmed = key
+            self.spec.record_attention(batch["q_mask"], batch["d_mask"])
             self.step += 1
             with span("train.readback"):
                 return float(loss.detach())
@@ -287,7 +304,8 @@ class ContrastiveTrainer:
         return g.loss
 
     def save(self, path: str | Path) -> None:
-        """The encoder as a HF BertModel directory (models/hf_export.py);
+        """The encoder as a HF BertModel (or ModernBertModel) directory
+        (models/hf_export.py);
         over a mesh, the model ranks' shares gathered into one model."""
         save_bert(self.module.state_dict(), self.spec, path)
 

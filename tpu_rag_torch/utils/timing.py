@@ -16,6 +16,10 @@ training loop's spans (`SPANS`, off unless a caller enables it):
                    train.backward and train.optimizer, or in a step replayed
                    from a CUDA graph, train.replay (the graph's launch),
                    after train.capture in the step that captures it
+  modernbert.attn_local, modernbert.attn_global
+                   models/modernbert.py: each layer's banded (local) or
+                   full (global) attention, where it runs eagerly (a graph
+                   replay runs no Python; remat's recompute records again)
 
 Counters go to utils/metrics.py's GLOBAL_METRICS:
 
@@ -24,6 +28,11 @@ Counters go to utils/metrics.py's GLOBAL_METRICS:
   train_eager_steps_total     ContrastiveTrainer steps run eagerly
   train_graph_captures_total  CUDA graphs captured (one a step shape)
   train_graph_replays_total   steps replayed from a graph, the capturing one too
+  attn_local_key_slots_total, attn_global_key_slots_total, attn_real_pairs_total
+                   a ModernBERT step's query x key score slots on local and
+                   global layers and the pairs among them inside the window
+                   and between real tokens, added by ContrastiveTrainer from
+                   the batch's host masks on every step, replayed ones too
 """
 
 from __future__ import annotations
