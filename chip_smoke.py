@@ -83,6 +83,19 @@ Phases, each printing one JSON line (any failure exits non-zero):
            the unsharded trainer, 30 bf16 steps (the loss falls, no kernel
            launches), ms/step beside the unsharded step's, the gathered
            checkpoint served unsharded;
+  mbert_attn  ModernBERT's attention kernels (csrc/ragged_attention.cu) at
+           the train-4k cell's documents (B 32, T 4,096, H 16, D 64), global
+           and banded (w 64), on rows of the traffic's lengths and all-real
+           rows: forward and backward against the plain version (f32), then
+           timed beside their bound (the real pairs' operations, the real
+           rows' reads), the plain version and the library's fused
+           attention on the same call (`library_ms`, which the port never
+           calls on the card), and the library at full length with no mask
+           as the rate to hold the kernels to; the nvcc build's seconds;
+           then 4 of the cell's training steps (ModernBERT-large,
+           ContrastiveTrainer: eager, captured, replayed), whose kernel
+           launches and device runs must be 112 forward, 56 backward a
+           step; fails at 0 launches or another count;
   rerank_train  train_reranker at MiniLM-L6 width over the train phase's
            corpus and bi-encoder (batch 256 pairs, T 160, bf16, 1,500 steps
            at lr 1e-4) with a val eval and two mining rounds: every step
@@ -4147,10 +4160,281 @@ def phase_tp(work: Path) -> dict:
     return serve["launches"]
 
 
+
+# ------------------------------------------------------------------ ModernBERT attention
+MBERT_SHAPE = (32, 4096, 16, 64)              # B, T, H, D of the train-4k cell's documents
+MBERT_TRAFFIC = REPO / "perfbench" / "traffic" / "train-4k.json"
+
+
+def _mbert_lengths(b: int, t: int, seed: int) -> list[int]:
+    """Document rows as train_semantic's sampler draws them in the train-4k
+    cell: a body drawn from the traffic's measured lengths (cut at its
+    8,192), cropped to a width uniform in 32..t - 2, plus [CLS] and [SEP]."""
+    import numpy as np
+
+    spec = json.loads(MBERT_TRAFFIC.read_text())["body_tokens"]
+    rng = np.random.default_rng(seed)
+    qs = np.asarray(spec["quantiles"], np.float64)
+    bodies = np.minimum(np.interp(rng.random(b) * 100, np.arange(101), qs), spec["max"])
+    widths = rng.integers(32, t - 1, b)
+    return [int(min(n, w)) + 2 for n, w in zip(bodies.astype(np.int64), widths)]
+
+
+def _mbert_rel(a, e, real) -> float:
+    return float((a[real] - e[real]).norm() / e[real].norm().clamp_min(1e-30))
+
+
+def _mbert_row(q, k, v, do, lengths, window, what: str) -> dict:
+    """The kernels against the plain version (f32 on the same inputs: each
+    output and gradient within 2x the plain version's own bf16 error +
+    1e-3, relative, over the real rows; pad rows exactly 0), then forward
+    and backward timed beside their bound over the visited tiles, the
+    plain version and the library's fused attention on the same call."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from tpu_rag_torch.ops import ragged_attention as ra
+
+    b, t, h, d = q.shape
+    w = -1 if window is None else window
+    real = torch.arange(t, device=q.device)[None, :] < lengths[:, None]
+
+    def grads(fn, dtype):
+        xs = [x.detach().to(dtype).requires_grad_(True) for x in (q, k, v)]
+        out = fn(*xs)
+        return [out.detach().float()] + [g.float() for g in torch.autograd.grad(out, xs, do.to(dtype))]
+
+    got = grads(lambda *x: ra.ragged_attention(*x, lengths, window), torch.bfloat16)
+    lib = grads(lambda *x: ra.ragged_attention_plain(*x, lengths, window), torch.bfloat16)
+    want = grads(lambda *x: ra.ragged_attention_plain(*x, lengths, window), torch.float32)
+    errs = {}
+    for name, a, lb, e in zip(("o", "dq", "dk", "dv"), got, lib, want):
+        err, lib_err = _mbert_rel(a, e, real), _mbert_rel(lb, e, real)
+        pad = float(a[~real].abs().max()) if (~real).any() else 0.0
+        errs[name] = {"rel_err": err, "library_rel_err": lib_err}
+        if not (err <= 2 * lib_err + 1e-3 and pad == 0.0 and bool(torch.isfinite(a).all())):
+            raise AssertionError(f"ragged attention {what} {name}: {err} against the library's "
+                                 f"{lib_err}, pad rows {pad}")
+    del got, lib, want
+
+    lens = lengths.tolist()
+    slots = h * ra.visited_slots(lens, t, window)
+    real_pairs = h * sum(n * n if window is None else
+                         n * n - max(n - window - 1, 0) * max(n - window, 0) for n in lens)
+    o, lse = ra._forward_cuda(q, k, v, lengths, w)
+    # the bound is the function's own work: 2 products forward and 5
+    # backward over the real pairs; q, k, v (o, dO) read on the real rows,
+    # o (dq, dk, dv) written over all of T, the log-sum-exp (f32) written
+    # for every row and read back for the real ones
+    fwd_ops, bwd_ops = 4.0 * d * real_pairs, 10.0 * d * real_pairs
+    row_bytes, real_rows = h * d * q.element_size(), sum(lens)
+    fwd_bytes = (3 * real_rows + b * t) * row_bytes + b * h * t * 4
+    bwd_bytes = (5 * real_rows + 3 * b * t) * row_bytes + real_rows * h * 4
+    fb_ms, fb_by = bound(fwd_bytes, fwd_ops, "bf16")
+    bb_ms, bb_by = bound(bwd_bytes, bwd_ops, "bf16")
+
+    def fwd():
+        return ra._forward_cuda(q, k, v, lengths, w)
+
+    def bwd():
+        return ra._backward_cuda(q, k, v, o, do, lse, lengths, w)
+
+    def plain_fwd():
+        return ra.ragged_attention_plain(q, k, v, lengths, window)
+
+    mask = real.to(torch.int32)
+    qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+    if window is None:
+        bias = ra.key_bias(mask, q.dtype)
+
+        def lib_fwd():      # the library's fused attention as the port called it before
+            return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias)
+    else:
+        bias = ra.band_bias(mask, window, q.dtype)
+
+        def lib_fwd():
+            return ra.band_attention(q, k, v, bias, window)
+
+    def fwd_bwd(fn):
+        xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+
+        def call():
+            out = fn(*xs)
+            torch.autograd.grad(out, xs, do if out.shape == do.shape else do.transpose(1, 2))
+        return call
+
+    if window is None:
+        lib_step = fwd_bwd(lambda a, b_, c: F.scaled_dot_product_attention(
+            a.transpose(1, 2), b_.transpose(1, 2), c.transpose(1, 2), attn_mask=bias))
+    else:
+        lib_step = fwd_bwd(lambda a, b_, c: ra.band_attention(a, b_, c, bias, window))
+    row = {"name": f"ragged_attention[{what},B={b},T={t},H={h},D={d},"
+                   f"window={window}]",
+           "source": "tpu_rag_torch/csrc/ragged_attention.cu", "replaces": None,
+           "mean_length": float(np.mean(lens)), "errors": errs,
+           "visited_slots": slots, "real_pairs": real_pairs,
+           "waste_pct": 100.0 * (1 - real_pairs / slots),
+           "forward": {"ms": cuda_ms(fwd), **_device_ms(fwd, "ragged_fwd_kernel", fb_ms),
+                       "bound_ms": fb_ms, "bound_by": fb_by,
+                       "plain_ms": cuda_ms(plain_fwd), "library_ms": cuda_ms(lib_fwd),
+                       "library_device_ms": cuda_ms(lib_fwd, iters=5, batch=10)},
+           "backward": {"ms": cuda_ms(bwd), **_device_ms(bwd, "ragged_d", bb_ms),
+                        "bound_ms": bb_ms, "bound_by": bb_by,
+                        "library_fwd_bwd_ms": cuda_ms(lib_step, iters=5, batch=5)}}
+    for part, products in (("forward", 2), ("backward", 5)):
+        ms = row[part]["device_ms"]
+        row[part]["tflops_on_visited"] = 2.0 * products * d * slots / ms / 1e9
+        row[part]["tflops_on_real_pairs"] = 2.0 * products * d * real_pairs / ms / 1e9
+    return row
+
+
+def _mbert_train_steps(steps: int = 4) -> dict:
+    """ModernBERT-large's training step at the train-4k cell's shape (B 32,
+    queries of T 64, documents of T 4,096 at the traffic's lengths, a new
+    draw each step) through ContrastiveTrainer on the card: one eager
+    step, one captured (and replayed), the rest replayed.  The attention
+    kernels' host launches and device runs over those steps, counted from
+    just before them, must be 28 layers x 2 towers x (forward + recompute)
+    forward runs and 28 x 2 backward runs a step (the banded forward runs
+    on the 18 local layers), the runs every step and the launches the
+    eager and the capturing one's; fails where they differ or are 0."""
+    import numpy as np
+    import torch
+
+    from tpu_rag_torch.models.biencoder import MODEL_SPECS
+    from tpu_rag_torch.ops import ragged_attention as ra
+    from tpu_rag_torch.train.contrastive import ContrastiveTrainer
+    from tpu_rag_torch.utils.metrics import GLOBAL_METRICS
+
+    spec = MODEL_SPECS["modernbert-large"]
+    b, td = MBERT_SHAPE[:2]
+    tq = 64
+    dev = torch.device("cuda")
+    with torch.device("meta"):
+        shapes = {n: x.shape for n, x in spec.encoder().state_dict().items()}
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    # drawn on the card: products N(0, 1 / fan-in), norms' scales 1
+    weights = {n: torch.randn(s, generator=g, device=dev) * s[-1] ** -0.5 if len(s) > 1
+               else torch.ones(s, device=dev) for n, s in shapes.items()}
+    trainer = ContrastiveTrainer(spec, lr=1e-4, compute_dtype=torch.bfloat16, device=dev,
+                                 state_dict=weights)
+    del weights
+    rng = np.random.default_rng(SEED)
+
+    def batch(step: int) -> dict:
+        out = {}
+        for side, t, lens in (("q", tq, rng.integers(4, tq + 1, b)),
+                              ("d", td, _mbert_lengths(b, td, SEED + 1 + step))):
+            mask = (np.arange(t)[None, :] < np.asarray(lens)[:, None]).astype(np.int64)
+            out[f"{side}_ids"] = rng.integers(5, spec.vocab_size, (b, t)) * mask
+            out[f"{side}_mask"] = mask
+        return out
+
+    batches = [batch(i) for i in range(steps)]
+    steps_kept = ("train_eager_steps_total", "train_graph_captures_total",
+                  "train_graph_replays_total")
+    attn = ("attn_local_key_slots_total", "attn_global_key_slots_total", "attn_real_pairs_total")
+    torch.cuda.synchronize(dev)
+    c0 = [GLOBAL_METRICS.counter(n) for n in steps_kept + attn]
+    host0 = (ra._forward_cuda.launches, ra._backward_cuda.launches,
+             ra._forward_cuda.banded_launches)
+    runs0 = ra.device_runs(dev)
+    losses, times = [], []
+    for x in batches:
+        t0 = time.perf_counter()
+        losses.append(trainer.train_step(x))        # reads the loss back: a whole step
+        times.append(time.perf_counter() - t0)
+    eager, captured, replayed, local, glob, real = (
+        GLOBAL_METRICS.counter(n) - c for n, c in zip(steps_kept + attn, c0))
+    launches = dict(zip(("forward", "backward", "banded"),
+                        (a - z for a, z in zip((ra._forward_cuda.launches,
+                                                ra._backward_cuda.launches,
+                                                ra._forward_cuda.banded_launches), host0))))
+    runs = {k: v - runs0[k] for k, v in ra.device_runs(dev).items()}
+    n_local = sum(not spec.is_global(i) for i in range(spec.layers))
+    per_step = {"forward": 2 * spec.layers * 2, "backward": 2 * spec.layers,
+                "banded": 2 * n_local * 2}
+    want_runs = {k: n * (eager + replayed) for k, n in per_step.items()}
+    want_launches = {k: n * (eager + captured) for k, n in per_step.items()}
+    out = {"steps": {"eager": eager, "captured": captured, "replayed": replayed},
+           "launches": launches, "device_runs": runs, "expected_launches": want_launches,
+           "expected_device_runs": want_runs, "losses": losses, "step_s": times,
+           "attn_waste_pct": 100.0 * (1 - real / (local + glob))}
+    del trainer
+    torch.cuda.empty_cache()
+    if (runs != want_runs or launches != want_launches or replayed == 0
+            or min(runs.values()) == 0 or not all(np.isfinite(losses))):
+        raise AssertionError(f"ModernBERT's training steps and the attention kernels: {out}")
+    return out
+
+
+def phase_mbert_attn() -> dict:
+    """ModernBERT's attention kernels at the train-4k cell's document
+    shape, global and banded (w 64), on rows of the traffic's lengths and
+    on all-real rows, beside the library's fused attention at full length
+    (no mask: its fastest path) as the rate to hold the kernels to; the
+    kernels' nvcc build seconds where this process built them; then the
+    cell's training step itself (_mbert_train_steps).  Fails at 0
+    launches, and where the trainer's steps did not run the kernels as
+    many times as its layers ask."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpu_rag_torch import _build
+    from tpu_rag_torch.ops import ragged_attention as ra
+
+    b, t, h, d = MBERT_SHAPE
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    q, k, v, do = (torch.randn((b, t, h, d), generator=g, device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    t0 = time.perf_counter()
+    _build.load(ra.LIBRARY)
+    load_s = time.perf_counter() - t0
+    launches0 = (ra._forward_cuda.launches, ra._backward_cuda.launches)
+    ragged = torch.tensor(_mbert_lengths(b, t, SEED), dtype=torch.int32, device=dev)
+    full = torch.full((b,), t, dtype=torch.int32, device=dev)
+    rows = [_mbert_row(q, k, v, do, lens, window, what)
+            for what, lens in (("traffic", ragged), ("all_real", full))
+            for window in (None, 64)]
+    # the library at full length, no mask: 4 B H T^2 D operations forward,
+    # 2.5x that forward and backward (5 products)
+    qh, kh, vh, doh = (x.transpose(1, 2) for x in (q, k, v, do))
+    xs = [x.detach().requires_grad_(True) for x in (qh, kh, vh)]
+
+    def dense_step():
+        torch.autograd.grad(F.scaled_dot_product_attention(*xs), xs, doh)
+
+    dense_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), iters=5, batch=10)
+    dense_step_ms = cuda_ms(dense_step, iters=5, batch=5)
+    ops = 4.0 * b * h * t * t * d
+    library = {"forward_ms": dense_fwd, "forward_tflops": ops / dense_fwd / 1e9,
+               "backward_ms": dense_step_ms - dense_fwd,
+               "backward_tflops": 2.5 * ops / (dense_step_ms - dense_fwd) / 1e9}
+    full_global = rows[2]
+    ratio = {part: full_global[part]["tflops_on_visited"] / library[f"{part}_tflops"]
+             for part in ("forward", "backward")}
+    launches = (ra._forward_cuda.launches - launches0[0], ra._backward_cuda.launches - launches0[1])
+    runs = ra.device_runs(dev)
+    if min(launches) == 0 or min(runs["forward"], runs["backward"]) == 0:
+        raise AssertionError(f"ragged attention launched {launches}, ran {runs}")
+    del q, k, v, do, qh, kh, vh, doh, xs
+    torch.cuda.empty_cache()
+    train = _mbert_train_steps()
+    emit({"phase": "mbert_attn", "rows": rows, "library_full_length": library,
+          "rate_over_library_at_full_length": ratio,
+          "build_s": _build.build_seconds.get(ra.LIBRARY), "load_s": load_s,
+          "launches": {"forward": launches[0], "backward": launches[1]},
+          "device_runs": runs, "train_steps": train})
+    return {"ragged_fwd": launches[0] + train["launches"]["forward"],
+            "ragged_bwd": launches[1] + train["launches"]["backward"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     all_phases = ("build,kernels,serve,scale,ivf,host_ivf,train,scripts,rehearse,shard,tp,"
-                  "rerank_train")
+                  "mbert_attn,rerank_train")
     ap.add_argument("--phases", default=all_phases,
                     help=f"comma-separated subset of {all_phases}; rerank_train and "
                          f"scripts read what train writes")
@@ -4218,6 +4502,7 @@ def main() -> int:
                 "scripts": lambda _work: phase_scripts(trained, hnsw),
                 "rehearse": lambda work: phase_rehearse(work, corpus.result()[0]),
                 "shard": phase_shard, "tp": phase_tp,
+                "mbert_attn": lambda _work: phase_mbert_attn(),
                 "rerank_train": lambda _work: phase_rerank_train(trained, corpus.path)}
         for name, run in runs.items():
             if name in phases:

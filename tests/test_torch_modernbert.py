@@ -31,6 +31,7 @@ from tpu_rag_torch.models.biencoder import MODEL_SPECS, BiEncoder, init_params, 
 from tpu_rag_torch.models.hf_export import save_bert
 from tpu_rag_torch.models.hf_import import load_bert_params, spec_from_hf_config
 from tpu_rag_torch.models.tokenizer import load_tokenizer
+from tpu_rag_torch.ops import ragged_attention as ra
 from tpu_rag_torch.reference import modernbert as ref
 from tpu_rag_torch.scripts import train_semantic
 from tpu_rag_torch.train.contrastive import ContrastiveTrainer, info_nce_loss
@@ -114,7 +115,7 @@ def test_band_equals_dense_masked_attention(t):
     keep = ((pos[:, None] - pos[None, :]).abs() <= w)[None, None] & (mask > 0)[:, None, None, :]
     dense = F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
                                            v.transpose(1, 2), attn_mask=keep).transpose(1, 2)
-    band = mb.band_attention(q, k, v, mb.band_bias(mask, w, torch.float32), w)
+    band = ra.band_attention(q, k, v, ra.band_bias(mask, w, torch.float32), w)
     real = mask.bool()
     torch.testing.assert_close(band[real], dense[real], rtol=0, atol=1e-6)
     r = torch.randn(band.shape, generator=g) * mask[:, :, None, None]

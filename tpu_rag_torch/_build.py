@@ -6,9 +6,11 @@ a plain C interface (no PyTorch headers, so a build takes seconds):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o build/tpu_rag_torch/lib<name>-<hash>.so csrc/<name>.cu
 
-All sources build at once, one nvcc process each.  The file name carries a
-hash of the sources and flags, so an edited kernel is rebuilt and a stale
-library is never loaded.  The libraries are loaded with ctypes: pointers and
+`build_all()` builds every source at once, one nvcc process each;
+`load(name)` builds only the library it loads, and `prebuild(name)` starts
+that build in a background thread, so that it overlaps a caller's set-up.
+The file name carries a hash of the sources and flags, so an edited kernel
+is rebuilt and a stale library is never loaded.  The libraries are loaded with ctypes: pointers and
 the CUDA stream pass as c_void_p, and every C entry returns
 cudaGetLastError(), which `check` turns into an exception.
 """
@@ -21,6 +23,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -30,8 +33,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
-#: the sources the last build_all() that compiled anything compiled
+#: the sources the last build that compiled anything compiled
 last_build: dict[str, list[str]] = {"compiled": []}
+#: each source's nvcc seconds, where this process compiled it
+build_seconds: dict[str, float] = {}
+_prebuilt: set[str] = set()
 
 
 def _nvcc() -> str:
@@ -53,8 +59,13 @@ def _library_path(src: Path) -> Path:
 def build_all() -> dict[str, Path]:
     """Compile every csrc/*.cu without an up-to-date library, all in
     parallel; raise with nvcc's output if any fails.  Returns name -> path."""
+    return _compile(sorted(CSRC.glob("*.cu")))
+
+
+def _compile(sources: list[Path]) -> dict[str, Path]:
+    """build_all() of these sources."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    sources = sorted(CSRC.glob("*.cu"))
+    t0 = time.perf_counter()
     jobs = []
     for src in sources:
         out = _library_path(src)
@@ -68,6 +79,7 @@ def build_all() -> dict[str, Path]:
     errors = []
     for src, out, tmp, proc in jobs:
         log, _ = proc.communicate()
+        build_seconds[src.stem] = time.perf_counter() - t0
         out.with_suffix(".log").write_text(log)
         if proc.returncode != 0:
             errors.append(f"--- {src.name} (exit {proc.returncode})\n{log}")
@@ -81,12 +93,29 @@ def build_all() -> dict[str, Path]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu (building all kernels first)."""
+    """The loaded library of csrc/<name>.cu (built first where it is not
+    up to date)."""
     with _lock:
         if name not in _libs:
-            for stem, path in build_all().items():
-                _libs.setdefault(stem, ctypes.CDLL(str(path)))
+            _libs[name] = ctypes.CDLL(str(_compile([CSRC / f"{name}.cu"])[name]))
         return _libs[name]
+
+
+def prebuild(name: str) -> None:
+    """Start load(name) in a background thread, once a process; a later
+    load() waits for it, and repeats and reports a build that failed."""
+    with _lock:
+        if name in _libs or name in _prebuilt:
+            return
+        _prebuilt.add(name)
+
+    def run() -> None:
+        try:
+            load(name)
+        except Exception:  # noqa: BLE001 - load() in the caller reports it
+            pass
+
+    threading.Thread(target=run, name=f"build-{name}", daemon=True).start()
 
 
 def function(lib_name: str, fn_name: str, argtypes: list):

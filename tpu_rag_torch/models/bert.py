@@ -61,7 +61,11 @@ class BertSpec:
         table of `positions` (at least 128)."""
         return replace(self, vocab_size=vocab_size, max_len=max(positions, 128))
 
-    def record_attention(self, *masks) -> None:
+    def prepare(self, device, compute_dtype) -> None:
+        """Where the trunk will run: BERT's kernels take bf16 and f32 and
+        build at their first call."""
+
+    def record_attention(self, *masks, device=None) -> None:
         """A training step's attention counters: BERT keeps none."""
 
     def hf_names(self) -> dict[str, str]:

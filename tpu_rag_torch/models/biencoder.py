@@ -131,6 +131,7 @@ class BiEncoder:
         self.batch = batch
         self.compute_dtype = (compute_dtype(self.device) if dtype == "bfloat16"
                               else torch.float32)
+        self.spec.prepare(self.device, self.compute_dtype)
         self.seq_len = min(seq_len, self.spec.max_len)
         self.tokenizer = load_tokenizer(tokenizer_path, vocab_size=self.spec.vocab_size)
         tok_vocab = int(getattr(self.tokenizer, "vocab_size", self.spec.vocab_size))

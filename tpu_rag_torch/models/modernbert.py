@@ -22,14 +22,18 @@ compute-dtype output), as mixed-precision training keeps it.  State-dict
 names are those of transformers' ModernBertModel, so a checkpoint's names
 map one to one (models/hf_import.py).
 
-Attention never builds a T x T score matrix on a local layer:
-`band_attention` cuts the queries into blocks of w = window // 2 rows and
-scores each block against the 3w keys its rows can reach (64 query rows
-against 192 keys at ModernBERT's window of 128), so its work and memory
-are O(T x window).  Global layers take `F.scaled_dot_product_attention`
-under an additive key mask, whose fused kernels keep O(T) memory a row,
-forward and backward.  Both are plain device ops of static shape: the
-trainer's CUDA graph captures them.
+Both kinds of attention are ops/ragged_attention.py's, given each row's
+real length (the mask's row sums, on the device: the masks are real
+prefixes, as the tokenizers and the sampler pad at the end) and the
+layer's window (w = window // 2 on a local layer, none on a global one).
+On the card its hand-written kernels score only the tiles of real pairs:
+no tile past a row's end, and on a local layer only the 64-key chunks
+within w of a warp's rows; forward and backward are kernels of static
+launch shape, so the trainer's CUDA graph captures them.  On the CPU it
+runs the plain version: `band_attention` (queries in blocks of w rows,
+each against the 3w keys its rows can reach: O(T x window) work and
+memory) and `F.scaled_dot_product_attention` under an additive key mask
+on global layers.  Either way the padded query rows come out as zeros.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from tpu_rag_torch.ops import ragged_attention as ra
 from tpu_rag_torch.utils.metrics import GLOBAL_METRICS
 from tpu_rag_torch.utils.timing import span
 
@@ -82,9 +87,22 @@ class ModernBertSpec:
                              f"{self.vocab_size} ids and {self.max_len} positions")
         return self
 
-    def record_attention(self, *masks) -> None:
-        """A training step's attention counters (record_attention)."""
-        record_attention(self, *masks)
+    def prepare(self, device: torch.device | str, compute_dtype: torch.dtype) -> None:
+        """Where the trunk will run: on the card its attention kernels take
+        bf16 only (ValueError for another compute dtype; an f32 forward
+        runs on the CPU), and their build starts there in a background
+        thread, so that it overlaps the caller's set-up."""
+        if torch.device(device).type == "cuda":
+            if compute_dtype != torch.bfloat16:
+                raise ValueError(f"ModernBERT's attention on the card takes bf16 only "
+                                 f"(ops/ragged_attention.py), not {compute_dtype}: run it in "
+                                 f"bf16, or in f32 on the CPU")
+            ra.prepare()
+
+    def record_attention(self, *masks, device: torch.device | str = "cpu") -> None:
+        """A training step's attention counters (record_attention), as the
+        attention on `device` scores them."""
+        record_attention(self, *masks, tiled=torch.device(device).type == "cuda")
 
     def hf_names(self) -> dict[str, str]:
         """encoder() state-dict name -> HF ModernBertModel name: the same."""
@@ -159,61 +177,6 @@ def _rotate(x: torch.Tensor, cos: torch.Tensor, signed_sin: torch.Tensor) -> tor
     return torch.addcmul(x * cos[None, :, None, :], halves, signed_sin[None, :, None, :])
 
 
-def key_bias(mask: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """(B, 1, 1, T) additive mask of the global layers: 0 at real keys,
-    finfo(dtype).min at padding (transformers' fill)."""
-    keep = (mask > 0)[:, None, None, :]
-    return torch.zeros(keep.shape, dtype=dtype, device=mask.device).masked_fill(
-        ~keep, torch.finfo(dtype).min)
-
-
-def band_bias(mask: torch.Tensor, w: int, dtype: torch.dtype) -> torch.Tensor:
-    """(B * nblk, 1, w, 3w) additive mask of band_attention: block n holds
-    query positions n*w .. n*w + w - 1 and keys n*w - w .. n*w + 2w - 1; a
-    pair is kept where |i - j| <= w and the key is a real token of the row
-    (inside it, mask > 0)."""
-    b, t = mask.shape
-    nblk = -(-t // w)
-    real = F.pad((mask > 0).to(torch.int8), (w, nblk * w - t + w)).unfold(1, 3 * w, w) > 0
-    rows = torch.arange(w, device=mask.device)[:, None]
-    keys = torch.arange(3 * w, device=mask.device)[None, :] - w
-    keep = real[:, :, None, :] & ((rows - keys).abs() <= w)
-    return torch.zeros(keep.shape, dtype=dtype, device=mask.device).masked_fill(
-        ~keep, torch.finfo(dtype).min).view(b * nblk, 1, w, 3 * w)
-
-
-def band_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
-                   w: int) -> torch.Tensor:
-    """Local attention of (B, T, H, D) q, k, v under band_bias's (B * nblk,
-    1, w, 3w) mask: each block of w queries against its 3w keys.  The batch
-    is taken as one sequence of B * nblk blocks (rows padded to whole
-    blocks), so the blocks' queries are a view of q and the windows'
-    keys a view of k, unfolded with one zero block before the first and
-    after the last; a window reaching into the next or previous row, or
-    past either end, holds keys that band_bias masks."""
-    b, t, h, d = q.shape
-    nblk = -(-t // w)
-    if nblk * w != t:
-        q, k, v = (F.pad(x, (0, 0, 0, 0, 0, nblk * w - t)) for x in (q, k, v))
-
-    def windows(x: torch.Tensor) -> torch.Tensor:
-        x = F.pad(x.reshape(b * nblk * w, h, d), (0, 0, 0, 0, w, w))
-        return x.unfold(0, 3 * w, w).transpose(2, 3)             # (B * nblk, H, 3w, D)
-
-    qb = q.reshape(b * nblk, w, h, d).transpose(1, 2)
-    o = F.scaled_dot_product_attention(qb, windows(k), windows(v), attn_mask=bias)
-    return o.transpose(1, 2).reshape(b, nblk * w, h, d)[:, :t]
-
-
-def global_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     bias: torch.Tensor) -> torch.Tensor:
-    """Attention of (B, T, H, D) q, k, v over every key under key_bias's
-    (B, 1, 1, T) mask."""
-    o = F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                                       attn_mask=bias)
-    return o.transpose(1, 2)
-
-
 class ModernBertLayer(nn.Module):
     def __init__(self, spec: ModernBertSpec, index: int) -> None:
         super().__init__()
@@ -229,10 +192,10 @@ class ModernBertLayer(nn.Module):
                                   "Wo": nn.Linear(spec.ffn, h, bias=False)})
 
     def forward(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
-                bias: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+                lengths: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         """x (B, T, hidden) f32 -> the next layer's input; cos and signed sin
-        at this layer's RoPE base (rope()), bias: key_bias (global) or
-        band_bias (local)."""
+        at this layer's RoPE base (rope()); lengths (B,) int32, the rows'
+        real lengths on x's device."""
         b, t, hid = x.shape
         h = x.to(dtype) if self.attn_norm is None else _norm(x, self.attn_norm, dtype)
         # one product a row block of Wqkv (and of Wi below): each output is
@@ -243,10 +206,10 @@ class ModernBertLayer(nn.Module):
         q, k = _rotate(q, cos, sin), _rotate(k, cos, sin)
         if self.is_global:
             with span("modernbert.attn_global"):
-                o = global_attention(q, k, v, bias)
+                o = ra.ragged_attention(q, k, v, lengths)
         else:
             with span("modernbert.attn_local"):
-                o = band_attention(q, k, v, bias, self.half_window)
+                o = ra.ragged_attention(q, k, v, lengths, self.half_window)
         x = x + _linear(o.reshape(b, t, hid), self.attn["Wo"])
         m = _norm(x, self.mlp_norm, dtype)
         wi = self.mlp["Wi"].weight.to(m.device, dtype)
@@ -277,19 +240,24 @@ class ModernBertEncoder(nn.Module):
         self.final_norm = nn.LayerNorm(spec.hidden, eps=spec.ln_eps, bias=False)
 
     def forward(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """mask: (B, T), each row real on a prefix and pad after it (checked
+        where it lies on the CPU; on the card a check would read it back)."""
         spec, dt = self.spec, self.compute_dtype
         t = ids.shape[1]
         if t > spec.max_len:
             raise ValueError(f"{t} positions: the model was trained for {spec.max_len}")
+        if mask.device.type == "cpu" and not ra.is_prefix(mask):
+            raise ValueError("ModernBERT's attention takes masks that are real on a prefix "
+                             "of each row and pad after it")
         table = self.embeddings["tok_embeddings"].weight
         x = _norm(F.embedding(ids, table.to(ids.device)), self.embeddings["norm"], torch.float32)
         hd = spec.hidden // spec.heads
         ropes = {g: rope(t, hd, spec.global_rope_theta if g else spec.local_rope_theta,
                          ids.device, dt) for g in (True, False)}
-        biases = {True: key_bias(mask, dt), False: band_bias(mask, spec.window // 2, dt)}
+        lengths = ra.lengths_of(mask.to(ids.device))
         remat = self.remat and torch.is_grad_enabled()
         for layer in self.layers:
-            args = (x, *ropes[layer.is_global], biases[layer.is_global], dt)
+            args = (x, *ropes[layer.is_global], lengths, dt)
             # no op draws a random number, so the RNG state need not be
             # saved for the recompute (and reading it fails under capture)
             x = (checkpoint(layer, *args, use_reentrant=False, preserve_rng_state=False)
@@ -297,26 +265,34 @@ class ModernBertEncoder(nn.Module):
         return _norm(x, self.final_norm, dt)
 
 
-def attention_counts(spec: ModernBertSpec, lengths, t: int) -> tuple[int, int, int]:
+def attention_counts(spec: ModernBertSpec, lengths, t: int, *,
+                     tiled: bool = False) -> tuple[int, int, int]:
     """What one forward's attention computes over rows of these real
     lengths padded to t, counted in query x key pairs summed over layers
-    (heads not counted): the local layers' score slots (B x the padded
-    blocks' rows x 3w), the global layers' (B x T x T), and the pairs that
-    are inside the window (local) and between real tokens."""
+    (heads not counted): the local layers' score slots, the global
+    layers', and the pairs that are inside the window (local) and between
+    real tokens.  The slots are those the path scores: with tiled, the
+    card's kernels' visited tiles (ops/ragged_attention.visited_slots);
+    else the plain version's (B x the padded blocks' rows x 3w on a local
+    layer, B x T x T on a global one)."""
     w = spec.window // 2
     n_global = sum(spec.is_global(i) for i in range(spec.layers))
     n_local = spec.layers - n_global
     lens = np.asarray(lengths, np.int64)
     rows = len(lens)
-    local = n_local * rows * (-(-t // w) * w) * 3 * w
-    glob = n_global * rows * t * t
+    if tiled:
+        local = n_local * ra.visited_slots(lens, t, w)
+        glob = n_global * ra.visited_slots(lens, t, None)
+    else:
+        local = n_local * rows * (-(-t // w) * w) * 3 * w
+        glob = n_global * rows * t * t
     out_of_band = np.maximum(lens - w - 1, 0)
     out_of_band = out_of_band * (out_of_band + 1)       # pairs with |i - j| > w
     real = n_local * int((lens * lens - out_of_band).sum()) + n_global * int((lens * lens).sum())
     return local, glob, real
 
 
-def record_attention(spec: ModernBertSpec, *masks) -> None:
+def record_attention(spec: ModernBertSpec, *masks, tiled: bool = False) -> None:
     """Add attention_counts of (B, T) host masks (numpy) to GLOBAL_METRICS:
     attn_local_key_slots_total, attn_global_key_slots_total and
     attn_real_pairs_total.  Counted on the host from the batch, so a step
@@ -324,7 +300,7 @@ def record_attention(spec: ModernBertSpec, *masks) -> None:
     one does."""
     for m in masks:
         m = np.asarray(m)
-        local, glob, real = attention_counts(spec, (m > 0).sum(axis=1), m.shape[1])
+        local, glob, real = attention_counts(spec, (m > 0).sum(axis=1), m.shape[1], tiled=tiled)
         GLOBAL_METRICS.inc("attn_local_key_slots_total", local)
         GLOBAL_METRICS.inc("attn_global_key_slots_total", glob)
         GLOBAL_METRICS.inc("attn_real_pairs_total", real)

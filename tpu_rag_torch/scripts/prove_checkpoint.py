@@ -17,7 +17,9 @@ HF-format weight directory, one command runs, and gates on, two checks:
   python -m tpu_rag_torch.scripts.prove_checkpoint --embedding-weights DIR \\
       [--rerank-weights DIR] [--tokenizer vocab.txt] [--k 10] [--device cuda]
 
-Prints ONE JSON line; exit 0 iff every executed gate passed.
+Prints ONE JSON line; exit 0 iff every executed gate passed.  The proof's
+forward is f32, so a ModernBERT checkpoint is proven with --device cpu: its
+attention on the card takes bf16 only, and the card is refused (exit 2).
 """
 
 from __future__ import annotations
@@ -112,6 +114,7 @@ def main(argv: list[str] | None = None) -> int:
     args = ap.parse_args(argv)
 
     import numpy as np
+    import torch
 
     from tpu_rag_torch.device import resolve
     from tpu_rag_torch.index import FlatIndex
@@ -121,6 +124,10 @@ def main(argv: list[str] | None = None) -> int:
     device = resolve(args.device)
     spec = (spec_from_hf_config(args.embedding_weights)
             or spec_for_model(args.embedding_weights))
+    try:
+        spec.prepare(device, torch.float32)
+    except ValueError as e:
+        ap.error(str(e))
     tok_path = args.tokenizer
     if not tok_path:
         cand = os.path.join(args.embedding_weights, "vocab.txt")

@@ -8,10 +8,12 @@ a ("data", "model") mesh; port of tpu_rag/train/contrastive.py.
   #5 has no backward, nor has tpu_rag's Pallas kernel, whose trainer keeps
   XLA's attention), each layer recomputed in the backward pass; forward in
   `compute_dtype` (bf16 on the card).  A ModernBertSpec trains
-  `ModernBertEncoder(spec, remat=True)` the same way (its banded and fused
-  attentions have backwards), on one device only: the tensor-parallel rules
-  are BERT's.  Each step adds the spec's attention counters
-  (spec.record_attention, from the batch's host masks), replayed steps too.
+  `ModernBertEncoder(spec, remat=True)` the same way (its attention,
+  ops/ragged_attention.py, has a backward: kernels on the card), on one
+  device only: the tensor-parallel rules are BERT's.  Each step adds the
+  spec's attention counters (spec.record_attention, from the batch's host
+  masks, counting the slots the attention on the trainer's device
+  scores), replayed steps too.
 - `torch.optim.AdamW` at `optax.adamw`'s defaults: betas 0.9/0.999, eps
   1e-8 and weight decay 1e-4 on every parameter (optax has no mask, so
   LayerNorm scales and biases decay too).  The schedule's value is written
@@ -158,6 +160,7 @@ class ContrastiveTrainer:
                              f"holds BERT's")
         self._groups = [tuple(g) for g in mesh.model_groups()] if mesh is not None else []
         self.device = self._groups[0][0] if self._groups else resolve(device)
+        spec.prepare(self.device, compute_dtype)
         # one CUDA device, no mesh: the step may be captured (module
         # docstring); its eager steps run on this side stream
         self._side = (torch.cuda.Stream(self.device)
@@ -244,7 +247,7 @@ class ContrastiveTrainer:
                     loss = self._eager_step(batch)
                 current.wait_stream(self._side)
                 self._warmed = key
-            self.spec.record_attention(batch["q_mask"], batch["d_mask"])
+            self.spec.record_attention(batch["q_mask"], batch["d_mask"], device=self.device)
             self.step += 1
             with span("train.readback"):
                 return float(loss.detach())

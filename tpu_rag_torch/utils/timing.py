@@ -30,8 +30,10 @@ Counters go to utils/metrics.py's GLOBAL_METRICS:
   train_graph_replays_total   steps replayed from a graph, the capturing one too
   attn_local_key_slots_total, attn_global_key_slots_total, attn_real_pairs_total
                    a ModernBERT step's query x key score slots on local and
-                   global layers and the pairs among them inside the window
-                   and between real tokens, added by ContrastiveTrainer from
+                   global layers, as the attention on the trainer's device
+                   scores them (on the card the forward kernel's visited
+                   tiles), and the pairs among them inside the window and
+                   between real tokens, added by ContrastiveTrainer from
                    the batch's host masks on every step, replayed ones too
 """
 
