@@ -92,15 +92,18 @@ def main() -> int:
 def _list_sweep(cs, ip, tk, quantize_int8_rows, vec, scale, tags, centroids, g) -> int:
     import torch
 
+    from tpu_rag_torch.native.binding import layout
+
     dev, d, cap = vec.device, vec.shape[2], vec.shape[1]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     k = cs.IVF_KSCAN
     list_plan = ip._list_plan
+    lay = layout()
     out = {}
     lists_bf = vec.to(torch.bfloat16).mul_(1e-3)
     ones = torch.ones_like(scale)
     for dtype, lv, sv in ((torch.int8, vec, scale), (torch.bfloat16, lists_bf, ones)):
-        elt = lv.element_size()
+        code = tk._DTYPE_CODE[dtype]
         for nq in (1, 3):
             qf = torch.randn((nq, d), generator=g, device=dev)
             lists = ip._top_lists(qf, centroids, cs.IVF_NPROBE)
@@ -111,14 +114,11 @@ def _list_sweep(cs, ip, tk, quantize_int8_rows, vec, scale, tags, centroids, g) 
             plans = {default}
             for split in (1, 2, 4):
                 for per_sm in (1, 2, 3):
-                    budget = min(232_448, 233_472 // per_sm - 1024)
                     for rows in (64, 128):
-                        fixed = ip._list_smem(elt, d, k, 0, rows)
-                        stage = ip._list_smem(elt, d, k, 1, rows) - fixed
-                        stages = min(8, max(0, budget - fixed) // stage)
+                        stages = lay.tr_list_fit(code, d, k, rows, per_sm)
                         if stages >= 2:
                             plans.add(ip.ListPlan(split, rows, stages, nq * 64 * split, per_sm,
-                                                  fixed + stages * stage))
+                                                  lay.tr_list_smem(code, d, k, stages, rows)))
             name = f"per_list[{str(dtype)[6:]},q={nq}]"
             res = []
             for plan in sorted(plans):
@@ -143,12 +143,14 @@ def _list_sweep(cs, ip, tk, quantize_int8_rows, vec, scale, tags, centroids, g) 
 def _f32_list_sweep(cs, ip, g) -> int:
     import torch
 
+    from tpu_rag_torch.native.binding import layout
     from tpu_rag_torch.ops.topk import PAD_TAG
 
     dev = g.device
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     nlist, cap, nprobe, k = 256, 1024, 16, 40
     list_plan = ip._list_plan
+    lay = layout()
     out = {}
     for d in (384, 768):
         vec = torch.randn((nlist, cap, d), generator=g, device=dev)
@@ -157,8 +159,6 @@ def _f32_list_sweep(cs, ip, g) -> int:
         ns = torch.randint(0, 4, (nlist, cap), generator=g, device=dev, dtype=torch.int32)
         ns[:, -100:] = PAD_TAG
         centroids = torch.randn((nlist, d), generator=g, device=dev)
-        fixed = ip._f32_list_smem(d, k, 0)
-        stage = ip._f32_list_smem(d, k, 1) - fixed
         for nq in (1, 3):
             q = torch.randn((nq, d), generator=g, device=dev)
             q /= q.norm(dim=1, keepdim=True)
@@ -167,11 +167,10 @@ def _f32_list_sweep(cs, ip, g) -> int:
             plans = {default}
             for split in (1, 2, 4, 8):
                 for per_sm in (1, 2, 3):
-                    budget = min(232_448, 233_472 // per_sm - 1024)
-                    stages = min(8, max(0, budget - fixed) // stage)
+                    stages = lay.tr_list_fit(0, d, k, 128, per_sm)
                     if stages >= 2:
                         plans.add(ip.ListPlan(split, 128, stages, nq * nprobe * split, per_sm,
-                                              fixed + stages * stage))
+                                              lay.tr_list_smem(0, d, k, stages, 128)))
             name = f"per_list[f32,q={nq},d={d}]"
             res = []
             for plan in sorted(plans):

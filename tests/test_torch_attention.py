@@ -1,7 +1,8 @@
 """Parity of tpu_rag_torch.ops.attention.fused_mha with tpu_rag's Pallas
 kernel (interpret mode) on the CPU, in f32: every row — real, padded query
 and all-pad — within 1e-5 (same formula, summation order differs); and the
-bf16 kernel's shared-memory layout, mirrored in Python."""
+bf16 kernel's shared-memory layout (csrc/layout.h, through native/layout.cc)
+against the layout written out."""
 
 import math
 
@@ -12,6 +13,7 @@ import torch
 import jax.numpy as jnp
 
 from tpu_rag.ops.attention import fused_mha as jax_fused_mha
+from tpu_rag_torch.native.binding import layout
 from tpu_rag_torch.ops import attention as att
 from tpu_rag_torch.ops.attention import fused_mha
 
@@ -55,20 +57,22 @@ def test_fused_mha_bf16_output_dtype():
 
 @pytest.mark.parametrize("d", [32, 64])
 def test_bf16_block_fits_two_blocks_an_sm_at_every_t(d):
-    """mha_tc_kernel<D>'s layout (_tc_smem, csrc/attention.cu's
+    """mha_tc_kernel<D>'s layout (csrc/layout.h's tc_stages and
     tc_smem_bytes): the 128-row Q tile and a ring of 64-key K and V chunks
     in rows of D + 8 bf16, plus a flag a key of T's chunks.  The ring holds
-    T's chunks up to a depth that leaves room for two blocks an SM: at D 32
-    every T <= 512 whole, at D 64 five chunks (T 512's whole K and V took
-    167,936 bytes, one block an SM)."""
+    T's chunks up to a depth that leaves room for two blocks an SM (233,472
+    bytes, each block reserving 1,024 more): at D 32 every T <= 512 whole,
+    at D 64 five chunks (T 512's whole K and V took 167,936 bytes, one
+    block an SM)."""
+    lay = layout()
     for t in range(1, att._T_MAX + 1):
-        stages = att._tc_stages(d, t)
+        stages = lay.tr_mha_stages(d, t)
         chunks = -(-t // 64)
         assert stages == (chunks if d == 32 else min(chunks, 5))
-        smem = att._tc_smem(d, t)
+        smem = lay.tr_mha_smem(1, d, t)
         assert smem == 2 * (128 + 2 * stages * 64) * (d + 8) + chunks * 64 * 4
-        assert att._blocks_per_sm(smem) >= 2
-    assert att._tc_smem(64, 512) == 112_640
+        assert 233_472 // (smem + 1024) >= 2
+    assert lay.tr_mha_smem(1, 64, 512) == 112_640
 
 
 def _tc_order(q, k, v, mask):

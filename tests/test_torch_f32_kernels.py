@@ -5,8 +5,9 @@ probe_f32_kernel and batched_bucket_kernel (#6 and #7 on f32 lists,
 csrc/ivf_probe.cu).
 
 The CUDA kernels run only on the card (chip_smoke.py holds them against
-their plain versions there).  Here the Python mirrors of their launch
-geometry are checked: every f32 #7 plan at d 384 and 768 fits one block's
+their plain versions there).  Here their launch geometry is checked, with
+the kernels' own layouts (csrc/layout.h, through native/layout.cc) against
+the layouts written out: every f32 #7 plan at d 384 and 768 fits one block's
 232,448 bytes and walks every live (union slot, bucket) item and every
 query once; every query row of the attention's tiles is owned by one thread of
 one block, and every key by one ring chunk.  The attention kernel's order
@@ -35,6 +36,7 @@ import jax.numpy as jnp
 from tpu_rag.ops import ivf_probe as jax_probe
 from tpu_rag.ops.attention import fused_mha as jax_fused_mha
 from tpu_rag.ops.topk import fused_matmul_topk as jax_fused_topk
+from tpu_rag_torch.native.binding import layout
 from tpu_rag_torch.ops import attention as att
 from tpu_rag_torch.ops import ivf_probe as ip
 from tpu_rag_torch.ops import topk as tk
@@ -42,7 +44,10 @@ from tpu_rag_torch.ops.topk import BUCKET, PAD_TAG
 
 SMS = 132           # H100 SXM
 SMEM_MAX = 232_448  # dynamic shared memory of one H100 block
+STAGES_MAX = 8      # ring stages of a probe block
 NB = 8              # cap 1024: buckets a list
+F32_ROWS = 128      # query rows of an mha_f32_kernel block
+F32_KEYS = 64       # keys of its ring chunk
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -59,22 +64,22 @@ def _one_thread():
 def _check_f32_plan(d: int, nq: int, u_max: int = 2048) -> None:
     plan = ip._bucket_plan(u_max, NB, nq, d, torch.float32, SMS)
     assert plan.qc in (16, 32, 64) and plan.rows == BUCKET
-    assert 2 <= plan.stages <= ip._BUCKET_STAGES_MAX
+    assert 2 <= plan.stages <= STAGES_MAX
     # the layout written out: slack, queries in rows of whole boxes + 4
     # floats, one-box stages with ns and canon, the winner tables (4 row
     # tiles of 32 rows), the mbarriers
     a1024 = lambda x: -(-x // 1024) * 1024  # noqa: E731
     ld = -(-d // 32) * 32 + 4
     assert ld % 32 == 4                      # four queries of a quarter warp: distinct banks
-    want = (1024 + a1024(plan.qc * ld * 4) + plan.stages * a1024(128 * 128 + 2 * 128 * 4)
-            + 2 * 4 * plan.qc * 4 * 8 + 8 * 8)
-    assert plan.smem == want == ip._f32_bucket_smem(d, plan.qc, plan.stages) <= SMEM_MAX
-    assert plan.stages == ip._BUCKET_STAGES_MAX or ip._f32_bucket_smem(
-        d, plan.qc, plan.stages + 1) > SMEM_MAX
+    smem_of = lambda qc, stages: (1024 + a1024(qc * ld * 4)  # noqa: E731
+                                  + stages * a1024(128 * 128 + 2 * 128 * 4)
+                                  + 2 * 4 * qc * 4 * 8 + 8 * 8)
+    assert plan.smem == smem_of(plan.qc, plan.stages) <= SMEM_MAX
+    assert plan.smem == layout().tr_bucket_smem(0, d, plan.qc, plan.stages)
+    assert plan.stages == STAGES_MAX or smem_of(plan.qc, plan.stages + 1) > SMEM_MAX
     # the chunk covers nq (at most 64) unless two stages did not fit beside it
     qc_want = min(64, max(16, 1 << (nq - 1).bit_length()))
-    assert plan.qc == qc_want or (plan.qc < qc_want and ip._f32_bucket_smem(
-        d, 2 * plan.qc, 2) > SMEM_MAX)
+    assert plan.qc == qc_want or (plan.qc < qc_want and smem_of(2 * plan.qc, 2) > SMEM_MAX)
     # a wave of blocks for each query chunk (the grid's y), each chunk's
     # blocks walking its live items
     chunks = -(-nq // plan.qc)
@@ -130,7 +135,7 @@ def test_f32_bucket_plan_at_the_kernel_rows():
 def _f32_tiles(t: int) -> list[tuple[int, int]]:
     """The query rows [begin, end) of each block of one head in
     mha_f32_kernel's grid: tiles of 128 rows, the last cut at T."""
-    return [(r, min(r + att._F32_ROWS, t)) for r in range(0, t, att._F32_ROWS)]
+    return [(r, min(r + F32_ROWS, t)) for r in range(0, t, F32_ROWS)]
 
 
 @pytest.mark.parametrize("t", [1, 127, 128, 160, 512])
@@ -138,14 +143,14 @@ def test_f32_attention_tiles_cover_every_row_once(t):
     tiles = _f32_tiles(t)
     rows = [r for begin, end in tiles for r in range(begin, end)]
     assert rows == list(range(t))
-    assert len(tiles) == -(-t // att._F32_ROWS) and (t > 128 or len(tiles) == 1)
+    assert len(tiles) == -(-t // F32_ROWS) and (t > 128 or len(tiles) == 1)
     # thread (ty, tx) = (tid // 8, tid % 8) of 256 owns rows 4 ty .. 4 ty + 3
     # of its tile: every row of a tile once
     owned = sorted(4 * (tid // 8) + i for tid in range(0, 256, 8) for i in range(4))
-    assert owned == list(range(att._F32_ROWS))
+    assert owned == list(range(F32_ROWS))
     # keys: 64-key chunks cut at T, each in ring stage c % 3
-    keys = [k for c in range(-(-t // att._F32_KEYS))
-            for k in range(c * att._F32_KEYS, min(t, (c + 1) * att._F32_KEYS))]
+    keys = [k for c in range(-(-t // F32_KEYS))
+            for k in range(c * F32_KEYS, min(t, (c + 1) * F32_KEYS))]
     assert keys == list(range(t))
 
 
@@ -153,7 +158,7 @@ def test_f32_attention_tiles_cover_every_row_once(t):
 def test_f32_attention_smem(d):
     ld = d + 4
     want = 4 * (128 * ld + 2 * 3 * 64 * ld + 64 * 132 + 3 * 64)
-    assert att._f32_smem(d) == want <= SMEM_MAX
+    assert layout().tr_mha_smem(0, d, 512) == want <= SMEM_MAX
     assert (ld * 4) % 128 == 16              # eight consecutive K rows: eight bank groups
     assert (132 * 4) % 128 == 16             # P^T rows likewise
 
@@ -171,8 +176,8 @@ def _mha_f32_order(q, k, v, mask):
         m = torch.full((b, h, r1 - r0, 1), -math.inf)
         ls = torch.zeros((b, h, r1 - r0, 1))
         acc = torch.zeros((b, h, r1 - r0, d))
-        for k0 in range(0, t, att._F32_KEYS):
-            k1 = min(t, k0 + att._F32_KEYS)
+        for k0 in range(0, t, F32_KEYS):
+            k1 = min(t, k0 + F32_KEYS)
             s = qh[:, :, r0:r1] @ kh[:, :, k0:k1].transpose(-1, -2) * c
             keep = (mask[:, k0:k1] > 0)[:, None, None, :]
             s = torch.where(keep, s, torch.full_like(s, -1e30))
@@ -344,14 +349,15 @@ def _check_bf16_scan_emulation(d: int, mode: str, nq: int, seed: int) -> None:
     plan (a chunk of max(8, nq) queries, blocks over contiguous 128-aligned
     ranges), on the plain bf16 arithmetic's scores, equals the plain
     version, ties across tiles and blocks to the lowest row."""
-    assert tk._box_route(torch.bfloat16)
+    assert layout().tr_box_route(tk._DTYPE_CODE[torch.bfloat16])
     x, q, ns, canon = (torch.from_numpy(a) for a in _scan_inputs(seed, d=d, nq=nq))
     x, q = x.to(torch.bfloat16), q.to(torch.bfloat16)
     k = 20
     kk = k if mode != "bucketed" else 0
     plan = tk._scan_plan(5000, d, nq, kk, torch.bfloat16, 4, mode)
     assert plan.qc == max(8, nq) and plan.blocks > 1
-    assert plan.smem == tk._box_scan_smem(2, d, plan.qc, kk, mode, plan.stages)
+    assert plan.smem == layout().tr_scan_smem(tk._DTYPE_CODE[torch.bfloat16], d, plan.qc, kk,
+                                              tk._SCAN_MODE[mode], plan.stages)
     got_sc, got_id = _f32_scan_emulation(q, x, ns, canon, -1, -1, k, mode, 4)
     if mode == "bucketed":
         want_sc, want_id = tk._bucketed_scan_plain(q, x, None, ns, canon, -1, -1)
@@ -556,7 +562,7 @@ def test_f32_list_plan_fills_the_card_at_the_kernel_rows():
             plan = ip._list_plan(nq, 16, 1024, d, torch.float32, 40, SMS)
             assert plan.split == split and plan.rows == BUCKET
             assert plan.blocks == nq * 16 * split <= SMS and plan.per_sm == 2
-            assert plan.smem == ip._f32_list_smem(d, 40, plan.stages)
+            assert plan.smem == layout().tr_list_smem(0, d, 40, plan.stages, BUCKET)
             assert 2 * (plan.smem + 1024) <= 233_472 < 2 * (plan.smem + 16384 + 1024)
     assert ip._list_plan(1, 16, 1024, 384, torch.float32, 40, SMS).stages == 6
     # more lists than SMs: one block a list, as many resident as there are

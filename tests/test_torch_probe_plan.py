@@ -4,6 +4,9 @@ and the semantics its selection must keep, checked on the CPU.
 The plan is a pure function of the shapes: every live (union slot, bucket)
 item is walked by exactly one block, the ranges are contiguous, and every
 plan fits one H100 block's shared memory with at least two ring stages.
+The plans' bytes, stage rows and warp tiling are csrc/layout.h's, the code
+the kernels size their shared memory with, built for the host by
+native/layout.cc; here they are held against the layouts written out.
 The plain version of #7 (_probe_batched_plain, the knock-out sequence of
 the TPU kernel) is held against a sort by (score desc, slot asc) per
 bucket: the order the kernel's shuffle merges and row-tile fold keep."""
@@ -16,11 +19,13 @@ import numpy as np
 import pytest
 import torch
 
+from tpu_rag_torch.native.binding import layout
 from tpu_rag_torch.ops import ivf_probe as ip
-from tpu_rag_torch.ops.topk import BUCKET, PAD_TAG
+from tpu_rag_torch.ops.topk import _DTYPE_CODE, BUCKET, PAD_TAG
 
 SMS = 132  # H100 SXM
 D_ALL = (64, 384, 768)
+STAGES_MAX = 8     # ring stages of a probe block
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -53,47 +58,63 @@ def test_live_items_covered_once_in_contiguous_ranges(dtype, nq):
             assert plan.blocks * chunks <= SMS or plan.blocks == 1
 
 
+a1024 = lambda x: -(-x // 1024) * 1024  # noqa: E731
+
+
+def _bucket_layout(elt: int, d: int, qc: int, stages: int, rows: int) -> int:
+    """pipe_bucket_kernel's layout written out: slack to align to 1024,
+    queries (inside the ring where int8 queries live in registers), stages
+    of 128-byte column blocks with three tag arrays, the two winner tables
+    (of the kernel's row tiles of warps), the mbarriers."""
+    kbytes = -(-d * elt // 32) * 32
+    wr = rows // (16 * layout().tr_bucket_mtw(qc // 8, rows))
+    queries = 0 if elt == 1 and kbytes <= 384 else a1024(qc * (kbytes + 16))
+    stage = a1024(-(-d * elt // 128) * 128 * rows + 12 * rows)
+    return 1024 + queries + stages * stage + 2 * wr * qc * 4 * 8 + 64
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
 @pytest.mark.parametrize("d", D_ALL)
 def test_every_plan_fits_with_two_stages(dtype, d):
     elt = 1 if dtype == torch.int8 else 2
+    rows_of = lambda qc: layout().tr_bucket_rows(_DTYPE_CODE[dtype], d, qc)  # noqa: E731
     for nq in range(1, 129):
         plan = ip._bucket_plan(2048, 31, nq, d, dtype, SMS)
         assert plan.qc in (8, 16, 32, 64)
-        assert 2 <= plan.stages <= ip._BUCKET_STAGES_MAX
-        assert plan.rows in (64, 128) and plan.rows == ip._bucket_rows(elt, d, plan.qc)
+        assert 2 <= plan.stages <= STAGES_MAX
+        assert plan.rows in (64, 128) and plan.rows == rows_of(plan.qc)
         assert plan.smem <= 232_448
-        assert plan.smem == ip._bucket_smem(elt, d, plan.qc, plan.stages, plan.rows)
-        # the same bytes as the layout written out: slack to align to 1024,
-        # queries (inside the ring where int8 queries live in registers),
-        # stages of 128-byte column blocks with three tag arrays, the two
-        # winner tables, the mbarriers
+        # the same bytes as the layout written out
+        assert plan.smem == _bucket_layout(elt, d, plan.qc, plan.stages, plan.rows)
         kbytes = -(-d * elt // 32) * 32
-        a1024 = lambda x: -(-x // 1024) * 1024  # noqa: E731
-        wr = plan.rows // (16 * ip._bucket_tiles(plan.qc, plan.rows)[0])
-        qreg = elt == 1 and kbytes <= 384
-        queries = 0 if qreg else a1024(plan.qc * (kbytes + 16))
         stage = a1024(-(-d * elt // 128) * 128 * plan.rows + 12 * plan.rows)
-        assert plan.smem == (1024 + queries + plan.stages * stage
-                             + 2 * wr * plan.qc * 4 * 8 + 64)
+        qreg = elt == 1 and kbytes <= 384
         assert not qreg or plan.qc * (kbytes + 16) <= stage     # the queries fit a stage
+        # a stage is a whole bucket where three such stages fit
+        assert (plan.rows == 128) == (_bucket_layout(elt, d, plan.qc, 3, 128) <= 232_448)
         # the chunk is the smallest power of two >= nq (at most 64) unless
         # two stages did not fit beside it
         want = min(64, max(8, 1 << (nq - 1).bit_length()))
-        assert plan.qc == want or (plan.qc < want and ip._bucket_smem(
-            elt, d, 2 * plan.qc, 2, ip._bucket_rows(elt, d, 2 * plan.qc)) > 232_448)
+        assert plan.qc == want or (plan.qc < want and _bucket_layout(
+            elt, d, 2 * plan.qc, 2, rows_of(2 * plan.qc)) > 232_448)
         # one more stage would not fit (or the ring is at its most)
-        assert plan.stages == ip._BUCKET_STAGES_MAX or ip._bucket_smem(
+        assert plan.stages == STAGES_MAX or _bucket_layout(
             elt, d, plan.qc, plan.stages + 1, plan.rows) > 232_448
 
 
 @pytest.mark.parametrize("qc", [8, 16, 32, 64])
 @pytest.mark.parametrize("rows", [64, 128])
 def test_warp_tiles_cover_a_stage(qc, rows):
-    mtw, wr, wq, ntw = ip._bucket_tiles(qc, rows)
+    """pipe_bucket_kernel's warp tiling (csrc/layout.h's bucket_mtw and
+    bucket_wr; the kernel's query groups kWQ = min(8 / kWR, nt) and n8
+    tiles a warp kNTW = nt / kWQ)."""
+    nt = qc // 8
+    mtw, wr = layout().tr_bucket_mtw(nt, rows), layout().tr_bucket_wr(nt, rows)
+    wq = min(8 // wr, nt)
+    ntw = nt // wq
     assert wr * 16 * mtw == rows                              # every row, once
     assert wq * ntw * 8 == qc                                 # every query, once
-    assert wr * wq <= ip._BUCKET_WARPS and ntw in (1, 2, 4)
+    assert wr * wq <= 8 and ntw in (1, 2, 4)
     if (qc, rows) == (64, 128):
         assert (16 * mtw, 8 * ntw) == (32, 32)                # the q 64 warp tile
 
@@ -111,11 +132,16 @@ def test_main_path_shapes_keep_whole_buckets_in_flight():
 
 
 def test_f32_plans_fit():
+    """batched_bucket_kernel's layout written out: slack, queries in rows of
+    whole boxes + 4 floats, one-box stages with ns and canon, the winner
+    tables (4 row tiles of 32 rows), the mbarriers."""
     for d in D_ALL:
         for nq in (1, 8, 16, 33, 64, 80):
             plan = ip._bucket_plan(2048, 31, nq, d, torch.float32, SMS)
-            assert plan.qc in (16, 32, 64) and 2 <= plan.stages <= ip._BUCKET_STAGES_MAX
-            assert plan.smem == ip._f32_bucket_smem(d, plan.qc, plan.stages) <= 232_448
+            assert plan.qc in (16, 32, 64) and 2 <= plan.stages <= STAGES_MAX
+            want = (1024 + a1024(plan.qc * (-(-d // 32) * 32 + 4) * 4)
+                    + plan.stages * a1024(128 * 128 + 2 * 128 * 4) + 2 * 4 * plan.qc * 4 * 8 + 64)
+            assert plan.smem == want <= 232_448
 
 
 def test_plan_rejects_what_cannot_fit():
@@ -246,13 +272,26 @@ def test_list_ranges_cover_each_list_once_in_slot_order(cap):
             assert plan.blocks == nq * nprobe * plan.split
 
 
+def _list_layout(elt: int, d: int, k: int, stages: int, rows: int) -> int:
+    """probe_split_kernel's layout written out (f32: probe_f32_kernel's,
+    whose stages are one 128-row box, its tags read from device memory, and
+    its query a whole number of boxes): slack, the stages, the query, the
+    warps' lists and the block's, the bit maps, the published scores, the
+    mbarriers."""
+    r128 = lambda x: -(-x // 128) * 128  # noqa: E731
+    if elt == 4:
+        stage, query = 128 * 128, r128(-(-d // 32) * 128)
+    else:
+        stage = a1024(-(-d * elt // 128) * rows * 128 + 12 * rows)
+        query = r128(-(-d * elt // 32) * 32)
+    return 1024 + stages * stage + query + r128(64 * k) + r128(8 * k) + 128 + 64 + 128
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8, torch.float32])
 @pytest.mark.parametrize("d", LIST_D_ALL)
 def test_every_list_plan_fits(dtype, d):
     elt = {torch.int8: 1, torch.bfloat16: 2, torch.float32: 4}[dtype]
     f32 = dtype == torch.float32
-    smem_of = ((lambda k, stages, rows: ip._f32_list_smem(d, k, stages)) if f32
-               else (lambda k, stages, rows: ip._list_smem(elt, d, k, stages, rows)))
     for k in LIST_K_ALL:
         for nq in (1, 2, 3):
             for nprobe in (8, 64):
@@ -262,23 +301,15 @@ def test_every_list_plan_fits(dtype, d):
                 assert plan.per_sm * 288 <= 2048                      # by threads too
                 assert plan.rows in (64, 128) and 2 <= plan.stages <= 8
                 assert not f32 or plan.rows == 128                    # one-box stages
-                assert plan.smem == smem_of(k, plan.stages, plan.rows)
-                # the same bytes as the layout written out: f32 stages are
-                # one 128-row box (its tags are read from device memory),
-                # the query a whole number of boxes
-                r128 = lambda x: -(-x // 128) * 128  # noqa: E731
-                if f32:
-                    stage, query = 128 * 128, r128(-(-d // 32) * 128)
-                else:
-                    stage = -(-(-(-d * elt // 128) * plan.rows * 128 + 12 * plan.rows)
-                              // 1024) * 1024
-                    query = r128(-(-d * elt // 32) * 32)
-                assert plan.smem == (1024 + plan.stages * stage + query
-                                     + r128(64 * k) + r128(8 * k) + 128 + 64 + 128)
+                # the same bytes as the layout written out
+                assert plan.smem == _list_layout(elt, d, k, plan.stages, plan.rows)
                 # one more stage would not fit the block's share of the SM
                 share = min(232_448, 233_472 // plan.per_sm - 1024)
-                assert plan.stages == 8 or plan.smem + (plan.smem - smem_of(
-                    k, plan.stages - 1, plan.rows)) > share
+                assert layout().tr_sm_share(plan.per_sm) == share
+                assert plan.stages == 8 or _list_layout(
+                    elt, d, k, plan.stages + 1, plan.rows) > share
+                # 128-row stages where two of them fit the share
+                assert f32 or (plan.rows == 128) == (_list_layout(elt, d, k, 2, 128) <= share)
 
 
 def test_one_query_fills_the_card():

@@ -2,16 +2,23 @@
 a pure function of the shapes, checked on the CPU: every row is scanned
 exactly once by contiguous block ranges in block order (the caller's stable
 merge relies on it for the lowest-row tie rule), no 128-row bucket straddles
-two blocks, and every plan fits one H100 block's shared memory."""
+two blocks, and every plan fits one H100 block's shared memory.  The plans'
+bytes, stage rows and kernel are csrc/layout.h's, the code the kernels size
+their shared memory with, built for the host by native/layout.cc; here they
+are held against the layouts written out."""
 
 from __future__ import annotations
 
 import pytest
 import torch
 
+from tpu_rag_torch.native.binding import layout
 from tpu_rag_torch.ops import topk as tk
 
 SMS = 132  # H100 SXM
+SMEM_MAX = 232_448   # dynamic shared memory of one H100 block
+STAGES_MAX = 8       # ring stages of a scan block
+ELT = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}
 KS = (1, 2, 5, 10, 20, 40, 64, 80, 127, 128, 129, 160, 256, 512, 640, 1000, 1024)
 
 
@@ -53,31 +60,37 @@ def _box_layout(elt: int, d: int, qc: int, k: int, mode: str, stages: int) -> in
     return 1024 + stages * 16384 + _a128(qc * ld) + tail + 128
 
 
-def _pipe_layout(elt: int, d: int, qc: int, k: int, mode: str, stages: int, rows: int) -> int:
-    """pipe_scan_kernel's layout written out: query rows padded to 32 bytes
-    + 16, query scales, stages of full-depth rows with their ns, canon and
-    scale, lists + candidate scratch + masks + merge maps or the row tiles'
-    maxima, one mbarrier a possible stage."""
-    ld = -(-d * elt // 32) * 32 + 16
+def _pipe_layout(d: int, qc: int, k: int, mode: str, stages: int, rows: int) -> int:
+    """pipe_scan_kernel's layout (int8 rows) written out: query rows padded
+    to 32 bytes + 16, query scales, stages of full-depth rows with their
+    ns, canon and scale, lists + candidate scratch + masks + merge maps or
+    the row tiles' maxima, one mbarrier a possible stage."""
+    ld = -(-d // 32) * 32 + 16
     tail = (_a128(qc * k * 8) + _a128(rows * (qc + 1) * 4) + _a128(qc * rows // 32 * 4) + 1024
             if mode != "bucketed" else _a128(rows // 16 * qc * 8))
     return (_a128(qc * ld) + _a128(qc * 4) + stages * (_a128(rows * ld) + 12 * rows) + tail
             + 64)
 
 
-def _check_box_plan(plan, d: int, nq: int, k: int, mode: str, elt: int = 4) -> None:
+def _pipe_rows(d: int, qc: int, k: int, mode: str) -> int:
+    """pipe_scan_kernel's stage rows (csrc/layout.h's pipe_rows)."""
+    return layout().tr_pipe_rows(d, qc, k, tk._SCAN_MODE[mode])
+
+
+def _check_box_plan(plan, d: int, nq: int, k: int, mode: str,
+                    dtype: torch.dtype = torch.float32) -> None:
     """An f32 or bf16 plan (box_scan_kernel): the chunk is 1 for one f32
     query, else the power of two 8..64 that covers nq unless two stages did
     not fit beside the larger chunk; as many one-box stages as fit (at most
-    8)."""
+    8), by the layout written out."""
+    elt = ELT[dtype]
     assert plan.qc in ((1, 8, 16, 32, 64) if elt == 4 else (8, 16, 32, 64))
-    assert 2 <= plan.stages <= tk._PIPE_STAGES_MAX and plan.smem <= tk._SMEM_MAX
-    assert plan.smem == tk._box_scan_smem(elt, d, plan.qc, k, mode, plan.stages)
-    assert plan.stages == tk._PIPE_STAGES_MAX or tk._box_scan_smem(
-        elt, d, plan.qc, k, mode, plan.stages + 1) > tk._SMEM_MAX
+    assert 2 <= plan.stages <= STAGES_MAX and plan.smem <= SMEM_MAX
+    assert plan.stages == STAGES_MAX or _box_layout(
+        elt, d, plan.qc, k, mode, plan.stages + 1) > SMEM_MAX
     want = 1 if nq == 1 and elt == 4 else min(64, max(8, 1 << (nq - 1).bit_length()))
-    assert plan.qc == want or (plan.qc < want and tk._box_scan_smem(
-        elt, d, 2 * plan.qc, k, mode, 2) > tk._SMEM_MAX)
+    assert plan.qc == want or (plan.qc < want and _box_layout(
+        elt, d, 2 * plan.qc, k, mode, 2) > SMEM_MAX)
     assert plan.smem == _box_layout(elt, d, plan.qc, k, mode, plan.stages)
 
 
@@ -88,31 +101,30 @@ def test_every_plan_fits_shared_memory(dtype, mode):
         for nq in range(1, 65):
             plan = tk._scan_plan(1_000_000, 384, nq, k, dtype, SMS, mode)
             if dtype != torch.int8:
-                _check_box_plan(plan, 384, nq, k, mode, tk._ELT[dtype])
+                _check_box_plan(plan, 384, nq, k, mode, dtype)
                 continue
             assert plan.qc in (8, 16, 32, 64)
-            assert 2 <= plan.stages <= tk._PIPE_STAGES_MAX
-            assert plan.smem <= tk._SMEM_MAX
-            elt = tk._ELT[dtype]
-            rows = tk._pipe_rows(elt, 384, plan.qc, k, mode)
+            assert 2 <= plan.stages <= STAGES_MAX
+            assert plan.smem <= SMEM_MAX
+            rows = _pipe_rows(384, plan.qc, k, mode)
             assert rows in (64, 128) and (rows == 128) <= (plan.qc == 8)
-            assert plan.smem == tk._pipe_smem(elt, 384, plan.qc, k, mode, plan.stages, rows)
+            assert plan.smem == _pipe_layout(384, plan.qc, k, mode, plan.stages, rows)
             # the chunk is the smallest power of two >= nq, unless lists forced it down
             want = max(8, 1 << (nq - 1).bit_length())
-            assert plan.qc == want or (plan.qc < want and tk._pipe_smem(
-                elt, 384, 2 * plan.qc, k, mode, 2, 64) > tk._SMEM_MAX)
+            assert plan.qc == want or (plan.qc < want and _pipe_layout(
+                384, 2 * plan.qc, k, mode, 2, 64) > SMEM_MAX)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8, torch.float32])
 def test_bucketed_plans_fit_and_fill_the_ring(dtype):
     for nq in range(1, 129):
         plan = tk._scan_plan(2_000_000, 384, nq, 0, dtype, SMS, "bucketed")
-        assert plan.smem <= tk._SMEM_MAX
+        assert plan.smem <= SMEM_MAX
         if dtype != torch.int8:
-            _check_box_plan(plan, 384, nq, 0, "bucketed", tk._ELT[dtype])
+            _check_box_plan(plan, 384, nq, 0, "bucketed", dtype)
             stage = 128 * 128                                # one box
         else:
-            stage = tk._pipe_rows(tk._ELT[dtype], 384, plan.qc, 0, "bucketed") * 384 * tk._ELT[dtype]
+            stage = _pipe_rows(384, plan.qc, 0, "bucketed") * 384
         assert (plan.stages - 1) * stage >= 64 * 1024
 
 
@@ -140,9 +152,8 @@ def test_ring_keeps_loads_in_flight_at_main_path_shapes():
                          (torch.int8, 64, 80), (torch.float32, 1, 20),
                          (torch.float32, 8, 20), (torch.float32, 8, 64)):
         plan = tk._scan_plan(1_000_000, 384, nq, k, dtype, SMS, "exact")
-        tile = (128 * 128 if dtype != torch.int8 else
-                tk._pipe_rows(tk._ELT[dtype], 384, plan.qc, k, "exact") * 384 * tk._ELT[dtype])
-        assert (plan.stages - 1) * tile >= 64 * 1024 or plan.stages == tk._PIPE_STAGES_MAX
+        tile = 128 * 128 if dtype != torch.int8 else _pipe_rows(384, plan.qc, k, "exact") * 384
+        assert (plan.stages - 1) * tile >= 64 * 1024 or plan.stages == STAGES_MAX
 
 
 def test_plan_rejects_what_cannot_fit():
@@ -213,8 +224,8 @@ def test_d768_every_plan_fits_shared_memory(dtype, mode):
     box_scan_kernel, whose stages are one box of 128 rows x 128 bytes
     whatever d, and int8 keeps pipe_scan_kernel's 64- or 128-row stages;
     every depth up to K_MAX fits, with the kernel's own arithmetic
-    (_box_scan_smem, _pipe_smem; f32's 64-query chunk halves at d 768)."""
-    elt = tk._ELT[dtype]
+    (box_scan_smem, pipe_smem; f32's 64-query chunk halves at d 768)."""
+    elt = ELT[dtype]
     for k in (KS if mode != "bucketed" else (0,)):
         for nq in (1, 2, 7, 8, 9, 16, 31, 32, 33, 63, 64, 80, 128):
             plan = tk._scan_plan(1_000_000, 768, nq, k, dtype, SMS, mode)
@@ -222,21 +233,21 @@ def test_d768_every_plan_fits_shared_memory(dtype, mode):
                 _check_box_plan(plan, 768, min(nq, 64), k, mode)
                 assert plan.qc <= 32                   # 64 query rows: 197,632 bytes
                 continue
-            assert 2 <= plan.stages <= tk._PIPE_STAGES_MAX and plan.smem <= tk._SMEM_MAX
+            assert 2 <= plan.stages <= STAGES_MAX and plan.smem <= SMEM_MAX
             want = max(8, 1 << (nq - 1).bit_length())
             if dtype == torch.bfloat16:
-                assert tk._box_route(dtype)
-                assert plan.smem == tk._box_scan_smem(elt, 768, plan.qc, k, mode, plan.stages)
-                assert plan.stages == tk._PIPE_STAGES_MAX or tk._box_scan_smem(
-                    elt, 768, plan.qc, k, mode, plan.stages + 1) > tk._SMEM_MAX
-                assert plan.qc == min(want, 64) or (plan.qc < want and tk._box_scan_smem(
-                    elt, 768, 2 * plan.qc, k, mode, 2) > tk._SMEM_MAX)
+                assert layout().tr_box_route(tk._DTYPE_CODE[dtype])
+                assert plan.smem == _box_layout(elt, 768, plan.qc, k, mode, plan.stages)
+                assert plan.stages == STAGES_MAX or _box_layout(
+                    elt, 768, plan.qc, k, mode, plan.stages + 1) > SMEM_MAX
+                assert plan.qc == min(want, 64) or (plan.qc < want and _box_layout(
+                    elt, 768, 2 * plan.qc, k, mode, 2) > SMEM_MAX)
                 continue
-            rows = tk._pipe_rows(elt, 768, plan.qc, k, mode)
-            assert plan.smem == tk._pipe_smem(elt, 768, plan.qc, k, mode, plan.stages, rows)
+            rows = _pipe_rows(768, plan.qc, k, mode)
+            assert plan.smem == _pipe_layout(768, plan.qc, k, mode, plan.stages, rows)
             assert rows in (64, 128) and (rows == 128) <= (plan.qc == 8)
-            assert plan.qc == min(want, 64) or (plan.qc < want and tk._pipe_smem(
-                elt, 768, 2 * plan.qc, k, mode, 2, 64) > tk._SMEM_MAX)
+            assert plan.qc == min(want, 64) or (plan.qc < want and _pipe_layout(
+                768, 2 * plan.qc, k, mode, 2, 64) > SMEM_MAX)
     # the rehearsal's shapes (k 10: bf16 refine scans 20, int8 40) take a
     # chunk that covers the queries: the rows are read once
     for nq in (1, 8, 64):
@@ -263,19 +274,19 @@ def test_d768_bf16_q64_reads_the_rows_at_most_twice(k):
 @pytest.mark.parametrize("mode", ["exact", "packed", "bucketed"])
 def test_every_plan_fits_by_the_mirrored_layout(d, dtype, mode):
     """Every plan at d 384 and 768, for every depth of KS and chunk size:
-    its kernel's layout (_box_route: box or pipe) written out equals the
-    plan's bytes and fits 232,448, and its blocks cover the rows once, in
-    order, 128-aligned."""
-    elt, n = tk._ELT[dtype], 2_000_000
+    the bytes of its kernel's one layout (csrc/layout.h; box_route: box or
+    pipe) equal that layout written out and fit 232,448, and its blocks
+    cover the rows once, in order, 128-aligned."""
+    elt, n = ELT[dtype], 2_000_000
     for k in (KS if mode != "bucketed" else (0,)):
         for nq in (1, 2, 8, 9, 33, 64, 80):
             plan = tk._scan_plan(n, d, nq, k, dtype, SMS, mode)
-            assert 2 <= plan.stages <= tk._PIPE_STAGES_MAX and plan.smem <= tk._SMEM_MAX
-            if tk._box_route(dtype):
+            assert 2 <= plan.stages <= STAGES_MAX and plan.smem <= SMEM_MAX
+            if layout().tr_box_route(tk._DTYPE_CODE[dtype]):
                 assert plan.smem == _box_layout(elt, d, plan.qc, k, mode, plan.stages)
             else:
-                rows = tk._pipe_rows(elt, d, plan.qc, k, mode)
-                assert plan.smem == _pipe_layout(elt, d, plan.qc, k, mode, plan.stages, rows)
+                rows = _pipe_rows(d, plan.qc, k, mode)
+                assert plan.smem == _pipe_layout(d, plan.qc, k, mode, plan.stages, rows)
             ranges = _ranges(n, plan)
             assert plan.block_rows % tk.BUCKET == 0
             assert ranges[0][0] == 0 and ranges[-1][1] == n
@@ -286,12 +297,13 @@ def test_every_plan_fits_by_the_mirrored_layout(d, dtype, mode):
 def test_box_route_takes_bf16_and_f32_rows():
     """bf16 and f32 scans take box_scan_kernel at every width (MiniLM's
     384, bge-base's 768), int8 scans pipe_scan_kernel."""
-    assert tk._box_route(torch.bfloat16) and tk._box_route(torch.float32)
-    assert not tk._box_route(torch.int8)
+    route = lambda dtype: layout().tr_box_route(tk._DTYPE_CODE[dtype])  # noqa: E731
+    assert route(torch.bfloat16) and route(torch.float32)
+    assert not route(torch.int8)
     for d in (384, 768):
         for nq in (1, 8, 64):
             plan = tk._scan_plan(1_000_000, d, nq, 20, torch.bfloat16, SMS, "exact")
-            assert plan.smem == tk._box_scan_smem(2, d, plan.qc, 20, "exact", plan.stages)
+            assert plan.smem == _box_layout(2, d, plan.qc, 20, "exact", plan.stages)
 
 
 def test_d384_plans_never_take_32_row_stages():
@@ -301,4 +313,4 @@ def test_d384_plans_never_take_32_row_stages():
     for mode in ("exact", "packed", "bucketed"):
         for k in (KS if mode != "bucketed" else (0,)):
             for qc in (8, 16, 32, 64):
-                assert tk._pipe_rows(1, 384, qc, k, mode) in (64, 128)
+                assert _pipe_rows(384, qc, k, mode) in (64, 128)

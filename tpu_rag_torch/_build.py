@@ -9,8 +9,9 @@ a plain C interface (no PyTorch headers, so a build takes seconds):
 `build_all()` builds every source at once, one nvcc process each;
 `load(name)` builds only the library it loads, and `prebuild(name)` starts
 that build in a background thread, so that it overlaps a caller's set-up.
-The file name carries a hash of the sources and flags, so an edited kernel
-is rebuilt and a stale library is never loaded.  The libraries are loaded with ctypes: pointers and
+The file name carries a hash of the sources, the headers (csrc/*.cuh and
+csrc/layout.h) and the flags, so an edited kernel or layout is rebuilt and
+a stale library is never loaded.  The libraries are loaded with ctypes: pointers and
 the CUDA stream pass as c_void_p, and every C entry returns
 cudaGetLastError(), which `check` turns into an exception.
 """
@@ -51,7 +52,7 @@ def _nvcc() -> str:
 
 def _library_path(src: Path) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in [src, *sorted(CSRC.glob("*.cuh"))]:
+    for f in [src, *sorted(CSRC.glob("*.cuh")), *sorted(CSRC.glob("*.h"))]:
         h.update(f.read_bytes())
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 

@@ -91,8 +91,6 @@ class Config:
     embed_batch: int = 64               # encoder batch (padded, fixed shape)
     embed_seq_len: int = 256            # encoder sequence length (fixed shape)
     mesh_shape: str = ""                # e.g. "data:4" or "data:4,model:2"; "" = all devices on data
-    use_pallas: bool = True             # read from USE_PALLAS as the JAX config
-                                        # does; the port has no such switch
     device: str = "cuda"                # torch device the encoder and index
                                         # run on; "cuda" raises without a
                                         # card (nothing falls back to "cpu")
@@ -193,7 +191,6 @@ def config_from_env(dotenv: str | None = None) -> Config:
         embed_batch=env_int("EMBED_BATCH", d.embed_batch),
         embed_seq_len=env_int("EMBED_SEQ_LEN", d.embed_seq_len),
         mesh_shape=env_str("MESH_SHAPE", d.mesh_shape),
-        use_pallas=env_bool("USE_PALLAS", d.use_pallas),
         device=env_str("DEVICE", d.device),
         fts_docs=env_bool("FTS_DOCS", d.fts_docs),
         summarize_mode=env_str("SUMMARIZE_MODE", d.summarize_mode),

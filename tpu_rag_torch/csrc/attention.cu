@@ -69,6 +69,7 @@
 #include "common.cuh"
 #include "mma_sm90.cuh"
 
+using namespace tr_layout::mha;
 using namespace tr_mma;
 
 namespace {
@@ -77,34 +78,7 @@ constexpr float kMaskValue = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
 // ---------------------------------------------------------------- bf16
-constexpr int kWarps = 8;
-constexpr int kQTile = 16 * kWarps;  // query rows per block (128)
-constexpr int kChunk = 64;           // keys per softmax step and ring stage
-constexpr int kTMax = 512;
-constexpr int kSmemTwo = 233472 / 2 - 1024;  // a block's share when two share an SM
-
-__host__ __device__ constexpr int row_ld(int D) { return D + 8; }  // + 16 bytes
-__host__ __device__ constexpr int tc_imin(int a, int b) { return a < b ? a : b; }
-__host__ __device__ constexpr int tc_imax(int a, int b) { return a > b ? a : b; }
-
-// Ring stages of mha_tc_kernel<D> (mirrored by ops/attention.py's
-// _tc_stages): one a 64-key chunk of T, at most as many as leave room for
-// two blocks an SM (the kernel's registers allow two): 8 at D 32, so T <=
-// 512 is held whole; 5 at D 64 (a block holding T 512's whole K and V
-// took 167,936 bytes, one block an SM).
-__host__ __device__ constexpr int tc_stages(int D, int T) {
-  return tc_imin((T + kChunk - 1) / kChunk,
-                 tc_imin(8, (kSmemTwo - 128 * row_ld(D) * 2 - kTMax * 4) /
-                                (2 * kChunk * row_ld(D) * 2)));
-}
-
-// Shared-memory layout of mha_tc_kernel<D> (mirrored by ops/attention.py's
-// _tc_smem): the Q tile, then the ring's chunks of K and of V (rows of D +
-// 8 bf16), then every key's flag over T's chunks.
-__host__ __device__ constexpr size_t tc_smem_bytes(int D, int T) {
-  return size_t(kQTile + 2 * tc_stages(D, T) * kChunk) * row_ld(D) * 2 +
-         size_t((T + kChunk - 1) / kChunk) * kChunk * 4;
-}
+// (its layout: layout.h's tc_stages and tc_smem_bytes)
 
 // kRing: T's chunks outnumber the ring's stages (D 64 above T 320), so a
 // stage is refilled once its chunk's products are done; else every chunk
@@ -305,28 +279,8 @@ int launch_tc(const void* q, const void* k, const void* v, const void* mask, voi
 }
 
 // ---------------------------------------------------------------- f32
+// (its layout: layout.h's f32_smem)
 constexpr int kF32Threads = 256;
-constexpr int kF32Rows = 128;  // query rows of a block
-constexpr int kF32Keys = 64;   // keys of a ring chunk
-constexpr int kF32Stages = 3;  // ring chunks
-
-// Shared-memory layout of mha_f32_kernel<D> in floats (mirrored by
-// ops/attention.py's _f32_smem): the Q tile, the K and V rings (rows of D
-// + 4 floats), P^T (rows of kF32Rows + 4), the ring's key flags.
-struct F32Smem { int ld, lp, q, k, v, p, flags, total; };
-
-__host__ __device__ inline F32Smem f32_smem(int D) {
-  F32Smem o;
-  o.ld = D + 4;
-  o.lp = kF32Rows + 4;
-  o.q = 0;
-  o.k = o.q + kF32Rows * o.ld;
-  o.v = o.k + kF32Stages * kF32Keys * o.ld;
-  o.p = o.v + kF32Stages * kF32Keys * o.ld;
-  o.flags = o.p + kF32Keys * o.lp;
-  o.total = o.flags + kF32Stages * kF32Keys;
-  return o;
-}
 
 template <int D>
 __global__ void __launch_bounds__(kF32Threads)
@@ -518,11 +472,6 @@ int launch_f32(const void* q, const void* k, const void* v, const void* mask, vo
 }
 
 }  // namespace
-
-// Shared-memory bytes of one block of #5 (dtype TR_F32 or TR_BF16) at T.
-extern "C" size_t tr_mha_smem_bytes(int dtype, int D, int T_) {
-  return dtype == TR_F32 ? size_t(f32_smem(D).total) * 4 : tc_smem_bytes(D, T_);
-}
 
 // q/k/v/o (B, T, H, D) contiguous and 16-byte aligned, dtype f32 or bf16;
 // mask (B, T) int32.  bf16 takes T <= 512; f32 any T.

@@ -35,6 +35,7 @@
 #include <cuda.h>
 #include <dlfcn.h>
 
+#include "layout.h"
 #include "mma_sm90.cuh"
 #include "select.cuh"
 
@@ -42,19 +43,8 @@ namespace tr_box {
 
 using tr_tile::kFull;
 
-constexpr int kBoxFloats = 32;            // f32 floats of a row in one box
-constexpr int kBoxRows = 128;             // rows of a box: one bucket
-constexpr int kBoxBytes = kBoxRows * 128; // 16 KB, a multiple of the 1024-byte swizzle unit
-
-__host__ __device__ inline int f32_boxes(int d) { return (d + kBoxFloats - 1) / kBoxFloats; }
-
-// Row stride (floats) of f32 queries staged in shared memory: d rounded up
-// to whole boxes, plus 4, so rows sit 16 bytes past a multiple of 128 and
-// the four queries a quarter warp reads (2t + e) fall in distinct bank
-// groups.
-__host__ __device__ inline int f32_query_ld(int d) { return f32_boxes(d) * kBoxFloats + 4; }
-
-__host__ __device__ inline size_t align1024(size_t x) { return (x + 1023) & ~size_t(1023); }
+// kBoxFloats, kBoxRows, kBoxBytes, f32_boxes, f32_query_ld, align1024:
+// layout.h
 
 // acc[mi][j][2 h + e] += the box's 32 floats of row r_lo + 16 mi + g + 8 h
 // (of the box at st) times those of query 8 j + 2 t + e, whose row starts

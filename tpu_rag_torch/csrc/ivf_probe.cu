@@ -138,6 +138,7 @@
 
 namespace cg = cooperative_groups;
 using namespace tr_box;
+using namespace tr_layout;
 using namespace tr_mma;
 using namespace tr_tile;
 
@@ -145,67 +146,10 @@ namespace {
 
 constexpr int kPadTag = INT_MIN;
 
-// ---- #7 on bf16 and int8 lists: the pipelined bucket probe
+// ---- #7 on bf16 and int8 lists: the pipelined bucket probe (its layout:
+// layout.h's bucket_smem, its stages' rows bucket_rows)
 constexpr int kBucketWarps = 8;
 constexpr int kBucketThreads = 32 * kBucketWarps;
-constexpr int kMaxStages = 8;
-constexpr int kMaxM = 4;                    // bucket winners a query keeps
-constexpr size_t kSmemMax = 232448;         // dynamic shared memory of one block
-
-// Warp tiling of one stage of `rows` rows for qc = 8 nt queries: a warp
-// multiplies kMTW m16 row tiles by kNTW n8 query tiles; the 8 warps are
-// kWR row tiles x kWQ query groups (at rows 64 and 8 queries, 4 warps idle
-// in the product).  Mirrored by ops/ivf_probe.py's _bucket_tiles.
-__host__ __device__ constexpr int bucket_mtw(int nt, int rows) {
-  return rows == 128 ? (nt >= 2 ? 2 : 1) : (nt >= 4 ? 2 : 1);
-}
-__host__ __device__ constexpr int bucket_wr(int nt, int rows) {
-  return rows / (16 * bucket_mtw(nt, rows));
-}
-
-// int8 query rows of at most kQRegBytes: each warp keeps its query
-// fragments in registers for the whole block
-constexpr int kQRegBytes = 384;
-
-// Shared-memory layout of pipe_bucket_kernel (mirrored by ops/ivf_probe.py's
-// _bucket_smem), from a 1024-byte aligned base (1024 bytes of slack): the
-// queries (qc rows of d * elt bytes rounded up to the 32-byte MMA step, plus
-// 16: an odd number of 16-byte units, so the eight rows an ldmatrix reads
-// fall in distinct banks), then `stages` stages, each `boxes` blocks of
-// `rows` rows x 128 bytes (the tensor map's swizzled boxes) and the rows'
-// ns, canon and scale, rounded up to 1024 bytes; the two tables of the
-// warps' winners ([2][row tile][query][kMaxM] scores, then slots); one
-// mbarrier per possible stage.  Where the queries live in registers (qreg)
-// they are staged in the last ring stage, which the ring first fills after
-// the warps have read them.
-struct BucketSmem {
-  int kbytes, ld, boxes;
-  bool qreg;
-  size_t q, ring, meta, stage, tab, bar, total;
-};
-
-__host__ __device__ inline BucketSmem bucket_smem(int elt, int d, int qc, int stages, int rows) {
-  BucketSmem o;
-  o.kbytes = (d * elt + 31) / 32 * 32;
-  o.ld = o.kbytes + 16;
-  o.boxes = (d * elt + 127) / 128;
-  o.qreg = elt == 1 && o.kbytes <= kQRegBytes;
-  o.ring = o.qreg ? 0 : align1024(size_t(qc) * o.ld);
-  o.meta = size_t(o.boxes) * rows * 128;                   // within a stage
-  o.stage = align1024(o.meta + 3 * size_t(rows) * 4);
-  o.q = o.qreg ? size_t(stages > 0 ? stages - 1 : 0) * o.stage : 0;
-  o.tab = o.ring + size_t(stages) * o.stage;
-  o.bar = o.tab + 2 * size_t(bucket_wr(qc / 8, rows)) * qc * kMaxM * 8;
-  o.total = 1024 + o.bar + size_t(kMaxStages) * 8;
-  return o;
-}
-
-// Rows of a stage: 128 (one bucket) where three such stages fit, else 64.
-__host__ __device__ inline int bucket_rows(int elt, int d, int qc) {
-  const size_t fixed = bucket_smem(elt, d, qc, 0, 128).total;
-  const size_t stage = bucket_smem(elt, d, qc, 1, 128).total - fixed;
-  return fixed < kSmemMax && (kSmemMax - fixed) / stage >= 3 ? 128 : 64;
-}
 
 __device__ inline void swap_if_better(float& s, int& r, float& s2, int& r2) {
   if (better(s2, r2, s, r)) {
@@ -759,34 +703,8 @@ int launch_bucket_qc(int qc, int rows, int m, const BucketArgs& a) {
   return int(cudaErrorInvalidValue);
 }
 
-// ---- #7 on f32 lists: the pipelined bucket probe on the CUDA cores
-
-// Shared-memory layout of batched_bucket_kernel (mirrored by
-// ops/ivf_probe.py's _f32_bucket_smem), from a 1024-byte aligned base
-// (1024 bytes of slack): the queries (qc rows of d floats rounded up to
-// whole boxes, plus 4: rows 16 bytes past a multiple of 128, so the four
-// queries a quarter warp reads fall in distinct bank groups), then `stages`
-// stages, each one box (128 rows x 128 bytes, the tensor map's swizzle) and
-// the bucket's ns and canon (fetched with its first box), rounded up to
-// 1024 bytes; the two tables of the warps' winners; one mbarrier per
-// possible stage.
-struct F32BucketSmem {
-  int boxes, ld;
-  size_t ring, meta, stage, tab, bar, total;
-};
-
-__host__ __device__ inline F32BucketSmem f32_bucket_smem(int d, int qc, int stages) {
-  F32BucketSmem o;
-  o.boxes = f32_boxes(d);
-  o.ld = f32_query_ld(d);
-  o.ring = align1024(size_t(qc) * o.ld * 4);
-  o.meta = size_t(kSub) * 128;  // within a stage
-  o.stage = align1024(o.meta + 2 * size_t(kSub) * 4);
-  o.tab = o.ring + size_t(stages) * o.stage;
-  o.bar = o.tab + 2 * size_t(bucket_wr(qc / 8, kSub)) * qc * kMaxM * 8;
-  o.total = 1024 + o.bar + size_t(kMaxStages) * 8;
-  return o;
-}
+// ---- #7 on f32 lists: the pipelined bucket probe on the CUDA cores (its
+// layout: layout.h's f32_bucket_smem)
 
 template <int NT, int M>
 __global__ void __launch_bounds__(kBucketThreads, 1)
@@ -998,41 +916,11 @@ int launch_f32_bucket_qc(int qc, int m, const BucketArgs& a) {
   return int(cudaErrorInvalidValue);
 }
 
-// ---- #6 on bf16 and int8 lists: the split list probe
-constexpr int kListWarps = 8;                     // consumer warps
-constexpr int kListThreads = 32 * (kListWarps + 1);  // and the producer warp
+// ---- #6 on bf16 and int8 lists: the split list probe (its layout:
+// layout.h's list_smem)
+constexpr int kListThreads = 32 * (kListWarps + 1);  // the consumer warps and a producer
 constexpr int kMaxSplit = 8;                      // blocks of one list: a cluster
-constexpr int kListMapWords = kMaxK / 32;         // warp_merge's bit map (k <= 128)
 
-// Shared-memory layout of probe_split_kernel (mirrored by ops/ivf_probe.py's
-// _list_smem), from a 1024-byte aligned base (1024 bytes of slack): `stages`
-// ring stages, each `boxes` blocks of `rows` rows x 128 bytes (the tensor
-// map's swizzled boxes) and the rows' ns, canon and scale, rounded up to
-// 1024 bytes; the query (d * elt bytes rounded up to the 32-byte MMA step);
-// the 8 warps' sorted lists (k scores, then k slots, a warp); the block's
-// merged list; the warps' bit maps of warp_merge; the warps' published
-// scores (below); two mbarriers per possible stage (its rows landed; its
-// consumers are done with it).
-struct ListSmem {
-  int kbytes, boxes;
-  size_t meta, stage, q, lists, cta, bmap, pub, bar, total;
-};
-
-__host__ __device__ inline ListSmem list_smem(int elt, int d, int k, int stages, int rows) {
-  ListSmem o;
-  o.kbytes = (d * elt + 31) / 32 * 32;
-  o.boxes = (d * elt + 127) / 128;
-  o.meta = size_t(o.boxes) * rows * 128;                   // within a stage
-  o.stage = align1024(o.meta + 3 * size_t(rows) * 4);
-  o.q = size_t(stages) * o.stage;
-  o.lists = o.q + tr_align128(o.kbytes);
-  o.cta = o.lists + tr_align128(size_t(kListWarps) * k * 8);
-  o.bmap = o.cta + tr_align128(size_t(k) * 8);
-  o.pub = o.bmap + size_t(kListWarps) * kListMapWords * 4;
-  o.bar = o.pub + 64;
-  o.total = 1024 + o.bar + 2 * size_t(kMaxStages) * 8;
-  return o;
-}
 
 // The list's top k from the `nlists` sorted warp lists of each block of
 // its cluster (wls: [warp][2 k], scores then slots), written to
@@ -1316,28 +1204,8 @@ int launch_split(const ListArgs& a) {
                         list_smem(sizeof(T), a.d, a.k, a.stages, R).total, a, args);
 }
 
-// ---- #6 on f32 lists: the split list probe on the CUDA cores
-
-// Shared-memory layout of probe_f32_kernel (mirrored by ops/ivf_probe.py's
-// _f32_list_smem), from a 1024-byte aligned base (1024 bytes of slack):
-// `stages` one-box stages (128 slots x 32 floats, the tensor map's
-// swizzle); the query (d floats rounded up to whole boxes); the 8 warps'
-// sorted lists; the block's merged list; the warps' bit maps of
-// warp_merge; the warps' published scores; two mbarriers per possible
-// stage (its box landed; its consumers are done with it).
-struct F32ListSmem { size_t q, lists, cta, bmap, pub, bar, total; };
-
-__host__ __device__ inline F32ListSmem f32_list_smem(int d, int k, int stages) {
-  F32ListSmem o;
-  o.q = size_t(stages) * kBoxBytes;
-  o.lists = o.q + tr_align128(size_t(f32_boxes(d)) * 128);
-  o.cta = o.lists + tr_align128(size_t(kListWarps) * k * 8);
-  o.bmap = o.cta + tr_align128(size_t(k) * 8);
-  o.pub = o.bmap + size_t(kListWarps) * kListMapWords * 4;
-  o.bar = o.pub + 64;
-  o.total = 1024 + o.bar + 2 * size_t(kMaxStages) * 8;
-  return o;
-}
+// ---- #6 on f32 lists: the split list probe on the CUDA cores (its
+// layout: layout.h's f32_list_smem)
 
 // probe_split_kernel's grid, ranges, selection and merges on f32 lists: a
 // block's 128-slot tiles are ceil(d / 32) boxes each, which the producer
@@ -1483,24 +1351,7 @@ int launch_f32_list(const ListArgs& a) {
                         f32_list_smem(a.d, a.k, a.stages).total, a, args);
 }
 
-int elt_of(int dtype) { return dtype == TR_F32 ? 4 : dtype == TR_BF16 ? 2 : 1; }
-
 }  // namespace
-
-// Shared-memory bytes of one block: kind 0, #6 (a k-long list, `stages`
-// ring stages): f32 lists probe_f32_kernel, bf16/int8 lists
-// probe_split_kernel with stages of `rows` rows; kind 1, #7 (qc queries,
-// `stages` ring stages): f32 lists batched_bucket_kernel, bf16/int8 lists
-// pipe_bucket_kernel with stages of bucket_rows rows.
-extern "C" size_t tr_probe_smem_bytes(int kind, int dtype, int d, int qc, int k, int stages,
-                                      int rows) {
-  if (dtype != TR_F32) {
-    const int elt = elt_of(dtype);
-    return kind == 0 ? list_smem(elt, d, k, stages, rows).total
-                     : bucket_smem(elt, d, qc, stages, bucket_rows(elt, d, qc)).total;
-  }
-  return kind == 0 ? f32_list_smem(d, k, stages).total : f32_bucket_smem(d, qc, stages).total;
-}
 
 // #6: q (nq, d) and vec (nlist, cap, d) share `dtype`; lists (nq * nprobe)
 // int32; scale (nlist, cap) f32 is read for int8 only; ns/canon (nlist, cap)

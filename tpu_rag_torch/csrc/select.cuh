@@ -16,9 +16,9 @@
 
 namespace tr_tile {
 
-constexpr int kSub = 128;        // rows of a bucket (#3, #7) and of a scan's row tile
+// kSub (rows of a bucket and of a scan's row tile) and kMaxK (the longest
+// per-list selection): layout.h
 constexpr int kMaxQc = 64;       // queries one scan block takes at once
-constexpr int kMaxK = 128;       // longest per-list (#6) selection
 constexpr int kMaxDeepK = 1024;  // longest list warp_merge keeps (#1, #2)
 constexpr unsigned kFull = 0xffffffffu;
 

@@ -98,6 +98,7 @@
 #include "mma_sm90.cuh"
 #include "select.cuh"
 
+using namespace tr_layout;
 using namespace tr_mma;
 using namespace tr_tile;
 
@@ -105,63 +106,13 @@ namespace {
 
 constexpr int kPadTag = INT_MIN;
 
-// selection of the scan kernels
-enum ScanMode { kBucketed = 0, kExact = 1, kPacked = 2 };
-
 // #2's rounding: the top 18 bits of the f32 pattern.  The TPU kernel's
 // sortable-key round trip with its low-bit fill gives exactly this value
 // (-inf stays -inf), and the rounded values order as the keys do.
 __device__ inline float round18(float s) { return __int_as_float(__float_as_int(s) & ~0x3FFF); }
 
-// ---- bf16 / int8: the pipelined scan
-constexpr int kPipeWarps = 8;
+// ---- int8: the pipelined scan (its layout: layout.h's pipe_smem)
 constexpr int kPipeThreads = 32 * kPipeWarps;
-constexpr int kMaxStages = 8;
-constexpr int kSmemMax = 232448;            // dynamic shared memory of one block
-
-// Shared-memory layout of pipe_scan_kernel (mirrored by ops/topk.py's
-// _pipe_smem).  A staged row is its d * elt bytes rounded up to the 32-byte
-// MMA step, plus 16 bytes: an odd number of 16-byte units, so the eight
-// rows an ldmatrix reads fall in distinct banks.
-struct PipeSmem { int kbytes, ld; size_t qs, ring, meta, stage, list, scratch, cmask, bmap, bar, total; };
-
-__host__ __device__ inline PipeSmem pipe_smem(int elt, int d, int qc, int k, int mode,
-                                              int stages, int rows) {
-  PipeSmem o;
-  o.kbytes = (d * elt + 31) / 32 * 32;
-  o.ld = o.kbytes + 16;
-  o.qs = tr_align128(size_t(qc) * o.ld);                   // queries at 0
-  o.ring = o.qs + tr_align128(size_t(qc) * 4);             // then query scales
-  o.meta = tr_align128(size_t(rows) * o.ld);               // ns, canon, scale after the rows
-  o.stage = o.meta + 3 * rows * 4;
-  o.list = o.ring + size_t(stages) * o.stage;
-  const bool list = mode != kBucketed;
-  o.scratch = o.list + (list ? tr_align128(size_t(qc) * k * 8) : 0);
-  o.cmask = o.scratch + tr_align128(list ? size_t(rows) * (qc + 1) * 4
-                                         : size_t(rows / 16) * qc * 8);
-  o.bmap = o.cmask + (list ? tr_align128(size_t(qc) * (rows / 32) * 4) : 0);
-  o.bar = o.bmap + (list ? size_t(kPipeWarps) * 32 * 4 : 0);  // a 1024-bit map a warp
-  o.total = o.bar + size_t(kMaxStages) * 8;                     // a stage's mbarrier
-  return o;
-}
-
-// Stages of `rows` rows that fit beside the rest of a block's shared memory.
-__host__ __device__ inline size_t pipe_fit(int elt, int d, int qc, int k, int mode, int rows) {
-  const size_t fixed = pipe_smem(elt, d, qc, k, mode, 0, rows).total;
-  const size_t stage = pipe_smem(elt, d, qc, k, mode, 1, rows).total - fixed;
-  const size_t fit = fixed < size_t(kSmemMax) ? (size_t(kSmemMax) - fixed) / stage : 0;
-  return fit < size_t(kMaxStages) ? fit : size_t(kMaxStages);
-}
-
-// Rows of one ring stage: 128 (one m16 tile a warp) for a chunk of 8
-// queries where the stages that fit beside the lists keep 64 KB of rows in
-// flight, else 64, the 8 warps then splitting the queries in two halves (a
-// chunk of 8: 4 warps multiply).
-__host__ __device__ inline int pipe_rows(int elt, int d, int qc, int k, int mode) {
-  if (qc != 8) return 64;
-  const size_t stages = pipe_fit(elt, d, qc, k, mode, 128);
-  return stages >= 2 && (stages - 1) * 128 * d * elt >= 65536 ? 128 : 64;
-}
 
 template <int kMode, int NT, int kRows>
 __global__ void __launch_bounds__(kPipeThreads, 1)
@@ -179,7 +130,7 @@ pipe_scan_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ x,
   constexpr int kSld = qc + 1;                 // score scratch row stride
   constexpr int kWords = kRows / 32;           // candidate bit mask words of a query
   extern __shared__ __align__(128) unsigned char smem[];
-  const PipeSmem lay = pipe_smem(1, d, qc, k, kMode, stages, kRows);
+  const PipeSmem lay = pipe_smem(d, qc, k, kMode, stages, kRows);
   const int ld = lay.ld, kbytes = lay.kbytes;
   unsigned char* Qs = smem;
   float* qsS = reinterpret_cast<float*>(smem + lay.qs);
@@ -452,7 +403,7 @@ int launch_pipe(const void* q, const void* x, const void* scale, const void* ns,
                 const void* canon, const void* qscale, int n, int d, int nq, int want_ns,
                 int want_canon, int block_rows, int k, int stages, const void* seed,
                 void* out_sc, void* out_id, cudaStream_t stream) {
-  const size_t smem = pipe_smem(1, d, 8 * NT, k, kMode, stages, kRows).total;
+  const size_t smem = pipe_smem(d, 8 * NT, k, kMode, stages, kRows).total;
   auto kern = pipe_scan_kernel<kMode, NT, kRows>;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   dim3 grid((n + block_rows - 1) / block_rows, (nq + 8 * NT - 1) / (8 * NT));
@@ -483,20 +434,14 @@ int launch_pipe_qc(int qc, int rows, const void* q, const void* x, const void* s
   return int(cudaErrorInvalidValue);
 }
 
-int elt_of(int dtype) { return dtype == TR_F32 ? 4 : dtype == TR_BF16 ? 2 : 1; }
-
 // ---- f32 and bf16 rows: the box ring
 // A ring stage is one box of 128 rows x 128 bytes, whatever d: a whole
 // 128-row tile is 192 KB of f32 at d 384 and of bf16 at d 768, and a
 // 64-row bf16 stage at d 768 left a 64-query chunk no room beside its
 // queries (the plan fell back to chunks of 8, eight passes over the rows).
-constexpr int kBoxWarps = 8;                           // consumer warps
+// Its layout: layout.h's box_scan_smem.
 constexpr int kBoxConsumers = 32 * kBoxWarps;
 constexpr int kBoxThreads = kBoxConsumers + 32;        // and the producer warp
-
-// The scan's kernel: f32 and bf16 rows take box_scan_kernel, int8 rows
-// pipe_scan_kernel (mirrored by ops/topk.py's _box_route).
-__host__ __device__ inline bool box_route(int dtype) { return dtype != TR_I8; }
 
 // The consumer warps' own barrier (id 1, `threads` threads): a producer
 // warp that only feeds the ring never waits on it.
@@ -518,44 +463,6 @@ __device__ inline bool consumers_sync_or(bool p, int threads) {
       : "r"(int(p)), "r"(threads)
       : "memory");
   return r != 0;
-}
-
-// Warp tiling of a 128-row tile for a chunk of QC queries: a warp
-// multiplies kMTW m16 row tiles by kNTW n8 query tiles (QC 1, f32 only:
-// the one query, box_one_query); the 8 warps are kWR row groups x kWQ
-// query groups.
-__host__ __device__ constexpr int box_mtw(int qc) { return qc >= 16 ? 2 : 1; }
-__host__ __device__ constexpr int box_wr(int qc) { return kSub / (16 * box_mtw(qc)); }
-
-// Shared-memory layout of box_scan_kernel (mirrored by ops/topk.py's
-// _box_scan_smem), from a 1024-byte aligned base (1024 bytes of slack):
-// `stages` ring stages of one box (128 rows x 128 bytes, the tensor map's
-// swizzle); the queries (qc rows of whole boxes plus 16 bytes, so the rows
-// a quarter warp reads fall in distinct bank groups); exact/packed: the
-// sorted lists (qc x k scores, then slots), the candidates' scores ([128
-// rows][qc + 1]), their rows' bit masks ([qc][4 words]), a 1024-bit merge
-// map a warp and each list's count of real entries ([qc]); bucketed: two
-// tables of the row groups' maxima ([2][kWR][qc] scores, then rows); two
-// mbarriers per possible stage (its box landed; its consumers are done
-// with it).
-struct BoxScanSmem { int boxes, ld; size_t q, list, scratch, cmask, bmap, fill, bar, total; };
-
-__host__ __device__ inline BoxScanSmem box_scan_smem(int elt, int d, int qc, int k, int mode,
-                                                     int stages) {
-  BoxScanSmem o;
-  const bool list = mode != kBucketed;
-  o.boxes = (d * elt + 127) / 128;
-  o.ld = o.boxes * 128 + 16;                                         // bytes of a query row
-  o.q = size_t(stages) * tr_box::kBoxBytes;                         // the ring at 0
-  o.list = o.q + tr_align128(size_t(qc) * o.ld);
-  o.scratch = o.list + (list ? tr_align128(size_t(qc) * k * 8) : 0);
-  o.cmask = o.scratch + tr_align128(list ? size_t(kSub) * (qc + 1) * 4
-                                         : 2 * size_t(box_wr(qc)) * qc * 8);
-  o.bmap = o.cmask + (list ? tr_align128(size_t(qc) * (kSub / 32) * 4) : 0);
-  o.fill = o.bmap + (list ? size_t(kBoxWarps) * 32 * 4 : 0);
-  o.bar = o.fill + (list ? tr_align128(size_t(qc) * 4) : 0);
-  o.total = 1024 + o.bar + 2 * size_t(kMaxStages) * 8;
-  return o;
 }
 
 // Grid: blockIdx.y the query chunk, blockIdx.x a contiguous range of
@@ -970,14 +877,6 @@ read_sum_kernel(const T* __restrict__ x, long long n_elems, float* __restrict__ 
 
 }  // namespace
 
-// Shared-memory bytes of one scan block: box_scan_kernel (f32, bf16) or
-// pipe_scan_kernel (int8) with `stages` ring stages.
-extern "C" size_t tr_scan_smem_bytes(int dtype, int d, int qc, int k, int mode, int stages) {
-  const int elt = elt_of(dtype);
-  if (box_route(dtype)) return box_scan_smem(elt, d, qc, k, mode, stages).total;
-  return pipe_smem(elt, d, qc, k, mode, stages, pipe_rows(elt, d, qc, k, mode)).total;
-}
-
 // mode 1 (exact, #1) or 2 (packed, #2) -> out (nq, ceil(n / tile_rows), k);
 // mode 0 (bucketed, #3) -> out (nq, ceil(n / 128)).
 // q (nq, d) and x (n, d) share `dtype` and are 16-byte aligned; scale (n,)
@@ -1016,8 +915,8 @@ extern "C" int tr_scan(const void* q, const void* x, const void* scale,
 #undef TR_MODES
 #undef TR_BOX
   }
-  const int rows = pipe_rows(elt, d, qc, k, mode);
-  if (dtype != TR_I8 || pipe_smem(elt, d, qc, k, mode, stages, rows).total > size_t(kSmemMax))
+  const int rows = pipe_rows(d, qc, k, mode);
+  if (dtype != TR_I8 || pipe_smem(d, qc, k, mode, stages, rows).total > size_t(kSmemMax))
     return int(cudaErrorInvalidValue);
 #define TR_PIPE(M) \
   launch_pipe_qc<M>(qc, rows, q, x, scale, ns, canon, qscale, n, d, nq, want_ns, want_canon, tile_rows, k, stages, seed, out_sc, out_id, s)

@@ -1,19 +1,21 @@
 """Build and bind the host C++ libraries of the port: the WordPiece
 tokenizer (wordpiece.cc) and the HNSW baseline (hnsw.cc), both copies of
-tpu_rag/native/.
+tpu_rag/native/, and the hand-written kernels' shared-memory layouts
+(layout.cc over csrc/layout.h, the header the kernels include) for the
+wrappers' launch plans.
 
 Each source compiles with g++ on first use into build/tpu_rag_torch/
 (beside the CUDA kernels, ignored by git), never into the package:
 
     g++ -O2 -std=c++17 -fPIC -Wall -shared -o lib<name>-<hash>.so <name>.cc
 
-The file name carries a hash of the source and the flags, so an edited
-source is rebuilt and a stale library never loads; a build writes a
-temporary name and renames it, so concurrent processes never load a
-half-written file.  hnsw.cc adds -O3 and -lpthread but not tpu_rag's
--march=native: the build directory travels with copies of the tree, and a
-library tuned to one host's CPU may not run on another's (the two builds
-give equal ids and distances).
+The file name carries a hash of the source, the headers it includes from
+csrc/ and the flags, so an edited source or header is rebuilt and a stale
+library never loads; a build writes a temporary name and renames it, so
+concurrent processes never load a half-written file.  hnsw.cc adds -O3
+and -lpthread but not tpu_rag's -march=native: the build directory
+travels with copies of the tree, and a library tuned to one host's CPU may
+not run on another's (the two builds give equal ids and distances).
 
 NativeWordPiece tokenizes exactly as models/tokenizer.py's pretokenize +
 WordPiece in Python: the text is NFKC-normalized and lowercased here, and
@@ -28,6 +30,7 @@ punctuation inside words where its Python path drops it.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -37,26 +40,31 @@ import threading
 import unicodedata
 from pathlib import Path
 
-from tpu_rag_torch._build import BUILD_DIR
+from tpu_rag_torch._build import BUILD_DIR, CSRC
 
 HERE = Path(__file__).resolve().parent
 _FLAGS = {"wordpiece": ("-O2", "-std=c++17", "-fPIC", "-Wall", "-shared"),
-          "hnsw": ("-O2", "-std=c++17", "-fPIC", "-Wall", "-O3", "-shared")}
+          "hnsw": ("-O2", "-std=c++17", "-fPIC", "-Wall", "-O3", "-shared"),
+          "layout": ("-O2", "-std=c++17", "-fPIC", "-Wall", "-shared")}
 _LIBS_AFTER = {"hnsw": ("-lpthread",)}
+_HEADERS = {"layout": (CSRC / "layout.h",)}
 # a tokenizer call takes microseconds: it keeps the interpreter lock
 # (PyDLL), since a call that releases it waits for a busy thread's switch
 # interval to get it back (55x slower with one busy thread beside it);
-# HNSW's builds and batched searches run long and release it (CDLL)
-_LOADER = {"wordpiece": ctypes.PyDLL, "hnsw": ctypes.CDLL}
+# HNSW's builds and batched searches run long and release it (CDLL); a
+# layout call takes microseconds too
+_LOADER = {"wordpiece": ctypes.PyDLL, "hnsw": ctypes.CDLL, "layout": ctypes.PyDLL}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
 
 def library_path(name: str) -> Path:
-    """Where native/<name>.cc builds: a name carrying the source's hash."""
+    """Where native/<name>.cc builds: a name carrying the hash of the
+    source and of the headers it includes."""
     h = hashlib.sha256(" ".join(_FLAGS[name] + _LIBS_AFTER.get(name, ())).encode())
-    h.update((HERE / f"{name}.cc").read_bytes())
+    for f in (HERE / f"{name}.cc", *_HEADERS.get(name, ())):
+        h.update(f.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -95,6 +103,26 @@ def _wordpiece_lib() -> ctypes.CDLL:
     lib.wp_tokenize.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
                                 ctypes.POINTER(ctypes.c_int32), ctypes.c_int]
     lib.wp_tokenize.restype = ctypes.c_int
+    return lib
+
+
+# native/layout.cc's entries: name -> number of int arguments (each returns an int)
+_LAYOUT_ARGS = {"tr_sm_share": 1, "tr_box_route": 1, "tr_pipe_rows": 4, "tr_scan_fit": 5,
+                "tr_scan_smem": 6, "tr_bucket_rows": 3, "tr_bucket_mtw": 2, "tr_bucket_wr": 2,
+                "tr_bucket_fit": 3, "tr_bucket_smem": 4, "tr_list_rows": 4, "tr_list_fit": 5,
+                "tr_list_smem": 5, "tr_mha_stages": 2, "tr_mha_smem": 3}
+
+
+@functools.lru_cache(maxsize=None)
+def layout() -> ctypes.CDLL:
+    """csrc/layout.h's kernel layouts through native/layout.cc (built with
+    g++ at the first call): the byte counts and the choices made from them
+    that the launch plans of ops/topk.py and ops/ivf_probe.py read."""
+    lib = load("layout")
+    for name, n_args in _LAYOUT_ARGS.items():
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_int] * n_args
+        fn.restype = ctypes.c_int
     return lib
 
 

@@ -18,7 +18,6 @@ runs the plain version below, which repeats the JAX kernel's arithmetic.
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
@@ -29,51 +28,6 @@ _MASK_VALUE = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64)
 _T_MAX = 512          # bf16: the encoders' longest sequence bucket, as far as it is checked
-_TC_ROWS = 128        # query rows of a bf16 block (kQTile)
-_TC_KEYS = 64         # keys of a bf16 ring chunk (kChunk)
-_F32_ROWS = 128       # query rows of an f32 block (kF32Rows)
-_F32_KEYS = 64        # keys of an f32 ring chunk (kF32Keys)
-_F32_STAGES = 3       # chunks in the f32 ring (kF32Stages)
-_SM_SMEM = 233_472     # shared memory of one H100 SM; each resident block also takes 1,024
-
-
-def _blocks_per_sm(smem: int) -> int:
-    """Blocks of `smem` bytes that one SM's shared memory holds at once."""
-    return _SM_SMEM // (smem + 1024)
-
-
-def _tc_stages(d: int, t: int) -> int:
-    """Ring stages of mha_tc_kernel<D> at T (tc_stages): one a 64-key chunk
-    of T, at most as many as leave room for two blocks an SM (8 at D 32:
-    T <= 512 held whole; 5 at D 64)."""
-    flags = 4 * _T_MAX
-    room = (_SM_SMEM // 2 - 1024 - 2 * _TC_ROWS * (d + 8) - flags) // (4 * _TC_KEYS * (d + 8))
-    return min(-(-t // _TC_KEYS), 8, room)
-
-
-def _tc_smem(d: int, t: int) -> int:
-    """Shared-memory bytes of one mha_tc_kernel<D> block at T
-    (tc_smem_bytes): the Q tile, the ring's K and V chunks in rows of D + 8
-    bf16, and one int flag per key of T's chunks."""
-    return (2 * (_TC_ROWS + 2 * _tc_stages(d, t) * _TC_KEYS) * (d + 8)
-            + 4 * _TC_KEYS * -(-t // _TC_KEYS))
-
-
-def _f32_smem(d: int) -> int:
-    """Shared-memory bytes of one mha_f32_kernel<D> block (f32_smem): the
-    Q tile and three K and three V chunks in rows of D + 4 floats, P^T in
-    rows of 128 + 4 floats, one int flag per key of the ring."""
-    ld, lp = d + 4, _F32_ROWS + 4
-    return 4 * (_F32_ROWS * ld + 2 * _F32_STAGES * _F32_KEYS * ld + _F32_KEYS * lp
-                + _F32_STAGES * _F32_KEYS)
-
-
-def _smem_bytes(dtype: torch.dtype, d: int, t: int) -> int:
-    """csrc/attention.cu's tr_mha_smem_bytes: one block's shared memory."""
-    fn = _build.load("attention").tr_mha_smem_bytes
-    fn.argtypes = [_build.I] * 3
-    fn.restype = ctypes.c_size_t
-    return int(fn(_DTYPE_CODE[dtype], d, t))
 
 
 def fused_mha_plain(q, k, v, mask):

@@ -42,7 +42,6 @@ JAX module:
 
 from __future__ import annotations
 
-import ctypes
 import functools
 import math
 from typing import NamedTuple
@@ -50,9 +49,9 @@ from typing import NamedTuple
 import torch
 
 from tpu_rag_torch import _build
+from tpu_rag_torch.native.binding import layout
 from tpu_rag_torch.ops.quant import quantize_int8_rows
-from tpu_rag_torch.ops.topk import (_DTYPE_CODE, _ELT, _SMEM_MAX, BUCKET, PAD_TAG,
-                                    _round_up, _sm_count, _tag_mask,
+from tpu_rag_torch.ops.topk import (_DTYPE_CODE, BUCKET, PAD_TAG, _sm_count, _tag_mask,
                                     _want_pair, select_topk)
 
 # Largest per-list k the per-list probe selects; above it the IVF index
@@ -138,20 +137,7 @@ def _probe_batched_plain(q_in, uniq, n_uniq, vec_lists, scale_lists, ns_lists,
 
 _LIST_ARGS = [_build.P] * 6 + [_build.I] * 12 + [_build.P] * 3
 _BATCHED_ARGS = [_build.P] * 7 + [_build.I] * 12 + [_build.P] * 3
-_BUCKET_WARPS = 8
-_BUCKET_STAGES_MAX = 8
-_BUCKET_M_MAX = 4
-_BUCKET_QREG_BYTES = 384  # int8 query rows up to this many bytes stay in registers
-
-
-def _smem_bytes(kind: int, code: int, d: int, qc: int, k: int, stages: int = 0,
-                rows: int = 0) -> int:
-    """csrc/ivf_probe.cu's tr_probe_smem_bytes: a block's shared memory
-    (`rows`: the stage rows of #6 on bf16/int8 lists)."""
-    fn = _build.load("ivf_probe").tr_probe_smem_bytes
-    fn.argtypes = [_build.I] * 7
-    fn.restype = ctypes.c_size_t
-    return int(fn(kind, code, d, qc, k, stages, rows))
+_BUCKET_M_MAX = 4          # bucket winners a query keeps
 
 
 class BucketPlan(NamedTuple):
@@ -171,63 +157,6 @@ class BucketPlan(NamedTuple):
     smem: int
 
 
-def _bucket_tiles(qc: int, rows: int) -> tuple[int, int, int, int]:
-    """pipe_bucket_kernel's warp tiling of a stage (bucket_mtw, bucket_wr):
-    (m16 row tiles a warp, row tiles of warps, query groups of warps, n8
-    query tiles a warp).  At 64 queries and 128 rows a warp multiplies 32
-    rows x 32 queries: ~197 KB of ldmatrix a bucket, where 16 x 64 reads
-    ~246 KB (every query fragment again every 16 rows), and a thread selects
-    for 8 query columns, not 16."""
-    nt = qc // 8
-    mtw = (2 if nt >= 2 else 1) if rows == 128 else (2 if nt >= 4 else 1)
-    wr = rows // (16 * mtw)
-    wq = min(_BUCKET_WARPS // wr, nt)
-    return mtw, wr, wq, nt // wq
-
-
-def _bucket_smem(elt: int, d: int, qc: int, stages: int, rows: int) -> int:
-    """Shared-memory bytes of pipe_bucket_kernel (bucket_smem): 1024 bytes of
-    slack to align the base to the swizzle unit, the queries (rows padded to
-    an odd number of 16-byte units), `stages` stages of `rows` rows stored as
-    128-byte column blocks (the tensor map's boxes) with their ns, canon and
-    scale, each rounded up to 1024 bytes, two tables of the warps' winners
-    (row tiles x queries x 4, score and slot) and one mbarrier per possible
-    stage.  int8 query rows of at most 384 bytes live in registers, and are
-    staged in the last ring stage rather than beside the ring."""
-    kbytes = _round_up(d * elt, 32)
-    qreg = elt == 1 and kbytes <= _BUCKET_QREG_BYTES
-    wr = _bucket_tiles(qc, rows)[1]
-    stage = _round_up(-(-d * elt // 128) * rows * 128 + 3 * rows * 4, 1024)
-    queries = 0 if qreg else _round_up(qc * (kbytes + 16), 1024)
-    return (1024 + queries + stages * stage + 2 * wr * qc * _BUCKET_M_MAX * 8
-            + _BUCKET_STAGES_MAX * 8)
-
-
-def _bucket_rows(elt: int, d: int, qc: int) -> int:
-    """Rows of a ring stage (bucket_rows): 128, one bucket, where three such
-    stages fit; else 64, a bucket in two stages."""
-    fixed = _bucket_smem(elt, d, qc, 0, 128)
-    stage = _bucket_smem(elt, d, qc, 1, 128) - fixed
-    return 128 if fixed < _SMEM_MAX and (_SMEM_MAX - fixed) // stage >= 3 else 64
-
-
-_F32_BOX = 32    # f32 floats of a row in one 128-byte tensor-map box
-
-
-def _f32_bucket_smem(d: int, qc: int, stages: int) -> int:
-    """Shared-memory bytes of batched_bucket_kernel (f32_bucket_smem): 1024
-    bytes of slack to align the base, the queries (rows of d floats rounded
-    up to whole boxes plus 4), `stages` stages of one box (128 rows x 128
-    bytes) with the bucket's ns and canon, each rounded up to 1024 bytes,
-    the two tables of the warps' winners and one mbarrier per possible
-    stage."""
-    ld = _round_up(d, _F32_BOX) + 4
-    stage = _round_up(BUCKET * 128 + 2 * BUCKET * 4, 1024)
-    wr = _bucket_tiles(qc, BUCKET)[1]
-    return (1024 + _round_up(qc * ld * 4, 1024) + stages * stage
-            + 2 * wr * qc * _BUCKET_M_MAX * 8 + _BUCKET_STAGES_MAX * 8)
-
-
 def _bucket_ranges(n_items: int, blocks: int) -> list[tuple[int, int]]:
     """The item range [begin, end) of each block of a query chunk, as
     pipe_bucket_kernel computes it on the device from the live union:
@@ -239,56 +168,33 @@ def _bucket_plan(u_max: int, nb: int, nq: int, d: int, dtype: torch.dtype,
                  sms: int) -> BucketPlan:
     """Launch geometry of kernel #7, a pure function of the shapes.
 
-    bf16/int8: the query chunk is the power of two 8..64 that covers nq,
-    halved while fewer than two ring stages fit; the ring takes as many
-    stages (at most 8) of _bucket_rows rows as the rest of the 232,448 bytes
-    hold; one block per SM and query chunk.  f32: the same, from 16, with
-    one-box stages and one block per SM for each query chunk (the FMA pipes
-    bound a chunk: the chunks run one wave after another)."""
-    chunks = lambda qc: -(-nq // qc)  # noqa: E731
-    if dtype == torch.float32:
-        qc = 16
-        while qc < min(nq, 64):
-            qc *= 2
-        while True:
-            fixed = _f32_bucket_smem(d, qc, 0)
-            stages = min(_BUCKET_STAGES_MAX,
-                         max(0, _SMEM_MAX - fixed) // (_f32_bucket_smem(d, qc, 1) - fixed))
-            if stages >= 2:
-                break
-            if qc == 16:
-                raise ValueError(f"batched probe does not fit shared memory at d={d}")
-            qc //= 2
-        return BucketPlan(qc, BUCKET, stages, sms, -(-u_max * nb // sms),
-                          _f32_bucket_smem(d, qc, stages))
-    elt = _ELT[dtype]
-    qc = 8
+    The query chunk is the power of two 8..64 (f32: 16..64) that covers
+    nq, halved while fewer than two ring stages fit; the ring takes as many
+    stages (at most 8) as the rest of a block's shared memory holds.  A
+    stage's rows and a block's bytes are csrc/layout.h's (bucket_rows,
+    bucket_smem, f32_bucket_smem), read through native/layout.cc.
+    bf16/int8: one block per SM and query chunk.  f32: one block per SM for
+    each query chunk (the FMA pipes bound a chunk: the chunks run one wave
+    after another)."""
+    code, f32 = _DTYPE_CODE[dtype], dtype == torch.float32
+    lay = layout()
+    qc = 16 if f32 else 8
     while qc < min(nq, 64):
         qc *= 2
-    while True:
-        rows = _bucket_rows(elt, d, qc)
-        fixed = _bucket_smem(elt, d, qc, 0, rows)
-        stage = _bucket_smem(elt, d, qc, 1, rows) - fixed
-        stages = min(_BUCKET_STAGES_MAX, max(0, _SMEM_MAX - fixed) // stage)
-        if stages >= 2:
-            break
-        if qc == 8:
+    while (stages := lay.tr_bucket_fit(code, d, qc)) < 2:
+        if qc == (16 if f32 else 8):
             raise ValueError(f"batched probe does not fit shared memory at d={d}")
         qc //= 2
-    blocks = max(1, sms // chunks(qc))
-    return BucketPlan(qc, rows, stages, blocks, -(-u_max * nb // blocks),
-                      fixed + stages * stage)
+    blocks = sms if f32 else max(1, sms // -(-nq // qc))
+    return BucketPlan(qc, lay.tr_bucket_rows(code, d, qc), stages, blocks,
+                      -(-u_max * nb // blocks), lay.tr_bucket_smem(code, d, qc, stages))
 
 
 # ---- kernel #6's launch plan (probe_split_kernel on bf16/int8 lists,
 # probe_f32_kernel on f32 lists)
 
-_LIST_WARPS = 8
 _LIST_SPLIT_MAX = 8        # blocks of one list: a thread-block cluster
-_LIST_STAGES_MAX = 8
 _LIST_PER_SM_MAX = 7       # blocks an SM holds: 2,048 threads over 288 (8 consumer warps + 1)
-_LIST_MAP_WORDS = K_EFF_MAX // 32
-_SM_SMEM = 233_472         # shared memory of one H100 SM; a resident block reserves 1 KB
 
 
 class ListPlan(NamedTuple):
@@ -303,31 +209,6 @@ class ListPlan(NamedTuple):
     blocks: int
     per_sm: int
     smem: int
-
-
-def _list_smem(elt: int, d: int, k: int, stages: int, rows: int) -> int:
-    """Shared-memory bytes of probe_split_kernel (list_smem): 1024 bytes of
-    slack to align the base to the swizzle unit, `stages` stages of `rows`
-    rows stored as 128-byte column blocks with their ns, canon and scale,
-    each rounded up to 1024 bytes, the query, the 8 warps' sorted lists and
-    the block's merged list (k scores and k slots each), warp_merge's bit
-    maps, the warps' published scores and two mbarriers per possible stage
-    (full, empty)."""
-    stage = _round_up(-(-d * elt // 128) * rows * 128 + 3 * rows * 4, 1024)
-    return (1024 + stages * stage + _round_up(_round_up(d * elt, 32), 128)
-            + _round_up(_LIST_WARPS * k * 8, 128) + _round_up(k * 8, 128)
-            + _LIST_WARPS * _LIST_MAP_WORDS * 4 + 64 + 2 * _LIST_STAGES_MAX * 8)
-
-
-def _f32_list_smem(d: int, k: int, stages: int) -> int:
-    """Shared-memory bytes of probe_f32_kernel (f32_list_smem): 1024 bytes of
-    slack, `stages` one-box stages (128 slots x 128 bytes), the query (d
-    floats rounded up to whole boxes), the 8 warps' sorted lists and the
-    block's merged list, warp_merge's bit maps, the warps' published scores
-    and two mbarriers per possible stage."""
-    return (1024 + stages * BUCKET * 128 + _round_up(-(-d // _F32_BOX) * 128, 128)
-            + _round_up(_LIST_WARPS * k * 8, 128) + _round_up(k * 8, 128)
-            + _LIST_WARPS * _LIST_MAP_WORDS * 4 + 64 + 2 * _LIST_STAGES_MAX * 8)
 
 
 def _list_ranges(cap: int, split: int) -> list[tuple[int, int]]:
@@ -366,8 +247,8 @@ def _list_plan(nq: int, nprobe: int, cap: int, d: int, dtype: torch.dtype, k: in
     0.0379 ms where the rule above (split 8, three an SM) took 0.0563
     (device time, NVIDIA H100 80GB HBM3 at 700 W, probe_sweep.py --list
     --f32)."""
-    f32 = dtype == torch.float32
-    elt = _ELT[dtype]
+    code, f32 = _DTYPE_CODE[dtype], dtype == torch.float32
+    lay = layout()
     nb = -(-cap // BUCKET)
     n_lists = nq * nprobe
 
@@ -381,17 +262,11 @@ def _list_plan(nq: int, nprobe: int, cap: int, d: int, dtype: torch.dtype, k: in
     blocks = n_lists * split
     most = min(-(-blocks // sms), _LIST_PER_SM_MAX)
     for per_sm in range(max(2, most) if f32 else most, 0, -1):
-        budget = min(_SMEM_MAX, _SM_SMEM // per_sm - 1024)
-        if f32:
-            rows, fixed = BUCKET, _f32_list_smem(d, k, 0)
-            stage = _f32_list_smem(d, k, 1) - fixed
-        else:
-            rows = 128 if _list_smem(elt, d, k, 2, 128) <= budget else 64
-            fixed = _list_smem(elt, d, k, 0, rows)
-            stage = _list_smem(elt, d, k, 1, rows) - fixed
-        stages = min(_LIST_STAGES_MAX, max(0, budget - fixed) // stage)
+        rows = lay.tr_list_rows(code, d, k, per_sm)
+        stages = lay.tr_list_fit(code, d, k, rows, per_sm)
         if stages >= 2:
-            return ListPlan(split, rows, stages, blocks, per_sm, fixed + stages * stage)
+            return ListPlan(split, rows, stages, blocks, per_sm,
+                            lay.tr_list_smem(code, d, k, stages, rows))
     raise ValueError(f"per-list probe does not fit shared memory at d={d}, k={k}")
 
 

@@ -27,6 +27,7 @@ from typing import NamedTuple
 import torch
 
 from tpu_rag_torch import _build
+from tpu_rag_torch.native.binding import layout
 from tpu_rag_torch.ops.quant import quantize_int8_rows
 
 # Tag value marking padded (non-existent) DB rows; real tag ids are >= 0 and
@@ -35,7 +36,6 @@ PAD_TAG = -(2**31)
 
 BUCKET = 128          # bucketed mode: one candidate per 128 consecutive rows
 K_MAX = 1024          # largest k the exact and packed scans select
-_SMEM_MAX = 232_448   # dynamic shared memory one H100 block may use
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
@@ -135,9 +135,6 @@ def _bucketed_scan_plain(q, x, scale, ns, canon, want_ns, want_canon):
 
 _SCAN_ARGS = [_build.P] * 6 + [_build.I] * 11 + [_build.P] * 4
 _SCAN_MODE = {"bucketed": 0, "exact": 1, "packed": 2}
-_ELT = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}
-_PIPE_WARPS = 8
-_PIPE_STAGES_MAX = 8
 _SEED_MIN_WORK = 512      # nq * k from which exact/packed scans seed their thresholds
 _SEED_ROWS_MIN = 32_768   # rows of the seeding scan (at least 32 k)
 
@@ -155,114 +152,35 @@ class ScanPlan(NamedTuple):
     smem: int
 
 
-def _align128(x: int) -> int:
-    return _round_up(x, 128)
-
-
-def _pipe_smem(elt: int, d: int, qc: int, k: int, mode: str, stages: int,
-               rows: int) -> int:
-    """Shared-memory bytes of csrc/topk.cu's pipe_scan_kernel (pipe_smem):
-    queries, query scales, `stages` tiles of `rows` rows with their ns,
-    canon and scale; exact/packed: the sorted lists, the candidates' scores,
-    their rows' bit masks and a 1024-bit merge map a warp; bucketed: the
-    row tiles' maxima; then one 8-byte mbarrier per possible stage."""
-    ld = _round_up(d * elt, 32) + 16
-    lists = mode != "bucketed"
-    stage = _align128(rows * ld) + 3 * rows * 4
-    return (_align128(qc * ld) + _align128(qc * 4) + stages * stage
-            + (_align128(qc * k * 8) + _align128(rows * (qc + 1) * 4)
-               + _align128(qc * rows // 32 * 4) + _PIPE_WARPS * 32 * 4 if lists
-               else _align128(rows // 16 * qc * 8))
-            + _PIPE_STAGES_MAX * 8)
-
-
-def _pipe_fit(elt: int, d: int, qc: int, k: int, mode: str, rows: int) -> int:
-    """Ring stages of `rows` rows that fit beside the rest (pipe_fit)."""
-    fixed = _pipe_smem(elt, d, qc, k, mode, 0, rows)
-    stage = _pipe_smem(elt, d, qc, k, mode, 1, rows) - fixed
-    return min(_PIPE_STAGES_MAX, max(0, _SMEM_MAX - fixed) // stage)
-
-
-def _pipe_rows(elt: int, d: int, qc: int, k: int, mode: str) -> int:
-    """Rows of one ring stage (pipe_rows): 128, one m16 tile a warp, for a
-    chunk of 8 queries where the stages that fit beside the lists keep
-    64 KB of rows in flight; else 64, the 8 warps splitting the queries in
-    two halves."""
-    if qc != 8:
-        return 64
-    stages = _pipe_fit(elt, d, qc, k, mode, 128)
-    return 128 if stages >= 2 and (stages - 1) * 128 * d * elt >= 65536 else 64
-
-
-_BOX_WARPS = 8          # consumer warps of box_scan_kernel
-_BOX_BYTES = 128 * 128  # one ring stage: a box of 128 rows x 128 bytes
-
-
-def _box_route(dtype: torch.dtype) -> bool:
-    """csrc/topk.cu's box_route: f32 and bf16 rows take box_scan_kernel,
-    int8 rows pipe_scan_kernel."""
-    return dtype != torch.int8
-
-
-def _box_wr(qc: int) -> int:
-    """Row groups of box_scan_kernel's warps (box_wr): 16-row groups at 1
-    and 8 queries, 32-row groups (two m16 tiles) from 16."""
-    return BUCKET // (32 if qc >= 16 else 16)
-
-
-def _box_scan_smem(elt: int, d: int, qc: int, k: int, mode: str, stages: int) -> int:
-    """Shared-memory bytes of csrc/topk.cu's box_scan_kernel (box_scan_smem):
-    1024 bytes of slack to align the base to the swizzle unit, `stages`
-    one-box stages, the queries (rows of d * elt bytes rounded up to whole
-    128-byte boxes, plus 16); exact/packed: the sorted lists, the
-    candidates' scores (128 rows x (qc + 1)), their rows' bit masks, a
-    1024-bit merge map a warp and each list's count of real entries;
-    bucketed: two tables of the row groups' maxima; then two 8-byte
-    mbarriers per possible stage."""
-    ld = _round_up(d * elt, 128) + 16
-    lists = mode != "bucketed"
-    tail = (_align128(qc * k * 8) + _align128(BUCKET * (qc + 1) * 4)
-            + _align128(qc * BUCKET // 32 * 4) + _BOX_WARPS * 32 * 4 + _align128(qc * 4)
-            if lists else _align128(2 * _box_wr(qc) * qc * 8))
-    return 1024 + stages * _BOX_BYTES + _align128(qc * ld) + tail + 2 * _PIPE_STAGES_MAX * 8
-
-
 def _scan_plan(n: int, d: int, nq: int, k: int, dtype: torch.dtype, sms: int,
                mode: str = "exact") -> ScanPlan:
     """Launch geometry of the scan kernels, a pure function of the shapes.
 
     The query chunk is the power of two 8..64 that covers nq (f32: 1 for one
     query), halved while fewer than two ring stages fit beside the lists and
-    the queries; the ring takes as many stages (at most 8) as the rest of
-    the 232,448 bytes hold.  box_scan_kernel (_box_route: f32 and bf16) has
-    one-box stages, whatever d, so a 64-query chunk fits at d 768;
-    pipe_scan_kernel (int8) has stages of _pipe_rows full-depth rows.  Each
+    the queries; the ring takes as many stages (at most 8) as the rest of a
+    block's shared memory holds.  The kernel of a dtype, its stages and its
+    bytes are csrc/layout.h's (box_route, box_scan_smem, pipe_rows,
+    pipe_smem), read through native/layout.cc: box_scan_kernel (f32 and
+    bf16) has one-box stages, whatever d, so a 64-query chunk fits at d
+    768; pipe_scan_kernel (int8) has stages of full-depth rows.  Each
     block scans one contiguous range of rows: one block per SM for all the
     chunks together, or, for f32, a wave of one block per SM for each chunk
     (the FMA pipes, not the bytes, bound a chunk from ~40 queries)."""
     kk = k if mode != "bucketed" else 0
-    elt = _ELT[dtype]
-    box = _box_route(dtype)
+    code, m = _DTYPE_CODE[dtype], _SCAN_MODE[mode]
+    lay = layout()
     qc = 1 if nq == 1 and dtype == torch.float32 else 8
     while 1 < qc < min(nq, 64):
         qc *= 2
-    while True:
-        if box:
-            fixed = _box_scan_smem(elt, d, qc, kk, mode, 0)
-            stage = _BOX_BYTES
-        else:
-            rows = _pipe_rows(elt, d, qc, kk, mode)
-            fixed = _pipe_smem(elt, d, qc, kk, mode, 0, rows)
-            stage = _pipe_smem(elt, d, qc, kk, mode, 1, rows) - fixed
-        stages = min(_PIPE_STAGES_MAX, max(0, _SMEM_MAX - fixed) // stage)
-        if stages >= 2:
-            break
+    while (stages := lay.tr_scan_fit(code, d, qc, kk, m)) < 2:
         if qc <= 8:
             raise ValueError(f"scan does not fit shared memory at d={d}, k={k}")
         qc //= 2
     per_chunk = sms if dtype == torch.float32 else max(1, sms // -(-nq // qc))
     block_rows = _round_up(-(-n // per_chunk), BUCKET)
-    return ScanPlan(qc, stages, block_rows, -(-n // block_rows), fixed + stages * stage)
+    return ScanPlan(qc, stages, block_rows, -(-n // block_rows),
+                    lay.tr_scan_smem(code, d, qc, kk, m, stages))
 
 
 def _seed_rows(n: int, nq: int, k: int) -> int:

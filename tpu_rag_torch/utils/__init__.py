@@ -1,5 +1,5 @@
 from tpu_rag_torch.utils.env import load_dotenv, env_str, env_int, env_float, env_bool
-from tpu_rag_torch.utils.timing import Timer, StageTimings
+from tpu_rag_torch.utils.timing import StageTimings
 
 __all__ = [
     "load_dotenv",
@@ -7,6 +7,5 @@ __all__ = [
     "env_int",
     "env_float",
     "env_bool",
-    "Timer",
     "StageTimings",
 ]

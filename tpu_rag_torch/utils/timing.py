@@ -49,14 +49,6 @@ from typing import NamedTuple
 import torch
 
 
-class Timer:
-    def __init__(self) -> None:
-        self.t0 = time.perf_counter()
-
-    def ms(self) -> float:
-        return (time.perf_counter() - self.t0) * 1000.0
-
-
 class StageTimings:
     """Collects named stage durations (milliseconds)."""
 
